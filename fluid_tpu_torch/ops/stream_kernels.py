@@ -1,0 +1,432 @@
+"""The stream backend's five kernel entry points: wrapper, plain version, count.
+
+Each of ``deposit_p2g1``, ``deposit_p2g2``, ``collect``, ``halo_axis`` and
+``halo_gblk`` is a wrapper that checks its tensors and then
+
+* for CPU tensors, runs the plain PyTorch version below (direct 3^D taps
+  with ``index_add_`` and gathers at the tile-window level) — the CPU tests'
+  path, and what ``chip_smoke.py`` holds the kernels against on the card;
+* for CUDA tensors, launches the hand-written kernel of
+  ``csrc/stream_kernels.cu`` and raises if the launch reports an error.
+  There is no fallback from a CUDA tensor to the plain version.
+
+``LAUNCHES[name]`` counts the kernel launches of each wrapper (never the
+plain versions), so a run can show that its main path went through every
+kernel.
+
+The plain versions compute in the kernels' arithmetic order (taps in
+stencil order, axis 0 fastest; particles in slot order), so on the card the
+two differ only where ``index_add_`` sums in another order.
+
+Layouts (see ``csrc/stream_kernels.cu``): stream ``[A, F, cap]``, windows
+``[A, CH, E^D]`` in flat cell order ``(e_0, ..., e_{D-1})``, flag
+``[A, cap]``, count / tid / neighbour rows ``[A]`` int32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .bspline import quadratic_weights, stencil_offsets
+
+KERNELS = ("deposit_p2g1", "deposit_p2g2", "collect", "halo_axis", "halo_gblk")
+LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TileGeom:
+    """Static tile geometry the kernels need."""
+
+    dim: int
+    tile: int  # T, cells per tile edge
+    halo: int  # h, window reach beyond the tile
+    cap: int  # slots per tile
+    tshape: Tuple[int, ...]  # tiles per axis
+    origin: Tuple[int, ...]  # domain origin, in cells
+
+    @property
+    def E(self) -> int:
+        return self.tile + 2 * self.halo
+
+    @property
+    def ncell(self) -> int:
+        return self.E**self.dim
+
+    @property
+    def F(self) -> int:
+        return 2 * self.dim + self.dim * self.dim + 4
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _valid_slots(count: torch.Tensor, cap: int):
+    """(tile index, slot index) of every valid slot, in slot order."""
+    s = torch.arange(cap, device=count.device)
+    return (s[None, :] < count[:, None]).nonzero(as_tuple=True)
+
+
+def _stencil(pos: torch.Tensor, tid: torch.Tensor, g: TileGeom):
+    """Window row base [V, D] (clipped to the drift window), dvec [V, D] and
+    per-axis weights [V, 3, D] of particles at ``pos`` in tiles ``tid``."""
+    cf = torch.floor(pos)
+    coord = torch.stack(
+        [(tid // math.prod(g.tshape[d + 1:])) % g.tshape[d] for d in range(g.dim)],
+        dim=-1,
+    )
+    org = torch.as_tensor(g.origin, device=pos.device)
+    lc = cf.to(torch.int64) - (org + coord * g.tile)
+    base = (lc + g.halo - 1).clamp(0, g.E - 3)
+    dvec = (pos - cf) - 0.5
+    return base, dvec, quadratic_weights(dvec)
+
+
+def _taps(base, dvec, ws, g: TileGeom):
+    """Per tap (stencil order): weight [V, K], window cell [V, K], dpos
+    [V, K, D] = tap cell centre minus particle."""
+    offs = stencil_offsets(g.dim, base.device)  # [K, D]
+    D = g.dim
+    w = ws[:, offs[:, 0], 0]
+    for d in range(1, D):
+        w = w * ws[:, offs[:, d], d]
+    e = base[:, None, 0] + offs[None, :, 0]
+    for d in range(1, D):
+        e = e * g.E + (base[:, None, d] + offs[None, :, d])
+    dpos = (offs - 1).to(torch.float32)[None] - dvec[:, None, :]
+    return w, e, dpos
+
+
+def _scatter_windows(a_idx, e, vals, A: int, g: TileGeom) -> torch.Tensor:
+    """vals [V, K, CH] summed into windows [A, CH, E^D] at cells (a, e)."""
+    CH = vals.shape[-1]
+    out = torch.zeros((A * g.ncell, CH), dtype=torch.float32, device=vals.device)
+    out.index_add_(0, (a_idx[:, None] * g.ncell + e).reshape(-1), vals.reshape(-1, CH))
+    return out.reshape(A, g.ncell, CH).permute(0, 2, 1).contiguous()
+
+
+def _p2g1_windows(a_idx, pos, vel, C, mass, tid, A: int, g: TileGeom):
+    """Mass + APIC momentum windows [A, 1+D, E^D] of the given particles."""
+    base, dvec, ws = _stencil(pos, tid, g)
+    w, e, dpos = _taps(base, dvec, ws, g)
+    mc = w * mass[:, None]
+    cols = [mc]
+    for i in range(g.dim):
+        q = C[:, i, 0, None] * dpos[..., 0]
+        for j in range(1, g.dim):
+            q = q + C[:, i, j, None] * dpos[..., j]
+        cols.append(mc * (vel[:, i, None] + q))
+    return _scatter_windows(a_idx, e, torch.stack(cols, dim=-1), A, g)
+
+
+def _tap_sum(w, vals):
+    """sum_k w[:, k] * vals[:, k] in stencil order (the kernels' order)."""
+    acc = torch.zeros_like(w[:, 0])
+    for k in range(w.shape[1]):
+        acc = acc + w[:, k] * vals[:, k]
+    return acc
+
+
+def _pressure(rho, rest, k_eos, gamma, floor_p):
+    return torch.clamp_min(k_eos * (torch.pow(rho / rest, gamma) - 1.0), floor_p)
+
+
+def deposit_p2g1_plain(count, tid, stream, g: TileGeom) -> torch.Tensor:
+    A, D = count.shape[0], g.dim
+    a_idx, s_idx = _valid_slots(count, g.cap)
+    pos = stream[a_idx, 0:D, s_idx]
+    vel = stream[a_idx, D:2 * D, s_idx]
+    C = stream[a_idx, 2 * D:2 * D + D * D, s_idx].reshape(-1, D, D)
+    mass = stream[a_idx, 2 * D + D * D, s_idx]
+    return _p2g1_windows(a_idx, pos, vel, C, mass, tid.long()[a_idx], A, g)
+
+
+def deposit_p2g2_plain(count, tid, stream, hs_m, params, d1, g: TileGeom) -> torch.Tensor:
+    A, D = count.shape[0], g.dim
+    a_idx, s_idx = _valid_slots(count, g.cap)
+    pos = stream[a_idx, 0:D, s_idx]
+    C = stream[a_idx, 2 * D:2 * D + D * D, s_idx].reshape(-1, D, D)
+    mass = stream[a_idx, 2 * D + D * D, s_idx]
+    base, dvec, ws = _stencil(pos, tid.long()[a_idx], g)
+    w, e, dpos = _taps(base, dvec, ws, g)
+    rho = _tap_sum(w, hs_m.reshape(A, g.ncell)[a_idx[:, None], e])
+    dt, rest, k_eos, gamma, floor_p, mu = params.unbind()
+    volume = torch.where(rho > 0.0, mass / torch.where(rho > 0.0, rho, 1.0), 0.0)
+    pressure = _pressure(rho, rest, k_eos, gamma, floor_p)
+    scale = (-4.0 * dt) * volume
+    cols = []
+    for i in range(D):
+        term = []
+        for j in range(D):
+            visc = mu * (C[:, i, j] + C[:, j, i])
+            term.append(scale * (-pressure + visc if i == j else visc))
+        f = term[0][:, None] * dpos[..., 0]
+        for j in range(1, D):
+            f = f + term[j][:, None] * dpos[..., j]
+        cols.append(w * f)
+    out = _scatter_windows(a_idx, e, torch.stack(cols, dim=-1), A, g) + d1[:, 1:]
+    return torch.where((count > 0)[:, None, None], out, 0.0)
+
+
+def collect_plain(count, tid, params, stream, gblk, g: TileGeom, fused: bool):
+    A, D, cap = count.shape[0], g.dim, g.cap
+    a_idx, s_idx = _valid_slots(count, cap)
+    tid_v = tid.long()[a_idx]
+    pos = stream[a_idx, 0:D, s_idx]
+    mass = stream[a_idx, 2 * D + D * D, s_idx]
+    pid = stream[a_idx, 2 * D + D * D + 1, s_idx]
+    base, dvec, ws = _stencil(pos, tid_v, g)
+    w, e, dpos = _taps(base, dvec, ws, g)
+    gw = gblk.reshape(A, 1 + D, g.ncell)
+    gv = [gw[a_idx[:, None], i, e] for i in range(D)]
+    zero = torch.zeros_like(w[:, 0])
+    v = [zero] * D
+    B = [[zero] * D for _ in range(D)]
+    for k in range(w.shape[1]):
+        for i in range(D):
+            wv = w[:, k] * gv[i][:, k]
+            v[i] = v[i] + wv
+            for j in range(D):
+                B[i][j] = B[i][j] + wv * dpos[:, k, j]
+    rho = _tap_sum(w, gw[a_idx[:, None], D, e])
+    newC = [4.0 * B[i][j] for i in range(D) for j in range(D)]
+
+    p = params
+    dt, rest, k_eos, gamma, floor_p = p[0], p[1], p[2], p[3], p[4]
+    mouse_r, damp, m_active, mx, my = p[5], p[6], p[7], p[8], p[9]
+    stride = p[10 + 2 * D]
+    pressure = _pressure(rho, rest, k_eos, gamma, floor_p)
+    newpos = [pos[:, d] + v[d] * dt for d in range(D)]
+
+    dx = newpos[0] - mx
+    dy = newpos[1] - my
+    d2 = dx * dx + dy * dy
+    nrm = torch.sqrt(d2)
+    inv = torch.where(nrm > 0.0, 1.0 / torch.where(nrm > 0.0, nrm, 1.0), 0.0)
+    hit = (m_active > 0.0) & (d2 < mouse_r * mouse_r)
+    v[0] = v[0] + torch.where(hit, dx * inv, 0.0)
+    v[1] = v[1] + torch.where(hit, dy * inv, 0.0)
+
+    sbase = torch.where(
+        stride > 0.0, torch.floor(newpos[0] / torch.clamp_min(stride, 1.0)) * stride, 0.0
+    )
+    for d in range(D):
+        off = sbase if d == 0 else torch.zeros_like(sbase)
+        lo = p[10 + d] + off
+        hi = p[10 + D + d] + off
+        p_cl = torch.minimum(torch.maximum(newpos[d], lo), hi)
+        nxt = p_cl + v[d]
+        wmin = lo + damp
+        wmax = hi - damp
+        vv = v[d] + torch.where(nxt < wmin, wmin - nxt, 0.0)
+        vv = vv + torch.where(nxt > wmax, wmax - nxt, 0.0)
+        newpos[d] = p_cl
+        v[d] = vv
+
+    bad = torch.zeros_like(rho, dtype=torch.bool)
+    for d in range(D):
+        coord = (tid_v // math.prod(g.tshape[d + 1:])) % g.tshape[d]
+        lcn = torch.floor(newpos[d]).to(torch.int64) - (g.origin[d] + coord * g.tile)
+        bad = bad | (lcn < 1 - g.halo) | (lcn > g.tile - 2 + g.halo)
+
+    rows = torch.stack(newpos + v + newC + [mass, pid, rho, pressure], dim=-1)
+    out = torch.zeros_like(stream)
+    out[a_idx, :, s_idx] = rows
+    flag = torch.zeros((A, cap), dtype=torch.float32, device=stream.device)
+    flag[a_idx, s_idx] = torch.where(bad, 2.0, 0.0)
+    if not fused:
+        return out, flag
+    pos_n = torch.stack(newpos, dim=-1)
+    vel_n = torch.stack(v, dim=-1)
+    C_n = torch.stack(newC, dim=-1).reshape(-1, D, D)
+    return out, flag, _p2g1_windows(a_idx, pos_n, vel_n, C_n, mass, tid_v, A, g)
+
+
+def halo_axis_plain(x, nbp, nbm, g: TileGeom, axis: int) -> torch.Tensor:
+    """One separable overlap-add pass (``halo_pull``'s math for one axis)."""
+    E, T = g.E, g.tile
+    lstride = E ** (g.dim - 1 - axis)
+    shift = T * lstride
+    e_d = (torch.arange(g.ncell, device=x.device) // lstride) % E
+    xp = torch.cat([x, torch.zeros_like(x[:1])], dim=0)
+    yp = xp[nbp.long()]
+    ys = torch.zeros_like(x)
+    ys[..., shift:] = yp[..., :-shift]
+    acc = x + torch.where(e_d >= T, ys, 0.0)
+    ym = xp[nbm.long()]
+    ys = torch.zeros_like(x)
+    ys[..., :-shift] = ym[..., shift:]
+    return acc + torch.where(e_d < E - T, ys, 0.0)
+
+
+def halo_gblk_plain(x, hs_m, nbp, nbm, dtg, g: TileGeom, axis: int) -> torch.Tensor:
+    mf = halo_axis_plain(x, nbp, nbm, g, axis)
+    dtg = torch.as_tensor(dtg, dtype=torch.float32, device=x.device)
+    v = torch.where(
+        hs_m > 0.0, mf / torch.where(hs_m > 0.0, hs_m, 1.0) + dtg[None, :, None], 0.0
+    )
+    return torch.cat([v, hs_m], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _on_cpu(device: torch.device) -> bool:
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"stream kernels run on cuda (or plain on cpu), not {device}")
+    return False
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _ints(vals):
+    """A host int[3] (tile shape or origin) as a pointer argument."""
+    arr = (ctypes.c_int * 3)(*(list(vals) + [0] * (3 - len(vals))))
+    return ctypes.cast(arr, ctypes.c_void_p)
+
+
+def _launch(name: str, fn, *args) -> None:
+    """Call a C entry point on the current stream; raise on its error code."""
+    from . import cuda_build
+
+    lib = cuda_build.load()
+    rc = getattr(lib, fn)(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _check_tiles(count, tid, stream, g: TileGeom):
+    A = count.shape[0]
+    dev = stream.device
+    _check("count", count, (A,), torch.int32, dev)
+    _check("tid", tid, (A,), torch.int32, dev)
+    _check("stream", stream, (A, g.F, g.cap), torch.float32, dev)
+    if g.cap > 256:
+        raise ValueError(f"cap {g.cap} > 256: the kernels launch one thread per slot")
+    return A, dev
+
+
+def deposit_p2g1(count, tid, stream, g: TileGeom) -> torch.Tensor:
+    """p2g_1 windows [A, 1+D, E^D]: mass and APIC momentum of each tile."""
+    A, dev = _check_tiles(count, tid, stream, g)
+    if _on_cpu(dev):
+        return deposit_p2g1_plain(count, tid, stream, g)
+    out = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("deposit_p2g1", "fluid_deposit", g.dim, 1, _ptr(count), _ptr(tid),
+                _ptr(stream), _ptr(None), _ptr(None), _ptr(None), _ptr(out), A,
+                g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin))
+    return out
+
+
+def deposit_p2g2(count, tid, stream, hs_m, params, d1, g: TileGeom) -> torch.Tensor:
+    """Combined momentum + eq-16 force windows [A, D, E^D] (density from the
+    halo'd mass windows ``hs_m`` [A, 1, E^D], p2g1 momentum from ``d1``).
+    params: [dt, rest_density, eos_stiffness, eos_power, floor, mu]."""
+    A, dev = _check_tiles(count, tid, stream, g)
+    _check("hs_m", hs_m, (A, 1, g.ncell), torch.float32, dev)
+    _check("d1", d1, (A, 1 + g.dim, g.ncell), torch.float32, dev)
+    _check("params", params, (6,), torch.float32, dev)
+    if _on_cpu(dev):
+        return deposit_p2g2_plain(count, tid, stream, hs_m, params, d1, g)
+    out = torch.empty((A, g.dim, g.ncell), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("deposit_p2g2", "fluid_deposit", g.dim, 2, _ptr(count), _ptr(tid),
+                _ptr(stream), _ptr(hs_m), _ptr(d1), _ptr(params), _ptr(out), A,
+                g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin))
+    return out
+
+
+def collect(count, tid, params, stream, gblk, g: TileGeom, fused: bool):
+    """g2p + particle tail -> (next stream [A, F, cap], flag [A, cap]) and,
+    when ``fused``, the next substep's p2g1 windows [A, 1+D, E^D].
+    params: see ``stream_transfer.collect_params``."""
+    A, dev = _check_tiles(count, tid, stream, g)
+    _check("gblk", gblk, (A, 1 + g.dim, g.ncell), torch.float32, dev)
+    _check("params", params, (11 + 2 * g.dim,), torch.float32, dev)
+    if _on_cpu(dev):
+        return collect_plain(count, tid, params, stream, gblk, g, fused)
+    out = torch.empty_like(stream)
+    flag = torch.empty((A, g.cap), dtype=torch.float32, device=dev)
+    dep = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev) if fused else None
+    with torch.cuda.device(dev):
+        _launch("collect", "fluid_collect", g.dim, int(fused), _ptr(count), _ptr(tid),
+                _ptr(params), _ptr(stream), _ptr(gblk), _ptr(out), _ptr(flag),
+                _ptr(dep), A, g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin))
+    return (out, flag, dep) if fused else (out, flag)
+
+
+def _check_halo(x, nbp, nbm, g: TileGeom):
+    A, CH = x.shape[0], x.shape[1]
+    dev = x.device
+    _check("x", x, (A, CH, g.ncell), torch.float32, dev)
+    _check("nbp", nbp, (A,), torch.int32, dev)
+    _check("nbm", nbm, (A,), torch.int32, dev)
+    return A, CH, dev
+
+
+def halo_axis(x, nbp, nbm, g: TileGeom, axis: int) -> torch.Tensor:
+    """One separable halo pass along ``axis`` over windows [A, CH, E^D];
+    ``nbp``/``nbm`` are the active indices of the +/- face neighbours
+    (A = none).  Returns a new tensor."""
+    A, CH, dev = _check_halo(x, nbp, nbm, g)
+    if _on_cpu(dev):
+        return halo_axis_plain(x, nbp, nbm, g, axis)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _launch("halo_axis", "fluid_halo_axis", _ptr(x), _ptr(nbp), _ptr(nbm), _ptr(out),
+                A, CH, g.ncell, g.E, g.tile, g.E ** (g.dim - 1 - axis))
+    return out
+
+
+def gravity_step(dt: float, gravity) -> np.ndarray:
+    """dt * g in float32, as the grid update adds it."""
+    return np.float32(dt) * np.asarray(gravity, np.float32)
+
+
+def halo_gblk(x, hs_m, nbp, nbm, dtg: np.ndarray, g: TileGeom, axis: int) -> torch.Tensor:
+    """Last m+f halo pass along ``axis`` fused with the grid update: grid
+    values [A, 1+D, E^D] = (mf/m + dt g where m > 0 else 0, then m)."""
+    A, CH, dev = _check_halo(x, nbp, nbm, g)
+    if CH != g.dim:
+        raise ValueError(f"halo_gblk: {CH} channels, expected {g.dim}")
+    _check("hs_m", hs_m, (A, 1, g.ncell), torch.float32, dev)
+    if _on_cpu(dev):
+        return halo_gblk_plain(x, hs_m, nbp, nbm, dtg, g, axis)
+    out = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
+    d = [float(v) for v in dtg] + [0.0] * (3 - g.dim)
+    with torch.cuda.device(dev):
+        _launch("halo_gblk", "fluid_halo_gblk", _ptr(x), _ptr(hs_m), _ptr(nbp), _ptr(nbm),
+                _ptr(out), A, g.dim, g.ncell, g.E, g.tile, g.E ** (g.dim - 1 - axis),
+                d[0], d[1], d[2])
+    return out

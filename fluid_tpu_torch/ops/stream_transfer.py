@@ -1,0 +1,566 @@
+"""Stream transfer — the persistent tile-binned slot stream (PyTorch port).
+
+Counterpart of ``fluid_tpu/ops/stream_transfer.py``.  Particles live binned
+by tile in a slot stream ``[A, F, cap]`` that persists across substeps:
+kernels re-derive each particle's cell from its position every substep, and
+the expanded window E = T + 2h stays valid until a particle drifts out of
+its tile's drift window, which the collect kernel flags; the frame then
+re-bins.  One substep runs the stages of ``substep_stages``:
+
+  dep1       p2g_1 deposit (mass + APIC momentum) into per-tile windows
+  halo_m     separable halo of the mass channel
+  dep2       density, Tait EOS, eq-16 force, plus the p2g_1 momentum
+  halo_gblk  momentum+force halo, the last pass fused with the grid update
+  collect    g2p + particle tail + drift flag (+ the next substep's p2g_1)
+
+The five kernel entry points live in ``stream_kernels.py``: hand-written CUDA
+on the GPU, their plain PyTorch versions on the CPU.  Everything else here
+(binning, the active set, neighbour tables, compaction, un-binning) is plain
+PyTorch, ported operation by operation from the JAX module so that binning
+is bit-identical to it.
+
+Kept ``StreamSpec`` knobs: ``tile``, ``cap``, ``halo``, ``active`` and
+``scene_stride``.  The TPU's block-geometry knobs (``group``, ``pair``,
+``wchunk``, ``mhalo``, ``interpret``, ``rebin_margin``, ``dyn`` and the
+``ZFAC_*`` toggles) have no counterpart: every kernel launches over all A
+tiles and a tile with no particles writes zeros and returns.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import types
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..domain import Domain
+from ..state import GridState, ParticleState
+from . import stream_kernels as sk
+
+_LOOKAHEAD = 6.0  # predictive-binning horizon, in substeps
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamSpec:
+    """Static layout parameters."""
+
+    tile: int = 4  # T: cells per tile edge
+    cap: int = 128  # particle slots per tile (one CUDA thread per slot, <= 256)
+    halo: int = 2  # h: window reach beyond the tile; E = T + 2h
+    active: int = 64  # A: active-tile budget
+    # packed-scene stride along x: per-scene walls at
+    # [k*stride + clip_lo_x, k*stride + clip_hi_x]; 0 = single scene
+    scene_stride: float = 0.0
+
+    def __post_init__(self):
+        if self.halo < 1:
+            raise ValueError("halo must cover the stencil radius (>= 1)")
+
+    @property
+    def E(self) -> int:
+        return self.tile + 2 * self.halo
+
+    @property
+    def A(self) -> int:
+        return self.active
+
+
+def default_spec(cfg: Config, domain: Domain, n: int) -> StreamSpec:
+    """Active budget like ``fluid_tpu``'s: 32x the rest-density tile
+    estimate, capped by the tile count.  The 110k cap exists for the TPU's
+    scalar memory; it is kept only so both packages size A alike."""
+    T = 4
+    per_tile = cfg.rest_density * T**cfg.dim
+    occupied = max(2048, int(n / max(per_tile, 1.0)) * 32)
+    nt = math.prod(s // T for s in domain.shape)
+    return StreamSpec(tile=T, cap=128, halo=2, active=min(occupied, nt, 110_000))
+
+
+def _id_row(D: int) -> int:
+    # stream rows: pos[D], vel[D], C[D*D], mass, id, rho, prs
+    return 2 * D + D * D + 1
+
+
+@dataclasses.dataclass
+class StreamState:
+    """Persistent binned particle state (tensors on one device).
+
+    stream [A, F, cap] f32; count, tid [A] int32 (tid == nt: unused entry);
+    flag [A, cap] f32 drift verdicts of the last collect (2.0 = re-bin);
+    nbr [2D, A] int32 +/- face neighbours' active index (A = none);
+    shell_drop, need_peak, rebins [1] int32 watermarks / counter.
+    """
+
+    stream: torch.Tensor
+    count: torch.Tensor
+    tid: torch.Tensor
+    flag: torch.Tensor
+    nbr: torch.Tensor
+    shell_drop: torch.Tensor
+    need_peak: torch.Tensor
+    rebins: torch.Tensor
+
+    def clone(self) -> "StreamState":
+        return StreamState(**{f.name: getattr(self, f.name).clone()
+                              for f in dataclasses.fields(self)})
+
+    def to_numpy(self) -> dict:
+        return {f.name: getattr(self, f.name).cpu().numpy()
+                for f in dataclasses.fields(self)}
+
+
+def stream_state_from_numpy(d: dict, spec: StreamSpec, device=None) -> StreamState:
+    """A ``fluid_tpu`` StreamState as numpy (``pair=False``; layout
+    ``stream [NG, F, G*cap]``, ``flag [NG, G, cap]``) -> the port's layout.
+    ``nbrg`` (gated tables) has no counterpart and is ignored."""
+    A, cap = spec.A, spec.cap
+    stream = np.asarray(d["stream"], np.float32)
+    NG, F, GL = stream.shape
+    G = GL // cap
+    if NG * G != A:
+        raise ValueError(f"stream holds {NG * G} tiles, spec.A is {A}")
+    stream = stream.reshape(NG, F, G, cap).transpose(0, 2, 1, 3).reshape(A, F, cap)
+
+    def t(x, dtype):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    return StreamState(
+        stream=t(stream, torch.float32),
+        count=t(d["count"], torch.int32),
+        tid=t(d["tid"], torch.int32),
+        flag=t(np.asarray(d["flag"]).reshape(A, cap), torch.float32),
+        nbr=t(d["nbr"], torch.int32),
+        shell_drop=t(d["shell_drop"], torch.int32),
+        need_peak=t(d["need_peak"], torch.int32),
+        rebins=t(d["rebins"], torch.int32),
+    )
+
+
+def stream_state_to_numpy(st: StreamState, group: int) -> dict:
+    """The port's StreamState -> ``fluid_tpu``'s numpy layout with ``group``
+    tiles per group (no ``nbrg``: rebuild it with ``_gated_nbr`` there)."""
+    d = st.to_numpy()
+    A, F, cap = d["stream"].shape
+    NG = A // group
+    d["stream"] = (d["stream"].reshape(NG, group, F, cap).transpose(0, 2, 1, 3)
+                   .reshape(NG, F, group * cap))
+    d["flag"] = d["flag"].reshape(NG, group, cap)
+    return d
+
+
+# ---------------------------------------------------------------------------
+# Geometry
+# ---------------------------------------------------------------------------
+
+
+def _tile_geometry(domain: Domain, spec: StreamSpec):
+    T = spec.tile
+    if any(s % T for s in domain.shape):
+        raise ValueError(f"grid shape {domain.shape} not divisible by tile={T}")
+    tshape = tuple(s // T for s in domain.shape)
+    return tshape, math.prod(tshape)
+
+
+def tile_geom(domain: Domain, spec: StreamSpec) -> sk.TileGeom:
+    tshape, _ = _tile_geometry(domain, spec)
+    return sk.TileGeom(
+        dim=len(tshape), tile=spec.tile, halo=spec.halo, cap=spec.cap,
+        tshape=tshape, origin=tuple(int(o) for o in domain.origin),
+    )
+
+
+def _flatten_coords(c: torch.Tensor, shape) -> torch.Tensor:
+    out = c[..., 0]
+    for d in range(1, len(shape)):
+        out = out * shape[d] + c[..., d]
+    return out
+
+
+def _keys_from_pos(pos, domain: Domain, spec: StreamSpec, tshape, vel=None, dt=0.0):
+    """Tile key per particle (int64).  With ``vel``, bins PREDICTIVELY by
+    ``pos + clip(6 dt vel, +-1 cell)`` when that keeps the current cell in
+    the chosen tile's drift window (``fluid_tpu`` ``_keys_from_pos``)."""
+    dev = pos.device
+    shape = torch.as_tensor(domain.shape, device=dev)
+    origin = torch.as_tensor(domain.origin, device=dev)
+
+    def _cell(x):
+        return torch.minimum((torch.floor(x).to(torch.int64) - origin).clamp_min(0), shape - 1)
+
+    T, h = spec.tile, spec.halo
+    cell = _cell(pos)
+    if vel is None or dt == 0.0:
+        return _flatten_coords(cell // T, tshape)
+    shift = torch.clamp(vel * (_LOOKAHEAD * dt), -1.0, 1.0)
+    ct = _cell(pos + shift) // T
+    lc = cell - ct * T
+    ok = (lc >= 1 - h) & (lc <= T - 2 + h)
+    return _flatten_coords(torch.where(ok, ct, cell // T), tshape)
+
+
+def _nbr_table(tid_act, tshape, nt: int, A: int) -> torch.Tensor:
+    """[2D, A] int32 active index of every active tile's +/- face neighbour
+    (A = no active neighbour)."""
+    dev = tid_act.device
+    inv = torch.full((nt + 1,), A, dtype=torch.int64, device=dev)
+    a_io = torch.arange(A, device=dev)
+    inv.scatter_reduce_(0, tid_act.clamp(0, nt),
+                        torch.where(tid_act < nt, a_io, A), "amin", include_self=True)
+    ok = tid_act < nt
+    out = []
+    for d in range(len(tshape)):
+        rs = math.prod(tshape[d + 1:])
+        coord = (tid_act // rs) % tshape[d]
+        idp = torch.where(ok & (coord < tshape[d] - 1), tid_act + rs, nt)
+        idm = torch.where(ok & (coord > 0), tid_act - rs, nt)
+        out += [inv[idp], inv[idm]]
+    return torch.stack(out).to(torch.int32)
+
+
+def _dilate_axes(o: torch.Tensor, axes) -> torch.Tensor:
+    """+/-1 max filter along the given axes of a bool array."""
+    for d in axes:
+        n = o.shape[d]
+        a = torch.zeros_like(o)
+        b = torch.zeros_like(o)
+        a.narrow(d, 0, n - 1).copy_(o.narrow(d, 1, n - 1))
+        b.narrow(d, 1, n - 1).copy_(o.narrow(d, 0, n - 1))
+        o = o | a | b
+    return o
+
+
+def _active_set(occ: torch.Tensor, tshape) -> torch.Tensor:
+    """Needed-relay closure of a [nt] bool occupancy map: occupied tiles plus
+    the tiles the separable halo relays diagonal deposit flows through
+    (``fluid_tpu`` ``_active_set``)."""
+    D = len(tshape)
+    o = occ.reshape(tshape)
+    if D == 1:
+        return o.reshape(-1)
+    act = o | (_dilate_axes(o, [0]) & _dilate_axes(o, range(1, D)))
+    if D > 2:
+        act = act | (_dilate_axes(o, range(D - 1)) & _dilate_axes(o, [D - 1]))
+    return act.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Binning: ParticleState <-> StreamState
+# ---------------------------------------------------------------------------
+
+
+def _bin_rows(rows, tid_of_particle, n: int, spec: StreamSpec, nt: int, tshape,
+              row_idx=None) -> StreamState:
+    """rows [N, F] + tile ids -> slot structure, occupied tiles first.
+
+    Tile ids >= nt never land in a tile.  ``row_idx`` ([n] into rows)
+    composes a prior compaction: sorted row i is rows[row_idx[order[i]]].
+    The sort is stable (slot order within a tile follows particle order,
+    as ``jnp.argsort`` does)."""
+    cap, A = spec.cap, spec.A
+    dev = rows.device
+    order = torch.argsort(tid_of_particle, stable=True)
+    sid = tid_of_particle[order]
+    start = torch.searchsorted(sid, torch.arange(nt + 2, device=dev), right=False)
+    count_t = (start[1:] - start[:-1])[:nt]
+
+    occ_p = count_t > 0
+    occ = _active_set(occ_p, tshape)
+    shell = occ & ~occ_p
+    n_occ = occ_p.sum()
+    rank_p = torch.cumsum(occ_p.to(torch.int64), 0) - 1
+    rank_s = n_occ + torch.cumsum(shell.to(torch.int64), 0) - 1
+    occ_rank = torch.where(occ_p, rank_p, rank_s)
+    act_of_tile = torch.where(occ & (occ_rank < A), occ_rank, A)
+    tid_act = torch.full((A,), -1, dtype=torch.int64, device=dev)
+    tid_act.scatter_reduce_(
+        0, act_of_tile.clamp(0, A - 1),
+        torch.where(act_of_tile < A, torch.arange(nt, device=dev), -1),
+        "amax", include_self=True,
+    )
+    tid_act = torch.where(tid_act < 0, nt, tid_act)
+    count_pad = torch.cat([count_t, count_t.new_zeros(1)])
+    count_act = torch.clamp_max(count_pad[tid_act.clamp(0, nt)], cap)
+
+    act_start = start[:-1][tid_act.clamp(0, nt)]
+    s_io = torch.arange(cap, device=dev)
+    perm = order if row_idx is None else row_idx[order]
+    srows = rows[perm]
+    valid = s_io[None, :] < count_act[:, None]
+    bidx = (act_start[:, None] + s_io[None, :]).clamp(0, n - 1)
+    slot_rows = torch.where(valid[..., None], srows[bidx], 0.0)  # [A, cap, F]
+    need = occ.sum().reshape(1).to(torch.int32)
+    return StreamState(
+        stream=slot_rows.permute(0, 2, 1).contiguous(),
+        count=count_act.to(torch.int32),
+        tid=tid_act.to(torch.int32),
+        flag=torch.zeros((A, cap), dtype=torch.float32, device=dev),
+        nbr=_nbr_table(tid_act, tshape, nt, A),
+        shell_drop=torch.clamp_min(need - A, 0),
+        need_peak=need,
+        rebins=torch.zeros((1,), dtype=torch.int32, device=dev),
+    )
+
+
+def bin_particles(p: ParticleState, domain: Domain, spec: StreamSpec,
+                  dt: float = 0.0) -> StreamState:
+    """ParticleState -> persistent stream layout (predictive when dt > 0)."""
+    tshape, nt = _tile_geometry(domain, spec)
+    n, D = p.n, p.dim
+    if n >= 2**24:
+        raise ValueError(f"n={n}: the float32 id row is exact only below 2**24")
+    rows = torch.cat(
+        [p.pos, p.vel, p.C.reshape(n, D * D), p.mass[:, None],
+         torch.arange(n, dtype=torch.float32, device=p.device)[:, None],
+         p.density[:, None], p.pressure[:, None]],
+        dim=1,
+    )
+    tid_p = _keys_from_pos(p.pos, domain, spec, tshape, vel=p.vel, dt=dt)
+    return _bin_rows(rows, tid_p, n, spec, nt, tshape)
+
+
+def _stream_flat(st: StreamState) -> torch.Tensor:
+    """stream -> rows [A*cap, F] in slot order."""
+    A, F, cap = st.stream.shape
+    return st.stream.permute(0, 2, 1).reshape(A * cap, F)
+
+
+def _compact_src(count: torch.Tensor, n: int, cap: int, A: int) -> torch.Tensor:
+    """[n] flat slot index of the i-th live particle (slot order)."""
+    count = count.to(torch.int64)
+    cum = torch.cumsum(count, 0)
+    b = torch.zeros((n + 1,), dtype=torch.int64, device=count.device)
+    b.index_add_(0, cum.clamp(0, n), torch.ones_like(cum))
+    a = torch.cumsum(b, 0)[:n].clamp(0, A - 1)
+    i = torch.arange(n, device=count.device)
+    start = cum - count
+    return (a * cap + (i - start[a])).clamp(0, A * cap - 1)
+
+
+def unbin(st: StreamState, domain: Domain, spec: StreamSpec, n: int, D: int) -> ParticleState:
+    """Stream -> ParticleState in the original particle order (id row)."""
+    rows = _stream_flat(st)[_compact_src(st.count, n, spec.cap, spec.A)]
+    out = rows[torch.argsort(rows[:, _id_row(D)].to(torch.int64), stable=True)]
+    return ParticleState(
+        pos=out[:, 0:D].contiguous(),
+        vel=out[:, D:2 * D].contiguous(),
+        C=out[:, 2 * D:2 * D + D * D].reshape(n, D, D).contiguous(),
+        mass=out[:, 2 * D + D * D].contiguous(),
+        density=out[:, 2 * D + D * D + 2].contiguous(),
+        pressure=out[:, 2 * D + D * D + 3].contiguous(),
+    )
+
+
+def _rebin_full(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec,
+                tshape, nt: int, n: int) -> StreamState:
+    """Re-bin the live slots, O(n): compact, key predictively, bin."""
+    D = cfg.dim
+    flat = _stream_flat(st)
+    src = _compact_src(st.count, n, spec.cap, spec.A)
+    live_rows = flat[src]
+    tid_p = _keys_from_pos(live_rows[:, :D], domain, spec, tshape,
+                           vel=live_rows[:, D:2 * D], dt=cfg.dt)
+    live = torch.arange(n, device=flat.device) < st.count.sum()
+    tid_p = torch.where(live, tid_p, nt)
+    return _bin_rows(flat, tid_p, n, spec, nt, tshape, row_idx=src)
+
+
+def overflow_count(pos, domain: Domain, spec: StreamSpec, vel=None, dt: float = 0.0) -> torch.Tensor:
+    """Particles that would not fit the slot structure, plus needed relay
+    tiles beyond the active budget (the strict check at t=0)."""
+    tshape, nt = _tile_geometry(domain, spec)
+    n = pos.shape[0]
+    dev = pos.device
+    tid_p = _keys_from_pos(pos, domain, spec, tshape, vel=vel, dt=dt)
+    order = torch.argsort(tid_p, stable=True)
+    sid = tid_p[order]
+    ranks = torch.arange(n, device=dev)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), sid[1:] != sid[:-1]])
+    start = torch.full((nt + 1,), n, dtype=torch.int64, device=dev)
+    start.scatter_reduce_(0, sid, torch.where(first, ranks, n), "amin", include_self=True)
+    start = torch.cummin(start.flip(0), 0).values.flip(0)
+    count_t = start[1:] - start[:-1]
+    occ_p = count_t > 0
+    dil = _active_set(occ_p, tshape)
+    rank_p = torch.cumsum(occ_p.to(torch.int64), 0) - 1
+    s_rank = ranks - start[:-1][sid]
+    a_rank = rank_p[sid]
+    frozen = (s_rank >= spec.cap) | (a_rank >= spec.A)
+    return frozen.sum() + torch.clamp_min(dil.sum() - spec.A, 0)
+
+
+# ---------------------------------------------------------------------------
+# Substep + frame drivers
+# ---------------------------------------------------------------------------
+
+
+def collect_params(cfg: Config, mouse_pos, mouse_active, stride: float = 0.0,
+                   device=None) -> torch.Tensor:
+    """[11 + 2D] f32: dt, rest_density, eos_stiffness, eos_power,
+    pressure_floor, mouse_radius, boundary_damp_dist, mouse_active, mouse_x,
+    mouse_y, clip_lo[D], clip_hi[D], scene_stride."""
+    lo, hi = cfg.boundary_clip
+    base = torch.tensor(
+        [cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
+         cfg.pressure_floor, cfg.mouse_radius, cfg.boundary_damp_dist,
+         0.0, 0.0, 0.0, *lo, *hi, stride],
+        dtype=torch.float32,
+    )
+    base[7] = torch.as_tensor(mouse_active).cpu().to(torch.float32)
+    base[8:10] = torch.as_tensor(mouse_pos).cpu().to(torch.float32)
+    return base.to(device)
+
+
+def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
+                   fused: bool = False):
+    """Stage closures of the stream substep, on ``device``::
+
+      dep1(st)                   -> p2g_1 windows [A, 1+D, E^D]
+      halo_m(st, dep1v)          -> halo'd mass windows [A, 1, E^D]
+      dep2(st, dep1v, hs_m)      -> combined momentum+force windows [A, D, E^D]
+      halo_gblk(st, dep2v, hs_m) -> grid values [A, 1+D, E^D] (v rows, mass)
+      collect(st, gblk, params)  -> (stream', flag[, dep1_next if fused])
+    """
+    D = cfg.dim
+    g = tile_geom(domain, spec)
+    params6 = torch.tensor(
+        [cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
+         cfg.pressure_floor, cfg.dynamic_viscosity],
+        dtype=torch.float32, device=device,
+    )
+    dtg = sk.gravity_step(cfg.dt, cfg.gravity)
+
+    def dep1(st):
+        return sk.deposit_p2g1(st.count, st.tid, st.stream, g)
+
+    def halo_m(st, dep1v):
+        x = dep1v[:, :1].contiguous()
+        for d in range(D):
+            x = sk.halo_axis(x, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
+        return x
+
+    def dep2(st, dep1v, hs_m):
+        return sk.deposit_p2g2(st.count, st.tid, st.stream, hs_m, params6, dep1v, g)
+
+    def halo_gblk(st, dep2v, hs_m):
+        x = dep2v
+        for d in range(D - 1):
+            x = sk.halo_axis(x, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
+        last = 2 * (D - 1)
+        return sk.halo_gblk(x, hs_m, st.nbr[last], st.nbr[last + 1], dtg, g, D - 1)
+
+    def collect(st, gblk, params):
+        return sk.collect(st.count, st.tid, params, st.stream, gblk, g, fused)
+
+    return types.SimpleNamespace(
+        dep1=dep1, halo_m=halo_m, dep2=dep2, halo_gblk=halo_gblk, collect=collect,
+    )
+
+
+def _substep_core(st: StreamState, dep1, stages, params):
+    """One substep given its p2g_1 windows; returns (state, dep1_next or
+    None when the stages are not fused)."""
+    hs_m = stages.halo_m(st, dep1)
+    d2 = stages.dep2(st, dep1, hs_m)
+    gblk = stages.halo_gblk(st, d2, hs_m)
+    outs = stages.collect(st, gblk, params)
+    st2 = dataclasses.replace(st, stream=outs[0], flag=outs[1])
+    return st2, (outs[2] if len(outs) > 2 else None)
+
+
+def needs_rebin(st: StreamState) -> torch.Tensor:
+    """True (0-dim bool tensor) when a valid particle's next deposit would
+    fall outside its tile's drift window (a flag of 2.0)."""
+    return torch.any(st.flag >= 2.0)
+
+
+def frame_binned(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec,
+                 mouse_pos, mouse_active, substeps: Optional[int] = None,
+                 n: Optional[int] = None) -> StreamState:
+    """``cfg.iterations`` substeps with drift-triggered re-binning.
+
+    The collect of each substep also deposits the next substep's p2g_1.
+    After each substep the host reads ``needs_rebin`` (one device sync per
+    substep — the counterpart of the JAX frame's device-side ``lax.cond``);
+    on a re-bin the fused p2g_1 is stale and is recomputed standalone, and
+    the shell_drop / need_peak watermarks and the rebins counter carry
+    over.  ``n`` is the live particle count (default: every slot)."""
+    tshape, nt = _tile_geometry(domain, spec)
+    dev = st.stream.device
+    n_sub = cfg.iterations if substeps is None else substeps
+    n_c = spec.A * spec.cap if n is None else n
+    stages = substep_stages(cfg, domain, spec, dev, fused=True)
+    params = collect_params(cfg, mouse_pos, mouse_active, spec.scene_stride, dev)
+    dep1 = stages.dep1(st)
+    for _ in range(n_sub):
+        st, dep1 = _substep_core(st, dep1, stages, params)
+        if bool(needs_rebin(st)):
+            st2 = _rebin_full(st, cfg, domain, spec, tshape, nt, n_c)
+            st = dataclasses.replace(
+                st2,
+                shell_drop=torch.maximum(st.shell_drop, st2.shell_drop),
+                need_peak=torch.maximum(st.need_peak, st2.need_peak),
+                rebins=st.rebins + 1,
+            )
+            dep1 = stages.dep1(st)
+    return st
+
+
+def frame(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_active,
+          spec: Optional[StreamSpec] = None, substeps: Optional[int] = None) -> ParticleState:
+    """Bin once, run the substeps on the persistent layout, un-bin once."""
+    if spec is None:
+        spec = default_spec(cfg, domain, p.n)
+    st = bin_particles(p, domain, spec, dt=cfg.dt)
+    st = frame_binned(st, cfg, domain, spec, mouse_pos, mouse_active, substeps, n=p.n)
+    return unbin(st, domain, spec, p.n, p.dim)
+
+
+def windows_to_dense(win: torch.Tensor, tid: torch.Tensor, domain: Domain,
+                     spec: StreamSpec) -> torch.Tensor:
+    """Sum per-tile windows [A, CH, E^D] (before the halo) into a dense grid
+    [*shape, CH].  Window cells outside the grid hold no deposits."""
+    tshape, nt = _tile_geometry(domain, spec)
+    D = len(tshape)
+    A, CH, ncell = win.shape
+    E, T, dev = spec.E, spec.tile, win.device
+    e_io = torch.arange(ncell, device=dev)
+    tid = tid.to(torch.int64)
+    shape = torch.as_tensor(domain.shape, device=dev)
+    cells = []
+    for d in range(D):
+        coord = (tid // math.prod(tshape[d + 1:])) % tshape[d]
+        e_d = (e_io // E ** (D - 1 - d)) % E
+        cells.append(coord[:, None] * T + e_d[None, :] - spec.halo)
+    cell = torch.stack(cells, dim=-1)  # [A, ncell, D]
+    ok = (tid < nt)[:, None] & ((cell >= 0) & (cell < shape)).all(dim=-1)
+    flat = _flatten_coords(torch.minimum(cell.clamp_min(0), shape - 1), domain.shape)
+    vals = torch.where(ok[..., None], win.permute(0, 2, 1), 0.0)
+    dense = torch.zeros((math.prod(domain.shape), CH), dtype=torch.float32, device=dev)
+    dense.index_add_(0, flat.reshape(-1), vals.reshape(-1, CH))
+    return dense.reshape(*domain.shape, CH)
+
+
+def substep(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_active,
+            spec: Optional[StreamSpec] = None) -> Tuple[ParticleState, GridState]:
+    """Bin -> one substep -> un-bin, plus the post-update dense grid (API
+    parity with the dense backend; the fast path is ``frame``)."""
+    if spec is None:
+        spec = default_spec(cfg, domain, p.n)
+    dev = p.device
+    st = bin_particles(p, domain, spec, dt=cfg.dt)
+    stages = substep_stages(cfg, domain, spec, dev, fused=False)
+    params = collect_params(cfg, mouse_pos, mouse_active, spec.scene_stride, dev)
+    d1 = stages.dep1(st)
+    hs_m = stages.halo_m(st, d1)
+    d2 = stages.dep2(st, d1, hs_m)
+    stream2, _ = stages.collect(st, stages.halo_gblk(st, d2, hs_m), params)
+    st2 = dataclasses.replace(st, stream=stream2)
+    m = windows_to_dense(d1[:, :1].contiguous(), st.tid, domain, spec)
+    mf = windows_to_dense(d2, st.tid, domain, spec)
+    g = torch.as_tensor(sk.gravity_step(cfg.dt, cfg.gravity), device=dev)
+    vel = torch.where(m > 0.0, mf / torch.where(m > 0.0, m, 1.0) + g, 0.0)
+    return unbin(st2, domain, spec, p.n, p.dim), GridState(mass=m[..., 0], vel=vel)

@@ -1,0 +1,32 @@
+"""Device helpers: fail loudly without a GPU, and name the card.
+
+Counterpart of ``fluid_tpu/utils/platform.py`` for the CUDA port.  A
+measurement or on-card check calls ``require_cuda()`` and never falls back
+to the CPU; ``card_info()`` is printed beside every number taken on the card
+(a card can be power-capped below its maximum, which changes its speed).
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+
+def require_cuda() -> torch.device:
+    """The first CUDA device; raises RuntimeError when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: this path runs only on the GPU "
+            "(the CPU tests use the kernels' plain versions)"
+        )
+    return torch.device("cuda", 0)
+
+
+def card_info() -> str:
+    """``name, power.limit`` of the cards, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip()

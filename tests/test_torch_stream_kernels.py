@@ -1,0 +1,210 @@
+"""PyTorch port, the stream kernels' plain versions against the Pallas
+kernels they replace (``fluid_tpu/ops/stream_transfer.py``, interpret mode).
+
+Both packages get the same binned state: ``fluid_tpu`` bins a numpy-seeded
+scene (world 16, group 2, the geometry of tests/test_stream.py) and the port
+takes that state through ``stream_state_from_numpy``.  Each JAX stage output
+is then converted to the port's layout and fed to the next port stage, so
+every comparison isolates one kernel.  Tolerances:
+
+* deposits and collect: 1e-5 absolute + 1e-5 relative (the Pallas kernels
+  contract through the one-window matmul identity, whose cancellation loses
+  a few ulp against the direct taps); pressure rows 2e-5 relative instead,
+  since the EOS slope 4 k rho^3 / rho0^4 amplifies the density's ulp;
+* halo passes: bit-equal (pure adds in halo_pull's order);
+* halo_gblk: 1e-6 absolute and relative, as tests/test_stream.py uses.
+"""
+
+import dataclasses
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fluid_tpu import step as jstep
+from fluid_tpu.config import default_2d, default_3d
+from fluid_tpu.domain import make_domain
+from fluid_tpu.ops import stream_transfer as jstx
+from fluid_tpu.state import ParticleState as JParticles
+from fluid_tpu_torch import step as tstep
+from fluid_tpu_torch.ops import stream_kernels as sk
+from fluid_tpu_torch.ops import stream_transfer as tstx
+
+torch.set_num_threads(1)
+
+STATE_KEYS = ("stream", "count", "tid", "flag", "nbr", "shell_drop", "need_peak", "rebins")
+# the collect variant with the mouse on and packed-scene x walls every 8 cells
+MOUSE_XY, STRIDE = (8.0, 8.0), 8.0
+_CACHE = {}
+
+
+def _scene(dim, n=256, seed=0, vel_scale=0.4, world=16.0):
+    rng = np.random.default_rng(seed)
+    base = default_2d() if dim == 2 else default_3d()
+    cfg = base.replace(
+        boundary_clip=((0.0,) * dim, (world,) * dim), grid_res=16,
+    )
+    pos = rng.uniform(world / 4, world - world / 3, (n, dim)).astype(np.float32)
+    vel = (rng.normal(size=(n, dim)) * vel_scale).astype(np.float32)
+    C = (rng.normal(size=(n, dim, dim)) * 0.05).astype(np.float32)
+    return cfg, pos, vel, C
+
+
+def _windows(x, A, CH, dim):
+    """A JAX deposit/gblk block array -> the port's [A, CH, E^D] windows."""
+    x = np.asarray(x)
+    E3 = 8**dim
+    if dim == 3:  # rank-3 [.., S1 = 4 rows of 128] per channel
+        w = x.reshape(A, -1, 128)[:, : CH * (E3 // 128), :].reshape(A, CH, E3)
+    else:  # one EP = 128-lane row per channel
+        w = x.reshape(A, -1, 128)[:, :CH, :E3]
+    return torch.tensor(w)
+
+
+def _reference(dim):
+    """JAX stage outputs (interpret mode, full grids) on one binned state,
+    plus the port's copy of that state.  Cached per dim for this file."""
+    if dim in _CACHE:
+        return _CACHE[dim]
+    cfg, pos, vel, C = _scene(dim)
+    dom = make_domain(cfg, halo_cells=4)
+    nt = math.prod(s // 4 for s in dom.shape)
+    # dyn=False: every program runs, so tiles without particles hold zeros
+    # (the port's kernels write zeros there too) instead of interpret NaNs
+    spec = jstx.StreamSpec(tile=4, cap=128, halo=2, group=2, active=nt,
+                           interpret=True, dyn=False)
+    st = jstx.bin_particles(JParticles.create(pos, vel=vel, C=C), dom, spec, dt=cfg.dt)
+    stages = jstx.substep_stages(cfg, dom, spec, fused=False)
+    fstages = jstx.substep_stages(cfg, dom, spec, fused=True)
+    mp, ma = jstep.no_mouse()
+    d1 = stages.dep1(st)
+    hs_m = stages.halo_m(st, d1)
+    d2 = stages.dep2(st, d1, hs_m)
+    gblk = stages.halo_gblk(st, d2, hs_m)
+    wall_spec = dataclasses.replace(spec, scene_stride=STRIDE)
+    wall_collect = jstx.substep_stages(cfg, dom, wall_spec, fused=True).collect(
+        st, gblk, *jstep.mouse(MOUSE_XY))
+    A, D = spec.A, dim
+    tspec = tstx.StreamSpec(active=A)
+    ref = dict(
+        cfg=cfg, dom=dom, spec=spec, st=st, tspec=tspec,
+        tst=tstx.stream_state_from_numpy({k: np.asarray(getattr(st, k)) for k in STATE_KEYS}, tspec),
+        geom=tstx.tile_geom(dom, tspec),
+        d1=_windows(d1, A, 1 + D, D),
+        hs_m=torch.as_tensor(np.asarray(hs_m).reshape(A, 1, -1).copy()),
+        d2=_windows(d2, A, D, D),
+        gblk=_windows(gblk, A, 1 + D, D),
+        collect={"plain": stages.collect(st, gblk, mp, ma),
+                 "fused": fstages.collect(st, gblk, mp, ma), "walls": wall_collect},
+    )
+    _CACHE[dim] = ref
+    return ref
+
+
+def _close(got, want, atol=1e-5, rtol=1e-5, msg=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol, rtol=rtol, err_msg=msg)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_deposit_p2g1_matches_pallas(dim):
+    r = _reference(dim)
+    st = r["tst"]
+    got = sk.deposit_p2g1(st.count, st.tid, st.stream, r["geom"])
+    assert float(got.abs().max()) > 0.5  # non-vacuous: real deposits
+    _close(got, r["d1"])
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_deposit_p2g2_matches_pallas(dim):
+    r = _reference(dim)
+    st, cfg = r["tst"], r["cfg"]
+    params = torch.tensor([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
+                           cfg.pressure_floor, cfg.dynamic_viscosity], dtype=torch.float32)
+    got = sk.deposit_p2g2(st.count, st.tid, st.stream, r["hs_m"], params, r["d1"], r["geom"])
+    _close(got, r["d2"])
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("variant", ["plain", "fused", "walls"])
+def test_collect_matches_pallas(dim, variant):
+    """Collect, unfused and fused, and fused with the mouse on and x walls
+    shifted by a packed-scene stride."""
+    r = _reference(dim)
+    st, cfg, A = r["tst"], r["cfg"], r["tspec"].A
+    if variant == "walls":
+        params = tstx.collect_params(cfg, *tstep.mouse(MOUSE_XY), STRIDE)
+    else:
+        params = tstx.collect_params(cfg, *tstep.no_mouse())
+    fused = variant != "plain"
+    got = sk.collect(st.count, st.tid, params, st.stream, r["gblk"], r["geom"], fused)
+    want = r["collect"][variant]
+    G = r["spec"].group
+    ws = np.asarray(want[0])
+    ws = ws.reshape(ws.shape[0], ws.shape[1], G, -1).transpose(0, 2, 1, 3).reshape(A, ws.shape[1], -1)
+    prs = ws.shape[1] - 1
+    _close(got[0][:, :prs], ws[:, :prs], msg="stream rows")
+    _close(got[0][:, prs], ws[:, prs], rtol=2e-5, msg="pressure row")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]).reshape(A, -1))
+    if fused:
+        _close(got[2], _windows(want[2], A, 1 + dim, dim), msg="fused p2g1")
+    if variant == "walls":  # non-vacuous: the mouse and the walls pushed particles
+        calm = sk.collect(st.count, st.tid, tstx.collect_params(cfg, *tstep.no_mouse()),
+                          st.stream, r["gblk"], r["geom"], True)
+        assert int((got[0][:, dim:2 * dim] != calm[0][:, dim:2 * dim]).sum()) > 10
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_halo_axis_matches_halo_pull(dim):
+    """D passes of the port's halo_axis are bit-equal to halo_pull."""
+    r = _reference(dim)
+    st, g, A = r["tst"], r["geom"], r["tspec"].A
+    rng = np.random.default_rng(dim)
+    for CH in (1, dim):
+        x = rng.uniform(-1, 1, (A, CH, g.ncell)).astype(np.float32)
+        want = jstx.halo_pull(jnp.asarray(x.reshape(A, -1)), r["st"].nbr, g.tshape, 4, 8)
+        got = torch.as_tensor(x)
+        for d in range(dim):
+            got = sk.halo_axis(got, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
+        np.testing.assert_array_equal(got.numpy().reshape(A, -1), np.asarray(want))
+
+
+def test_halo_gblk_matches_pallas_interpret():
+    """Last halo pass + grid update against _make_halo_gblk (interpret),
+    after D-1 axis passes, on random windows with zero-mass cells mixed in."""
+    r = _reference(3)
+    st, g, A, cfg, spec = r["tst"], r["geom"], r["tspec"].A, r["cfg"], r["spec"]
+    D, S1 = 3, g.ncell // 128
+    rng = np.random.default_rng(11)
+    mf = rng.normal(size=(A, D, g.ncell)).astype(np.float32)
+    m = np.maximum(rng.uniform(-0.5, 2.0, (A, 1, g.ncell)), 0.0).astype(np.float32)
+    x = jnp.asarray(mf.reshape(A, D * S1, 128))
+    jnbr = r["st"].nbr
+    for d in range(D - 1):
+        x = jstx._make_halo_axis(spec, D, d, D)(x, jnbr[2 * d], jnbr[2 * d + 1])
+    want = jstx._make_halo_gblk(spec, D, D - 1, cfg.dt, cfg.gravity)(
+        x, jnp.asarray(m.reshape(A, S1, 128)), jnbr[2 * (D - 1)], jnbr[2 * (D - 1) + 1]
+    )
+    got = torch.as_tensor(mf)
+    for d in range(D - 1):
+        got = sk.halo_axis(got, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
+    got = sk.halo_gblk(got, torch.as_tensor(m), st.nbr[4], st.nbr[5],
+                       sk.gravity_step(cfg.dt, cfg.gravity), g, D - 1)
+    _close(got.numpy().reshape(A, -1), np.asarray(want).reshape(A, -1), atol=1e-6, rtol=1e-6)
+
+
+def test_wrappers_check_their_inputs():
+    """The wrappers reject wrong dtype, shape and layout, and any device
+    other than the CPU (plain) or CUDA (kernel)."""
+    r = _reference(2)
+    st, g = r["tst"], r["geom"]
+    with pytest.raises(TypeError):
+        sk.deposit_p2g1(st.count.long(), st.tid, st.stream, g)
+    with pytest.raises(ValueError):
+        sk.deposit_p2g1(st.count, st.tid, st.stream[:, :-1].contiguous(), g)
+    with pytest.raises(ValueError):
+        sk.halo_axis(r["d1"].transpose(0, 1), st.nbr[0], st.nbr[1], g, 0)
+    with pytest.raises(ValueError):
+        sk.deposit_p2g1(st.count.to("meta"), st.tid.to("meta"), st.stream.to("meta"), g)
+    assert all(v == 0 for v in sk.LAUNCHES.values())  # plain versions count nothing
