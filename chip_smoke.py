@@ -6,22 +6,40 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing its own line; any failure raises and exits non-zero:
 
 1. device   require a CUDA device; print the card's name and power limit
-2. build    compile csrc/*.cu with nvcc (ptxas report -> chiprun_out/)
+2. build    compile csrc/*.cu with nvcc, one process per source started
+            together, then link; prints each step's wall seconds (the ptxas
+            report goes to the output directory)
 3. kernels  bin a 3D dam of 1,000,000 particles; run each of the five
-            kernel wrappers and its plain PyTorch version on the same card
-            tensors, at the shapes the main path gives them; compare and time
-            both with CUDA events
-4. goldens  Session(stream, cuda) from tests/data/golden_{2d,3d}.npz against
-            the frozen trajectories at 1e-3 (D=2 and D=3 kernels)
-5. slice    Session(stream, cuda) of the 1M dam, 2 frames (62 substeps,
+            stream kernel wrappers and its plain PyTorch version on the same
+            card tensors, at the shapes the main path gives them; compare and
+            time both with CUDA events
+4. pallas kernels
+            the four pallas kernels (p2g1 deposit, force deposit, fused
+            p2g2, collect) against their plain versions at the 3D 1M dam
+            (default TileSpec: T=4, cap=384, A = 32,768) and a 2D dam of
+            100,000 particles; compared and timed the same way
+5. goldens  Session(stream) and Session(pallas) from
+            tests/data/golden_{2d,3d}.npz against the frozen trajectories at
+            1e-3 (D=2 and D=3 kernels)
+6. slice    Session(stream, cuda) of the 1M dam, 2 frames (62 substeps,
             re-bins included) with every launch counter reset just before:
             conservation, shell_drop == 0, finite state, the fluid falls
             (+y is down), every kernel launched; then one substep of stream
             against dense from the same state, max |dpos| <= 1e-4
-6. replay   3D reference scene (4096): snapshot, frame, restore, frame ->
-            bit-identical; then ms per frame at that scene
+7. pallas slice
+            Session(pallas) of the 1M dam built with no device argument (the
+            entry points default to the card), 1 frame (31 substeps) with the
+            launch counters reset just before: no overflow before and after,
+            mass conserved, finite state, the fluid falls, every on-path
+            pallas kernel launched; then one substep of pallas against dense
+            from the same state, max |dpos| <= 1e-4
+8. replay   3D reference scene (4096), stream and pallas: snapshot, frame,
+            restore, frame -> bit-identical; then ms per frame at that scene
+9. profile  one 1M frame of each backend under torch.profiler: wall and
+            device time, the largest device entries
 
-The last lines are the kernel table as JSON, the card line, and
+The last lines are the kernel table as JSON (time, plain time, the least
+time the card could take, launches on the main path), the card line, and
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
 
@@ -42,20 +60,104 @@ from fluid_tpu_torch import scene, state, step  # noqa: E402
 from fluid_tpu_torch.config import default_2d, default_3d  # noqa: E402
 from fluid_tpu_torch.domain import make_domain  # noqa: E402
 from fluid_tpu_torch.ops import cuda_build  # noqa: E402
+from fluid_tpu_torch.ops import pallas_kernels as pk  # noqa: E402
+from fluid_tpu_torch.ops import pallas_transfer as tpt  # noqa: E402
 from fluid_tpu_torch.ops import stream_kernels as sk  # noqa: E402
 from fluid_tpu_torch.ops import stream_transfer as stx  # noqa: E402
+from fluid_tpu_torch.ops import tiled_transfer as tt  # noqa: E402
 from fluid_tpu_torch.session import Session  # noqa: E402
 from fluid_tpu_torch.utils.platform import card_info, require_cuda  # noqa: E402
 
 N_1M = 1_000_000
-SOURCE = "fluid_tpu_torch/csrc/stream_kernels.cu"
+N_2D = 100_000
+SOURCE = {name: "fluid_tpu_torch/csrc/stream_kernels.cu" for name in sk.KERNELS}
+SOURCE.update({name: "fluid_tpu_torch/csrc/pallas_kernels.cu" for name in pk.KERNELS})
 REPLACES = {
     "deposit_p2g1": "fluid_tpu/ops/stream_transfer.py:676",
     "deposit_p2g2": "fluid_tpu/ops/stream_transfer.py:676",
     "collect": "fluid_tpu/ops/stream_transfer.py:1163",
     "halo_axis": "fluid_tpu/ops/stream_transfer.py:2006",
     "halo_gblk": "fluid_tpu/ops/stream_transfer.py:1882",
+    "pallas_deposit_p2g1": "fluid_tpu/ops/pallas_transfer.py:160",
+    "pallas_deposit_force": "fluid_tpu/ops/pallas_transfer.py:160",
+    "pallas_p2g2": "fluid_tpu/ops/pallas_transfer.py:428",
+    "pallas_collect": "fluid_tpu/ops/pallas_transfer.py:272",
 }
+PALLAS_ON_PATH = ("pallas_deposit_p2g1", "pallas_p2g2", "pallas_collect")
+
+# The card's peaks (H100 SXM data sheet, at its 700 W limit): HBM bytes/s
+# and fp32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+F32 = 4
+
+
+def bound(nbytes: float, ops: float):
+    """The least time the card could take (ms) and what bounds it: bytes
+    over the memory rate or fp32 operations over the fp32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def particle_ops(kind: str, D: int, valid: int) -> int:
+    """fp32 adds and multiplies of the direct tap form for ``valid``
+    particles (3^D taps each), the same count for the stream and the pallas
+    kernel of one function: stencil 10 per axis; a tap weight D-1; p2g1
+    mass and APIC momentum 2(1+D) + 2D^2; the eq-16 force 2D + 2D^2;
+    density gather 2 + (D-1); EOS 10, stress 6D^2; g2p 2 + 2D + 2D^2 and
+    the particle tail 8D + 20."""
+    stencil, w = 10 * D, D - 1
+    per = {  # (per tap, per particle)
+        "p2g1": (w + 2 * (1 + D) + 2 * D * D, stencil + 4 * D * D),
+        "force": (w + 2 * D + 2 * D * D, stencil),
+        "p2g2": (2 * w + 2 + 2 * D + 2 * D * D, stencil + 10 + 6 * D * D),
+        "collect": (w + 2 + 2 * D + 2 * D * D, stencil + 10 + 2 * D * D + 8 * D + 20),
+    }[kind]
+    return valid * (3**D * per[0] + per[1])
+
+
+def stream_bounds(st, g, D: int) -> dict:
+    """(bytes, ops) of each stream kernel on this state: each input read
+    once (only the valid slots of the stream, only the windows of occupied
+    tiles where an empty tile reads none), each output written once."""
+    A, nc = st.count.shape[0], g.ncell
+    valid = int(st.count.sum())
+    occ = int((st.count > 0).sum())
+    tiles = 2 * A * F32
+    return {
+        "deposit_p2g1": (valid * (2 * D + D * D + 1) * F32 + tiles + A * (1 + D) * nc * F32,
+                         particle_ops("p2g1", D, valid)),
+        "deposit_p2g2": (valid * (D + D * D + 1) * F32 + occ * (2 + D) * nc * F32 + tiles
+                         + A * D * nc * F32,
+                         particle_ops("p2g2", D, valid) + occ * D * nc),
+        "collect": (valid * (D + 2) * F32 + occ * (1 + D) * nc * F32 + tiles
+                    + (A * g.F * g.cap + A * g.cap + A * (1 + D) * nc) * F32,
+                    particle_ops("collect", D, valid) + particle_ops("p2g1", D, valid)),
+        "halo_axis": (2 * A * D * nc * F32 + tiles, 2 * A * D * nc),
+        "halo_gblk": ((A * (1 + D) * nc + A * (1 + D) * nc) * F32 + tiles, 4 * A * D * nc),
+    }
+
+
+def pallas_bounds(act_count, g, D: int) -> dict:
+    """(bytes, ops) of each pallas kernel on this binning, counted as in
+    ``stream_bounds``; stream columns are read for min(count, cap)
+    particles of each tile."""
+    A, nc = act_count.shape[0], g.ncell
+    valid = int(act_count.clamp_max(g.cap).sum())
+    occ = int((act_count > 0).sum())
+    tiles = 3 * A * F32
+    return {
+        "pallas_deposit_p2g1": (valid * pk.stream_rows(D) * F32 + tiles + A * nc * (1 + D) * F32,
+                                particle_ops("p2g1", D, valid)),
+        "pallas_deposit_force": (valid * pk.stream_rows(D, "force") * F32 + tiles + A * nc * D * F32,
+                                 particle_ops("force", D, valid)),
+        "pallas_p2g2": (valid * (D + D * D + 1) * F32 + occ * nc * F32 + tiles + A * nc * D * F32,
+                        particle_ops("p2g2", D, valid)),
+        "pallas_collect": (valid * (D + 1) * F32 + occ * (1 + D) * nc * F32 + tiles
+                           + A * pk.slot_rows(D) * g.cap * F32,
+                           particle_ops("collect", D, valid)),
+    }
 
 
 def check(ok: bool, what: str) -> None:
@@ -137,6 +239,7 @@ def phase_kernels(device, n: int, card: str, reps: int = 10):
         "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g, True),
                     lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)),
     }
+    bounds = stream_bounds(st, g, D)
     results = {}
     for name, (kern, plain) in cases.items():
         got, want = kern(), plain()
@@ -181,26 +284,115 @@ def phase_kernels(device, n: int, card: str, reps: int = 10):
         del got, want
         ms = time_ms(kern, reps, device)
         plain_ms = time_ms(plain, max(2, reps // 5), device)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        bound_ms, bound_by = bound(*bounds[name])
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         print(f"[kernels] {name}: max_abs_err={err:.3e}{extra} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms  [{card}]")
+              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+    return results
+
+
+def pallas_state(device, n: int, dim: int):
+    """A dam of ``n`` particles with random velocities and APIC matrices,
+    binned for the pallas kernels; returns what each kernel is given on the
+    main path (the glue of ``pallas_transfer._advance``) and the force
+    stream that ``p2g2`` deposits from, made by the plain path."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    cfg, p, dom = scene.scaled_dam_break(gen, n, dim=dim, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    p.vel = 0.3 * torch.randn(p.vel.shape, generator=gen, device=device)
+    p.C = 0.05 * torch.randn(p.C.shape, generator=gen, device=device)
+    spec = tt.default_spec(cfg, n)
+    check(int(tt.overflow_count(p.pos, dom, spec)) == 0, f"{dim}D scene fits the tile spec")
+    plan = tpt.make_plan(cfg, dom, spec, *step.no_mouse(), device)
+    st = tpt.bin_stream(p, dom, plan)
+    g = plan.geom
+    _, act1 = tpt.halo_blocks(pk.deposit(st.stream, *st.tiles, g, mode="p2g1"), st, plan)
+    mblocks = act1[..., 0:1].contiguous()
+    _, act2 = tpt.halo_blocks(pk.p2g2(st.stream, mblocks, *st.tiles, plan.params6, g), st, plan)
+    vblocks = tpt.grid_velocity(act1[..., 1:] + act2, mblocks, plan.dtg)
+    force = pk.force_stream_plain(st.stream, mblocks, *st.tiles, plan.params6, g)
+    return cfg, plan, st, mblocks, vblocks, force
+
+
+def phase_pallas_kernels(device, card: str, reps: int = 10):
+    """The four pallas kernels against their plain versions at the 3D 1M
+    dam (the main path's shapes, whose times go into the kernel table) and
+    at a 2D dam of 100,000 (the D=2 instantiations)."""
+    results = {}
+    for dim, n in ((3, N_1M), (2, N_2D)):
+        cfg, plan, st, mblocks, vblocks, force = pallas_state(device, n, dim)
+        g, stream, tiles = plan.geom, st.stream, st.tiles
+        centre = cfg.boundary_clip[1][0] / 2
+        params_m = tpt.collect_params(cfg, *step.mouse((centre, centre)), device)
+        print(f"[pallas kernels] {dim}D n={n} A={tiles[1].shape[0]} "
+              f"occupied={int((tiles[1] > 0).sum())} max count={int(tiles[1].max())} "
+              f"cap={g.cap} stream={tuple(stream.shape)} blocks={tuple(mblocks.shape[:2])}")
+        cases = {
+            "pallas_deposit_p2g1": (lambda: pk.deposit(stream, *tiles, g, mode="p2g1"),
+                                    lambda: pk.deposit_plain(stream, *tiles, g, mode="p2g1")),
+            "pallas_deposit_force": (lambda: pk.deposit(force, *tiles, g, mode="force"),
+                                     lambda: pk.deposit_plain(force, *tiles, g, mode="force")),
+            "pallas_p2g2": (lambda: pk.p2g2(stream, mblocks, *tiles, plan.params6, g),
+                            lambda: pk.p2g2_plain(stream, mblocks, *tiles, plan.params6, g)),
+            "pallas_collect": (lambda: pk.collect(stream, vblocks, mblocks, *tiles, plan.params_c, g),
+                               lambda: pk.collect_plain(stream, vblocks, mblocks, *tiles,
+                                                        plan.params_c, g)),
+        }
+        bounds = pallas_bounds(tiles[1], g, dim)
+        for name, (kern, plain) in cases.items():
+            got, want = kern(), plain()
+            sync(device)
+            err = float((got - want).abs().max())
+            if name == "pallas_collect":
+                check(err <= 1e-5, f"{dim}D {name} rows max|err| {err} <= 1e-5")
+                gm = pk.collect(stream, vblocks, mblocks, *tiles, params_m, g)
+                wm = pk.collect_plain(stream, vblocks, mblocks, *tiles, params_m, g)
+                mouse_err = float((gm - wm).abs().max())
+                check(mouse_err <= 1e-5, f"{dim}D collect with the mouse {mouse_err} <= 1e-5")
+                check(bool((gm[:, dim:2 * dim] != got[:, dim:2 * dim]).any()), "the mouse pushed")
+                extra = f" mouse_err={mouse_err:.3e}"
+                del gm, wm
+            else:
+                scale = float(want.abs().max())
+                check(err <= 1e-4 * scale, f"{dim}D {name} max|err| {err} <= 1e-4 * max|block| {scale}")
+                extra = f" max|block|={scale:.4e}"
+                if name == "pallas_deposit_force":
+                    k7 = pk.p2g2(stream, mblocks, *tiles, plan.params6, g)
+                    same = float((got - k7).abs().max())
+                    check(same <= 1e-4 * scale, f"force deposit of the plain force stream vs p2g2 {same}")
+                    extra += f" vs_p2g2={same:.3e}"
+                    del k7
+            del got, want
+            ms = time_ms(kern, reps, device)
+            plain_ms = time_ms(plain, max(2, reps // 5), device)
+            bound_ms, bound_by = bound(*bounds[name])
+            if dim == 3:
+                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            print(f"[pallas kernels] {dim}D {name}: max_abs_err={err:.3e}{extra} kernel {ms:.4f} ms "
+                  f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+        del plan, st, mblocks, vblocks, force
+        torch.cuda.empty_cache()
     return results
 
 
 def phase_goldens(device, card: str) -> None:
-    for name, make in (("golden_2d", default_2d), ("golden_3d", default_3d)):
-        z = np.load(os.path.join(ROOT, "tests", "data", f"{name}.npz"))
-        cfg = make(iterations=int(z["substeps"]))
-        p = state.from_numpy(z["pos0"], z["vel0"], z["C0"], device=device)
-        sess = Session(cfg, make_domain(cfg), p, backend="stream", device=device)
-        sess.frame()
-        got = sess.particles()
-        worst = 0.0
-        for f in ("pos", "vel", "C", "density", "pressure"):
-            err = float(np.abs(getattr(got, f).cpu().numpy() - z[f]).max())
-            check(err <= 1e-3, f"{name} {f} max|err| {err} <= 1e-3")
-            worst = max(worst, err)
-        print(f"[goldens] {name}: {int(z['substeps'])} substeps, max|err| {worst:.3e} <= 1e-3  [{card}]")
+    for backend in ("stream", "pallas"):
+        for name, make in (("golden_2d", default_2d), ("golden_3d", default_3d)):
+            z = np.load(os.path.join(ROOT, "tests", "data", f"{name}.npz"))
+            cfg = make(iterations=int(z["substeps"]))
+            p = state.from_numpy(z["pos0"], z["vel0"], z["C0"], device=device)
+            sess = Session(cfg, make_domain(cfg), p, backend=backend, device=device)
+            sess.frame()
+            got = sess.particles()
+            worst = 0.0
+            for f in ("pos", "vel", "C", "density", "pressure"):
+                err = float(np.abs(getattr(got, f).cpu().numpy() - z[f]).max())
+                check(err <= 1e-3, f"{backend} {name} {f} max|err| {err} <= 1e-3")
+                worst = max(worst, err)
+            print(f"[goldens] {backend} {name}: {int(z['substeps'])} substeps, "
+                  f"max|err| {worst:.3e} <= 1e-3  [{card}]")
 
 
 def rebin_check_cost_ms(sess: Session, device, substeps: int = 8, rounds: int = 3) -> float:
@@ -281,26 +473,112 @@ def phase_slice(device, n: int, card: str, frames: int = 2):
     return launches
 
 
-def phase_replay(device, card: str) -> None:
-    cfg, p, dom = scene.reference_scene_3d(seed=0, device=device)
-    sess = Session(cfg, dom, p, backend="stream", device=device)
-    snap = sess.snapshot()
-    sess.frame()
-    a = sess.particles()
-    sess.restore(snap)
-    sess.frame()
-    b = sess.particles()
-    for f in state.FIELDS:
-        check(torch.equal(getattr(a, f), getattr(b, f)), f"replay bit-identical: {f}")
-    reps = 5
+def phase_pallas_slice(card: str, n: int = N_1M, frames: int = 1):
+    """The pallas backend's main path through the entry points a user
+    calls, with no device argument anywhere: the state lands on the card."""
+    cfg, p, dom = scene.scaled_dam_break(torch.Generator().manual_seed(0), n)
+    device = p.device
+    check(device.type == "cuda", f"the scene defaults to the card, not {device}")
+    spec = tt.default_spec(cfg, n)
+    check(int(tt.overflow_count(p.pos, dom, spec)) == 0, "no overflow at t=0")
+    y0 = float(p.pos[:, 1].mean())
+    sess = Session(cfg, dom, p, backend="pallas")
+    check(sess.device.type == "cuda", f"Session defaults to the card, not {sess.device}")
     sync(device)
+    pk.reset_launches()
+    sk.reset_launches()
     t0 = time.perf_counter()
-    sess.run(reps)
+    sess.run(frames)
     sync(device)
-    dt = time.perf_counter() - t0
-    print(f"[replay] 3D reference scene (n={p.n}): snapshot replay bit-identical; "
-          f"{dt * 1e3 / reps:.2f} ms/frame {p.n * cfg.iterations * reps / dt:.4e} "
-          f"particle-steps/s rebins={sess.rebins()}  [{card}]")
+    dt_run = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    check(all(launches[k] > 0 for k in PALLAS_ON_PATH), f"every on-path kernel launched: {launches}")
+    check(not any(sk.LAUNCHES.values()), f"no stream kernel on the pallas path: {sk.LAUNCHES}")
+    q = sess.particles()
+    check(int(tt.overflow_count(q.pos, dom, spec)) == 0, "no overflow after the frame")
+    check(q.n == n and float(q.mass.sum()) == float(n), "mass conserved")
+    for f in state.FIELDS:
+        check(bool(torch.isfinite(getattr(q, f)).all()), f"finite {f}")
+    y1 = float(q.pos[:, 1].mean())
+    check(y1 > y0, f"mean y rose ({y0:.4f} -> {y1:.4f}; +y is down)")
+    steps = frames * cfg.iterations
+    print(f"[pallas slice] n={n} frames={frames} substeps={steps} {dt_run * 1e3 / frames:.1f} ms/frame "
+          f"{n * steps / dt_run:.4e} particle-steps/s A={tt.bin_particles(q.pos, dom, spec)['n_active']} "
+          f"cap={spec.cap} mean_y {y0:.3f}->{y1:.3f} launches={launches}  [{card}]")
+
+    t0 = time.perf_counter()
+    sess.frame()
+    sync(device)
+    dt2 = time.perf_counter() - t0
+    print(f"[pallas slice] steady frame {frames + 1}: {dt2 * 1e3:.1f} ms/frame "
+          f"{n * cfg.iterations / dt2:.4e} particle-steps/s  [{card}]")
+
+    # one substep from the same state: pallas vs dense, and the grid mass
+    mid = sess.particles()
+    mp, ma = step.no_mouse()
+    a, ga = step.substep(mid, cfg, dom, mp, ma, backend="pallas")
+    b, _ = step.substep(mid, cfg, dom, mp, ma, backend="dense")
+    dpos = float((a.pos - b.pos).abs().max())
+    dvel = float((a.vel - b.vel).abs().max())
+    check(dpos <= 1e-4, f"pallas vs dense max|dpos| {dpos} <= 1e-4")
+    grid_mass = float(ga.mass.double().sum())
+    check(abs(grid_mass - n) <= 1e-4 * n, f"grid mass {grid_mass} == n within 1e-4")
+    print(f"[pallas slice] pallas vs dense, one substep: max|dpos| {dpos:.3e} max|dvel| {dvel:.3e} "
+          f"grid mass {grid_mass:.2f} of {n}  [{card}]")
+    return launches
+
+
+def phase_replay(device, card: str) -> None:
+    for backend in ("stream", "pallas"):
+        cfg, p, dom = scene.reference_scene_3d(seed=0, device=device)
+        sess = Session(cfg, dom, p, backend=backend, device=device)
+        snap = sess.snapshot()
+        sess.frame()
+        a = sess.particles()
+        sess.restore(snap)
+        sess.frame()
+        b = sess.particles()
+        for f in state.FIELDS:
+            check(torch.equal(getattr(a, f), getattr(b, f)), f"{backend} replay bit-identical: {f}")
+        reps = 5
+        sync(device)
+        t0 = time.perf_counter()
+        sess.run(reps)
+        sync(device)
+        dt = time.perf_counter() - t0
+        print(f"[replay] {backend} 3D reference scene (n={p.n}): snapshot replay bit-identical; "
+              f"{dt * 1e3 / reps:.2f} ms/frame {p.n * cfg.iterations * reps / dt:.4e} "
+              f"particle-steps/s rebins={sess.rebins()}  [{card}]")
+
+
+def phase_profile(card: str, n: int = N_1M, top: int = 8) -> None:
+    """One frame of the 1M dam per backend under torch.profiler, after a
+    warm-up frame: host wall time, device time (the sum of every kernel's
+    and copy's time) and the largest device entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for backend in ("stream", "pallas"):
+        cfg, p, dom = scene.scaled_dam_break(torch.Generator().manual_seed(0), n)
+        sess = Session(cfg, dom, p, backend=backend)
+        sess.frame()
+        sync(p.device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sess.frame()
+            sync(p.device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        rows.sort(key=lambda e: e.device_time_total, reverse=True)
+        device_ms = sum(e.device_time_total for e in rows) / 1e3
+        own_ms = sum(e.device_time_total for e in rows  # csrc/*.cu kernels
+                     if e.key.removeprefix("void ").startswith("(anonymous namespace)::")) / 1e3
+        check(device_ms > 0, f"{backend}: the profiler saw device time")
+        print(f"[profile] {backend} n={n}, one frame: wall {wall_ms:.2f} ms (profiler on), device "
+              f"{device_ms:.2f} ms, busy {device_ms / wall_ms:.1%}; csrc kernels {own_ms:.2f} ms, "
+              f"PyTorch ops {device_ms - own_ms:.2f} ms  [{card}]")
+        for e in rows[:top]:
+            print(f"[profile]   {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+        del sess, p
 
 
 def main() -> int:
@@ -317,18 +595,22 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_ptxas.txt"), "w") as fh:
         fh.write(cuda_build.build_log)
-    print(f"[build] {cuda_build.library_path().name} in {build_s:.1f} s "
-          f"(ptxas report: chiprun_out/chip_smoke_ptxas.txt)")
+    steps = ", ".join(f"{name} {secs:.2f} s" for name, secs in cuda_build.build_seconds.items())
+    print(f"[build] {cuda_build.library_path().name} in {build_s:.2f} s ({steps or 'cached'}; "
+          f"ptxas report: chiprun_out/chip_smoke_ptxas.txt)")
 
     results = phase_kernels(device, N_1M, card)
+    results.update(phase_pallas_kernels(device, card))
     phase_goldens(device, card)
     launches = phase_slice(device, N_1M, card)
+    launches.update(phase_pallas_slice(card))
     phase_replay(device, card)
+    phase_profile(card)
 
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
          "launches": launches[name], **results[name]}
-        for name in sk.KERNELS
+        for name in (*sk.KERNELS, *pk.KERNELS)
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

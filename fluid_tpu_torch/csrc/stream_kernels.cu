@@ -26,11 +26,16 @@
 // on its own, in the same order as the plain PyTorch versions in
 // ops/stream_kernels.py, which the on-card check compares against.
 //
+// The B-spline weights, the Tait pressure and the particle tail come from
+// mpm_common.cuh, shared with the pallas backend's kernels.
+//
 // Each C entry point launches on the given stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mpm_common.cuh"
 
 namespace {
 
@@ -43,12 +48,6 @@ struct Geom {
   int tshape[3];  // tiles per axis
   int origin[3];  // domain origin, cells
 };
-
-__device__ __forceinline__ int tile_coord(int tid, int d, int D, const Geom& g) {
-  int div = 1;
-  for (int k = d + 1; k < D; ++k) div *= g.tshape[k];
-  return (tid / div) % g.tshape[d];
-}
 
 // Per-slot stencil staging shared by the deposit and fused-collect paths.
 // Shared layout, [field][slot] so that staging threads write distinct banks
@@ -84,15 +83,14 @@ __device__ __forceinline__ void stage_stencil(const Stage<D>& sh, const Geom& g,
   const int cap = g.cap;
   for (int d = 0; d < D; ++d) {
     const float cf = floorf(pos[d]);
-    const int lc = static_cast<int>(cf) - (g.origin[d] + tile_coord(tid, d, D, g) * g.T);
+    const int lc = mpm::local_cell(cf, d, D, tid, g.T, g.tshape, g.origin);
     int b = lc + g.h - 1;
     b = b < 0 ? 0 : (b > g.E - 3 ? g.E - 3 : b);
     const float dv = (pos[d] - cf) - 0.5f;
     sh.base[d * cap + s] = b;
     sh.dvec[d * cap + s] = dv;
-    sh.w[(0 * D + d) * cap + s] = 0.5f * (0.5f - dv) * (0.5f - dv);
-    sh.w[(1 * D + d) * cap + s] = 0.75f - dv * dv;
-    sh.w[(2 * D + d) * cap + s] = 0.5f * (0.5f + dv) * (0.5f + dv);
+    mpm::bspline_weights(dv, sh.w[(0 * D + d) * cap + s], sh.w[(1 * D + d) * cap + s],
+                         sh.w[(2 * D + d) * cap + s]);
   }
 }
 
@@ -222,7 +220,7 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
       const float dt = params[0], rest = params[1], k_eos = params[2];
       const float gamma = params[3], floor_p = params[4], mu = params[5];
       const float volume = rho > 0.0f ? mass / rho : 0.0f;
-      const float pressure = fmaxf(k_eos * (powf(rho / rest, gamma) - 1.0f), floor_p);
+      const float pressure = mpm::tait_pressure(rho, rest, k_eos, gamma, floor_p);
       const float scale = (-4.0f * dt) * volume;
       for (int i = 0; i < D; ++i) {
         for (int j = 0; j < D; ++j) {
@@ -326,45 +324,18 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
     for (int i = 0; i < D; ++i)
       for (int j = 0; j < D; ++j) newC[i * D + j] = 4.0f * B[i][j];
 
-    const float dt = params[0], rest = params[1], k_eos = params[2];
-    const float gamma = params[3], floor_p = params[4], mouse_r = params[5];
-    const float damp = params[6], m_active = params[7], mx = params[8], my = params[9];
+    const float dt = params[0];
     const float stride = params[10 + 2 * D];
-    const float pressure = fmaxf(k_eos * (powf(rho / rest, gamma) - 1.0f), floor_p);
+    const float pressure = mpm::tait_pressure(rho, params[1], params[2], params[3], params[4]);
     for (int d = 0; d < D; ++d) newpos[d] = pos[d] + v[d] * dt;
-
-    // mouse repulsion after advection (quirk Q3), xy plane
-    const float dx = newpos[0] - mx;
-    const float dy = newpos[1] - my;
-    const float d2 = dx * dx + dy * dy;
-    const float nrm = sqrtf(d2);
-    const float inv = nrm > 0.0f ? 1.0f / nrm : 0.0f;
-    const bool hit = (m_active > 0.0f) && (d2 < mouse_r * mouse_r);
-    v[0] = v[0] + (hit ? dx * inv : 0.0f);
-    v[1] = v[1] + (hit ? dy * inv : 0.0f);
-
-    // clamp + soft wall with the un-scaled lookahead (quirk Q2); packed
-    // scenes shift the x walls by the owning scene's offset
+    // packed scenes shift the x walls by the owning scene's offset
     const float sbase = stride > 0.0f ? floorf(newpos[0] / fmaxf(stride, 1.0f)) * stride : 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float off = d == 0 ? sbase : 0.0f;
-      const float lo = params[10 + d] + off;
-      const float hi = params[10 + D + d] + off;
-      const float p_cl = fminf(fmaxf(newpos[d], lo), hi);
-      const float nxt = p_cl + v[d];
-      const float wmin = lo + damp;
-      const float wmax = hi - damp;
-      float vv = v[d] + (nxt < wmin ? wmin - nxt : 0.0f);
-      vv = vv + (nxt > wmax ? wmax - nxt : 0.0f);
-      newpos[d] = p_cl;
-      v[d] = vv;
-    }
+    mpm::particle_tail<D>(newpos, v, params, sbase);
 
     // drift flag: the next deposit must stay inside the tile's window
     float fl = 0.0f;
     for (int d = 0; d < D; ++d) {
-      const int lcn = static_cast<int>(floorf(newpos[d])) -
-                      (g.origin[d] + tile_coord(tid, d, D, g) * g.T);
+      const int lcn = mpm::local_cell(floorf(newpos[d]), d, D, tid, g.T, g.tshape, g.origin);
       if (lcn < 1 - g.h || lcn > g.T - 2 + g.h) fl = 2.0f;
     }
     mass = blk[(2 * D + D * D) * cap + s];

@@ -143,6 +143,36 @@ def _pressure(rho, rest, k_eos, gamma, floor_p):
     return torch.clamp_min(k_eos * (torch.pow(rho / rest, gamma) - 1.0), floor_p)
 
 
+def _particle_tail(newpos, v, params, x_shift):
+    """Per-axis lists of advected positions and grid velocities [V], in
+    place: the mouse impulse after advection (quirk Q3, xy plane), then the
+    clamp and the un-scaled soft wall (quirk Q2) with the x walls shifted by
+    ``x_shift``.  ``mpm::particle_tail`` of ``csrc/mpm_common.cuh``."""
+    D = len(newpos)
+    mouse_r, damp, m_active, mx, my = params[5], params[6], params[7], params[8], params[9]
+    dx = newpos[0] - mx
+    dy = newpos[1] - my
+    d2 = dx * dx + dy * dy
+    nrm = torch.sqrt(d2)
+    inv = torch.where(nrm > 0.0, 1.0 / torch.where(nrm > 0.0, nrm, 1.0), 0.0)
+    hit = (m_active > 0.0) & (d2 < mouse_r * mouse_r)
+    v[0] = v[0] + torch.where(hit, dx * inv, 0.0)
+    v[1] = v[1] + torch.where(hit, dy * inv, 0.0)
+
+    for d in range(D):
+        off = x_shift if d == 0 else 0.0
+        lo = params[10 + d] + off
+        hi = params[10 + D + d] + off
+        p_cl = torch.minimum(torch.maximum(newpos[d], lo), hi)
+        nxt = p_cl + v[d]
+        wmin = lo + damp
+        wmax = hi - damp
+        vv = v[d] + torch.where(nxt < wmin, wmin - nxt, 0.0)
+        vv = vv + torch.where(nxt > wmax, wmax - nxt, 0.0)
+        newpos[d] = p_cl
+        v[d] = vv
+
+
 def deposit_p2g1_plain(count, tid, stream, g: TileGeom) -> torch.Tensor:
     A, D = count.shape[0], g.dim
     a_idx, s_idx = _valid_slots(count, g.cap)
@@ -203,37 +233,14 @@ def collect_plain(count, tid, params, stream, gblk, g: TileGeom, fused: bool):
     rho = _tap_sum(w, gw[a_idx[:, None], D, e])
     newC = [4.0 * B[i][j] for i in range(D) for j in range(D)]
 
-    p = params
-    dt, rest, k_eos, gamma, floor_p = p[0], p[1], p[2], p[3], p[4]
-    mouse_r, damp, m_active, mx, my = p[5], p[6], p[7], p[8], p[9]
-    stride = p[10 + 2 * D]
-    pressure = _pressure(rho, rest, k_eos, gamma, floor_p)
+    dt, stride = params[0], params[10 + 2 * D]
+    pressure = _pressure(rho, *params[1:5])
     newpos = [pos[:, d] + v[d] * dt for d in range(D)]
-
-    dx = newpos[0] - mx
-    dy = newpos[1] - my
-    d2 = dx * dx + dy * dy
-    nrm = torch.sqrt(d2)
-    inv = torch.where(nrm > 0.0, 1.0 / torch.where(nrm > 0.0, nrm, 1.0), 0.0)
-    hit = (m_active > 0.0) & (d2 < mouse_r * mouse_r)
-    v[0] = v[0] + torch.where(hit, dx * inv, 0.0)
-    v[1] = v[1] + torch.where(hit, dy * inv, 0.0)
-
+    # packed scenes shift the x walls by the owning scene's offset
     sbase = torch.where(
         stride > 0.0, torch.floor(newpos[0] / torch.clamp_min(stride, 1.0)) * stride, 0.0
     )
-    for d in range(D):
-        off = sbase if d == 0 else torch.zeros_like(sbase)
-        lo = p[10 + d] + off
-        hi = p[10 + D + d] + off
-        p_cl = torch.minimum(torch.maximum(newpos[d], lo), hi)
-        nxt = p_cl + v[d]
-        wmin = lo + damp
-        wmax = hi - damp
-        vv = v[d] + torch.where(nxt < wmin, wmin - nxt, 0.0)
-        vv = vv + torch.where(nxt > wmax, wmax - nxt, 0.0)
-        newpos[d] = p_cl
-        v[d] = vv
+    _particle_tail(newpos, v, params, sbase)
 
     bad = torch.zeros_like(rho, dtype=torch.bool)
     for d in range(D):
@@ -300,7 +307,7 @@ def _on_cpu(device: torch.device) -> bool:
     if device.type == "cpu":
         return True
     if device.type != "cuda":
-        raise ValueError(f"stream kernels run on cuda (or plain on cpu), not {device}")
+        raise ValueError(f"the kernels run on cuda (or plain on cpu), not {device}")
     return False
 
 
@@ -314,15 +321,17 @@ def _ints(vals):
     return ctypes.cast(arr, ctypes.c_void_p)
 
 
-def _launch(name: str, fn, *args) -> None:
-    """Call a C entry point on the current stream; raise on its error code."""
+def _launch(name: str, fn, *args, counts: dict = LAUNCHES) -> None:
+    """Call a C entry point on the current stream; raise on its error code,
+    else add one to ``counts[name]`` (this module's ``LAUNCHES`` unless
+    another module's wrapper passes its own)."""
     from . import cuda_build
 
     lib = cuda_build.load()
     rc = getattr(lib, fn)(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 def _check_tiles(count, tid, stream, g: TileGeom):

@@ -6,6 +6,10 @@ stays binned on the device between frames; the console histogram is
 reduced straight from the binned slots, and ``particles()`` un-bins on
 demand.
 
+The other backends ("dense", "pallas") hold a ``ParticleState`` and go
+through ``step.frame``, as in JAX.  The state lives on ``device``, the card
+unless the caller passes ``device="cpu"``.
+
 Differences from the JAX ``Session``: PyTorch runs eagerly, so ``run(k)``
 is a loop of ``frame()`` (the JAX session fuses k frames into one program)
 and there is no ``compile_run`` (ahead-of-time compilation of that fused
@@ -24,6 +28,7 @@ from .config import Config
 from .domain import Domain
 from .ops import stream_transfer as stx
 from .state import ParticleState
+from .utils.platform import resolve_device
 
 
 def default_backend(device) -> str:
@@ -36,17 +41,18 @@ class Session:
     """Holds simulation state across frames.
 
     cfg, domain : static setup;  p : initial particles (moved to ``device``)
-    backend : "stream" or "dense"; None -> ``default_backend(device)``
-    spec : StreamSpec override (stream only)
+    backend : "stream", "dense" or "pallas"; None -> ``default_backend(device)``
+    spec : StreamSpec override (stream only; "pallas" uses
+        ``tiled_transfer.default_spec``, as in JAX)
     strict : after every frame check particle conservation and the
         active-budget watermark (stream only; one small device read)
-    device : where the state lives (default: the particles' device)
+    device : where the state lives (None: ``default_device()``, the card)
     """
 
     def __init__(self, cfg: Config, domain: Domain, p: ParticleState,
                  backend: Optional[str] = None, spec=None, strict: bool = True,
                  device=None):
-        self.device = torch.device(device) if device is not None else p.device
+        self.device = resolve_device(device)
         p = p.to(self.device)
         self.cfg = cfg
         self.domain = domain
@@ -64,7 +70,7 @@ class Session:
                     f"fit the slot structure (raise spec.active/cap)"
                 )
             self._st = stx.bin_particles(p, domain, self.spec, dt=cfg.dt)
-        elif self.backend == "dense":
+        elif self.backend in ("dense", "pallas"):
             self.spec = spec
             self._p = p
         else:

@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .utils.platform import resolve_device
+
 FIELDS = ("pos", "vel", "C", "mass", "density", "pressure")
 
 
@@ -47,8 +49,9 @@ class ParticleState:
     @staticmethod
     def create(pos, vel=None, C=None, mass=None, device=None) -> "ParticleState":
         """Build from positions; the other fields take the reference's seeding
-        values (vel=0, C=0, mass=1 — ``2d_multi.rs:502-512``)."""
-        pos = torch.as_tensor(pos, dtype=torch.float32, device=device)
+        values (vel=0, C=0, mass=1 — ``2d_multi.rs:502-512``).  ``device``
+        None means ``default_device()``, the card."""
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=resolve_device(device))
         n, dim = pos.shape
         kw = dict(dtype=torch.float32, device=pos.device)
 
@@ -78,7 +81,8 @@ class ParticleState:
 
 def from_numpy(pos, vel=None, C=None, mass=None, density=None, pressure=None,
                device=None) -> ParticleState:
-    """ParticleState from numpy arrays (any float dtype; cast to float32)."""
+    """ParticleState from numpy arrays (any float dtype; cast to float32),
+    on ``device`` (None: ``default_device()``)."""
     p = ParticleState.create(
         np.asarray(pos, np.float32), vel=vel, C=C, mass=mass, device=device
     )
@@ -100,6 +104,7 @@ class GridState:
 
     @staticmethod
     def zeros(shape: Tuple[int, ...], device=None) -> "GridState":
+        device = resolve_device(device)
         return GridState(
             mass=torch.zeros(shape, dtype=torch.float32, device=device),
             vel=torch.zeros((*shape, len(shape)), dtype=torch.float32, device=device),

@@ -2,11 +2,14 @@
 
 One substep is p2g_1 -> p2g_2 -> grid_update -> g2p (``2d_multi.rs:111-133``);
 a frame is ``cfg.iterations`` substeps.  PyTorch runs eagerly, so a frame is
-a Python loop of substeps.  Two backends:
+a Python loop of substeps.  Three backends:
 
   "dense"  — ops.transfer, the reference (CPU and GPU)
   "stream" — ops.stream_transfer, the persistent tile-binned slot stream
              whose hot stages are hand-written CUDA kernels on the GPU
+  "pallas" — ops.pallas_transfer, tile binning every substep over a sorted
+             particle stream; deposit, p2g2 and collect are hand-written
+             CUDA kernels on the GPU (the JAX package's Pallas backend)
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from .domain import Domain
 from .ops import transfer
 from .state import GridState, ParticleState
 
-BACKENDS = ("dense", "stream")
+BACKENDS = ("dense", "stream", "pallas")
 
 
 def _get_backend(name: str):
@@ -30,6 +33,10 @@ def _get_backend(name: str):
         from .ops import stream_transfer
 
         return stream_transfer
+    if name == "pallas":
+        from .ops import pallas_transfer
+
+        return pallas_transfer
     raise ValueError(f"unknown transfer backend {name!r} (have {BACKENDS})")
 
 
@@ -52,7 +59,8 @@ def frame_body(p: ParticleState, cfg: Config, domain: Domain,
                backend: str = "dense", substeps: int | None = None
                ) -> ParticleState:
     """``cfg.iterations`` substeps (or ``substeps``).  The stream backend
-    bins once, runs every substep on the binned layout and un-bins once."""
+    bins once, runs every substep on the binned layout and un-bins once;
+    the pallas backend skips the dense grid its ``substep`` returns."""
     ops = _get_backend(backend)
     if hasattr(ops, "frame"):
         return ops.frame(p, cfg, domain, mouse_pos, mouse_active, substeps=substeps)

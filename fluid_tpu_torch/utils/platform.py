@@ -4,6 +4,9 @@ Counterpart of ``fluid_tpu/utils/platform.py`` for the CUDA port.  A
 measurement or on-card check calls ``require_cuda()`` and never falls back
 to the CPU; ``card_info()`` is printed beside every number taken on the card
 (a card can be power-capped below its maximum, which changes its speed).
+
+The entry points (``Session``, ``state``, ``scene``) put their tensors on
+``default_device()``, the card, unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,17 @@ def require_cuda() -> torch.device:
             "(the CPU tests use the kernels' plain versions)"
         )
     return torch.device("cuda", 0)
+
+
+def default_device() -> torch.device:
+    """Where an entry point puts its state when no device is given: the
+    card (``require_cuda()``, so it raises on a host without one)."""
+    return require_cuda()
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; None means ``default_device()``."""
+    return torch.device(device) if device is not None else default_device()
 
 
 def card_info() -> str:

@@ -45,7 +45,7 @@ def _random_state(dim, n, seed, lo=18.0, hi=(46.0, 46.0, 30.0)):
 
 def _run_port(cfg, pos, vel, C, substeps, mouse=None):
     dom = tdomain.make_domain(cfg)
-    p = tstate.from_numpy(pos, vel, C)
+    p = tstate.from_numpy(pos, vel, C, device="cpu")
     mp, ma = tstep.no_mouse() if mouse is None else tstep.mouse(mouse)
     for _ in range(substeps):
         p, _ = tstep.substep(p, cfg, dom, mp, ma)
@@ -109,7 +109,7 @@ def test_dense_substep_matches_jax_dense(dim, mouse):
     a, ga = jax.jit(lambda q: jstep.substep(q, cfg, jdomain.make_domain(cfg), *mj))(
         JParticles.create(pos, vel=vel, C=C)
     )
-    b, gb = tstep.substep(tstate.from_numpy(pos, vel, C), cfg, tdomain.make_domain(cfg), *mt)
+    b, gb = tstep.substep(tstate.from_numpy(pos, vel, C, device="cpu"), cfg, tdomain.make_domain(cfg), *mt)
     for f in ("pos", "vel", "C", "density", "pressure"):
         np.testing.assert_allclose(
             getattr(b, f).numpy(), np.asarray(getattr(a, f)), atol=1e-5, rtol=1e-5, err_msg=f
@@ -154,7 +154,9 @@ def test_port_imports_no_jax():
     """Importing every module of the port pulls in no JAX."""
     code = (
         "import sys, fluid_tpu_torch, fluid_tpu_torch.session, "
-        "fluid_tpu_torch.ops.stream_transfer, fluid_tpu_torch.ops.cuda_build, "
+        "fluid_tpu_torch.ops.stream_transfer, fluid_tpu_torch.ops.pallas_transfer, "
+        "fluid_tpu_torch.ops.pallas_kernels, fluid_tpu_torch.ops.tiling, "
+        "fluid_tpu_torch.ops.tiled_transfer, fluid_tpu_torch.ops.cuda_build, "
         "fluid_tpu_torch.utils.platform; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fluid_tpu.'))); "
         "assert not bad, bad"

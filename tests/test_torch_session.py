@@ -26,7 +26,8 @@ def _case(iterations=2, n=512, seed=0):
         iterations=iterations, boundary_clip=((0.0, 0.0), (32.0, 32.0)), grid_res=16
     )
     gen = torch.Generator().manual_seed(seed)
-    p, _ = scene.dam_break(gen, cfg, n=n, box=((8.0, 8.0), (24.0, 24.0)))
+    p, _ = scene.dam_break(gen, cfg, n=n, box=((8.0, 8.0), (24.0, 24.0)),
+                          device="cpu")
     return cfg, p, make_domain(cfg, halo_cells=4)
 
 
@@ -34,15 +35,15 @@ def test_default_backend_follows_the_device():
     assert default_backend("cpu") == "dense"
     assert default_backend(torch.device("cuda", 0)) == "stream"
     cfg, p, dom = _case()
-    assert Session(cfg, dom, p).backend == "dense"
+    assert Session(cfg, dom, p, device="cpu").backend == "dense"
 
 
 def test_session_stream_matches_dense_across_frames():
     """Three frames of 2 substeps: stream and dense agree to 1e-4 (the
     tolerance of tests/test_session.py), and nothing is lost."""
     cfg, p, dom = _case()
-    a = Session(cfg, dom, p.clone(), backend="stream")
-    b = Session(cfg, dom, p.clone(), backend="dense")
+    a = Session(cfg, dom, p.clone(), backend="stream", device="cpu")
+    b = Session(cfg, dom, p.clone(), backend="dense", device="cpu")
     for _ in range(3):
         a.frame()
         b.frame()
@@ -57,8 +58,8 @@ def test_session_run_equals_frames():
     """run(k) is k calls of frame(): bit-identical, same re-bin count."""
     cfg, p, dom = _case()
     p.vel = torch.randn(p.vel.shape, generator=torch.Generator().manual_seed(1)) * 20.0
-    sa = Session(cfg, dom, p.clone(), backend="stream")
-    sb = Session(cfg, dom, p.clone(), backend="stream")
+    sa = Session(cfg, dom, p.clone(), backend="stream", device="cpu")
+    sb = Session(cfg, dom, p.clone(), backend="stream", device="cpu")
     for _ in range(3):
         sa.frame()
     sb.run(3)
@@ -69,7 +70,7 @@ def test_session_run_equals_frames():
 
 def test_session_histogram_matches_unbinned_render():
     cfg, p, dom = _case()
-    sess = Session(cfg, dom, p, backend="stream")
+    sess = Session(cfg, dom, p, backend="stream", device="cpu")
     sess.frame()
     hist = sess.histogram(render.DEFAULT_VIEWPORT, render.DEFAULT_CONSOLE)
     ref = render.histogram(sess.particles().pos, render.DEFAULT_VIEWPORT, render.DEFAULT_CONSOLE)
@@ -80,7 +81,7 @@ def test_session_histogram_matches_unbinned_render():
 
 def test_session_dense_backend_same_api():
     cfg, p, dom = _case()
-    sess = Session(cfg, dom, p, backend="dense")
+    sess = Session(cfg, dom, p, backend="dense", device="cpu")
     sess.frame(step.mouse((32.0, 32.0)))
     assert torch.isfinite(sess.particles().pos).all()
     assert len(sess.render(render.DEFAULT_VIEWPORT, render.DEFAULT_CONSOLE)) == 40
@@ -90,12 +91,12 @@ def test_session_dense_backend_same_api():
 def test_session_rejects_overflowing_spec():
     cfg, p, dom = _case()
     with pytest.raises(ValueError, match="overflow"):
-        Session(cfg, dom, p, backend="stream", spec=stx.StreamSpec(active=8))
+        Session(cfg, dom, p, backend="stream", device="cpu", spec=stx.StreamSpec(active=8))
 
 
 def test_session_snapshot_restore_replays_bit_identical():
     cfg, p, dom = _case(iterations=3)
-    sess = Session(cfg, dom, p, backend="stream", strict=False)
+    sess = Session(cfg, dom, p, backend="stream", device="cpu", strict=False)
     sess.frame()
     snap = sess.snapshot()
     sess.run(2)
@@ -115,9 +116,35 @@ def test_stream_session_matches_frozen_golden(name):
     z = np.load(REPO / "tests" / "data" / f"{name}.npz")
     base = default_2d() if name.endswith("2d") else default_3d()
     cfg = base.replace(iterations=int(z["substeps"]))
-    p = state.from_numpy(z["pos0"], z["vel0"], z["C0"])
-    sess = Session(cfg, make_domain(cfg), p, backend="stream")
+    p = state.from_numpy(z["pos0"], z["vel0"], z["C0"], device="cpu")
+    sess = Session(cfg, make_domain(cfg), p, backend="stream", device="cpu")
     sess.frame()
     got = sess.particles()
     for f in ("pos", "vel", "C", "density", "pressure"):
         np.testing.assert_allclose(getattr(got, f).numpy(), z[f], atol=1e-3, rtol=0, err_msg=f)
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device`` the entry points put their state on the card: on a
+    host without CUDA they raise, and with device="cpu" they run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults resolve to it")
+    pos = np.full((8, 3), 20.0, np.float32)
+    cfg = default_3d()
+    for call in (lambda: scene.reference_scene_3d(n=64),
+                 lambda: scene.reference_scene_2d(n=64),
+                 lambda: scene.dam_break(torch.Generator().manual_seed(0), cfg, n=64),
+                 lambda: scene.scaled_dam_break(torch.Generator().manual_seed(0), 64),
+                 lambda: scene.uniform_box(torch.Generator(), 4, (0.0, 0.0), (1.0, 1.0)),
+                 lambda: state.ParticleState.create(pos),
+                 lambda: state.from_numpy(pos),
+                 lambda: state.GridState.zeros((4, 4))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    cfg, p, dom = scene.reference_scene_3d(n=64, device="cpu")
+    assert p.device.type == "cpu" and state.GridState.zeros((4, 4), device="cpu").mass.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session(cfg, dom, p)
+    sess = Session(cfg.replace(iterations=2), dom, p, device="cpu")
+    sess.frame()
+    assert sess.backend == "dense" and torch.isfinite(sess.particles().pos).all()

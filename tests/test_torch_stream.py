@@ -66,7 +66,7 @@ def test_bin_particles_equals_jax(dim, dt):
     for active in (None, 2):
         js, ts = _specs(dom, active=active)
         jst = jstx.bin_particles(JParticles.create(pos, vel=vel, C=C), dom, js, dt=dt)
-        tst = tstx.bin_particles(tstate.from_numpy(pos, vel, C), dom, ts, dt=dt)
+        tst = tstx.bin_particles(tstate.from_numpy(pos, vel, C, device="cpu"), dom, ts, dt=dt)
         want = tstx.stream_state_from_numpy(
             {k: np.asarray(getattr(jst, k)) for k in STATE_KEYS}, ts)
         for k in STATE_KEYS:
@@ -92,7 +92,8 @@ def test_active_set_equals_jax(tshape):
 def test_unbin_restores_particles_exactly(dim):
     cfg, pos, vel, C, dom = _case(dim, 256, seed=4)
     _, ts = _specs(dom)
-    p = tstate.from_numpy(pos, vel, C, density=np.arange(256.0), pressure=-np.arange(256.0))
+    p = tstate.from_numpy(pos, vel, C, density=np.arange(256.0), pressure=-np.arange(256.0),
+                          device="cpu")
     q = tstx.unbin(tstx.bin_particles(p, dom, ts, dt=cfg.dt), dom, ts, 256, dim)
     for f in ("pos", "vel", "C", "mass", "density", "pressure"):
         assert torch.equal(getattr(q, f), getattr(p, f)), f
@@ -108,7 +109,7 @@ def test_stream_substep_matches_jax_dense(dim):
     mp, ma = jstep.no_mouse()
     a, ga = jax.jit(lambda q: jstep.substep(q, cfg, dom, mp, ma))(
         JParticles.create(pos, vel=vel, C=C))
-    p = tstate.from_numpy(pos, vel, C)
+    p = tstate.from_numpy(pos, vel, C, device="cpu")
     b = tstx.frame(p, cfg, dom, *tstep.no_mouse(), spec=ts, substeps=1)
     c, gc = tstep.substep(p, cfg, dom, *tstep.no_mouse(), backend="stream")
     for got in (b, c):
@@ -124,7 +125,7 @@ def test_stream_mouse_substep_matches_jax_dense():
     cfg, pos, vel, C, dom = _case(2, 192, seed=3)
     _, ts = _specs(dom)
     a = _jax_dense(cfg, dom, pos, vel, C, 1, mouse=(8.0, 8.0))
-    b = tstx.frame(tstate.from_numpy(pos, vel, C), cfg, dom, *tstep.mouse((8.0, 8.0)),
+    b = tstx.frame(tstate.from_numpy(pos, vel, C, device="cpu"), cfg, dom, *tstep.mouse((8.0, 8.0)),
                    spec=ts, substeps=1)
     np.testing.assert_allclose(b.vel.numpy(), np.asarray(a.vel), atol=1e-5, rtol=0)
     np.testing.assert_allclose(b.pos.numpy(), np.asarray(a.pos), atol=1e-5, rtol=0)
@@ -142,7 +143,7 @@ def test_frame_with_rebins_matches_jax():
     jst = jstx.bin_particles(JParticles.create(pos, vel=vel, C=C), dom, js, dt=cfg.dt)
     jst = jax.jit(lambda s: jstx.frame_binned(s, cfg, dom, js, mp, ma, substeps, n=192))(jst)
 
-    tst = tstx.bin_particles(tstate.from_numpy(pos, vel, C), dom, ts, dt=cfg.dt)
+    tst = tstx.bin_particles(tstate.from_numpy(pos, vel, C, device="cpu"), dom, ts, dt=cfg.dt)
     tst = tstx.frame_binned(tst, cfg, dom, ts, *tstep.no_mouse(), substeps, n=192)
     got = tstx.unbin(tst, dom, ts, 192, 3)
     assert int(tst.rebins[0]) == int(jst.rebins[0]) > 0
@@ -157,7 +158,7 @@ def test_rebin_overflow_detected_by_count_sum():
     of them, and the loss shows in sum(count)."""
     cfg, pos, vel, C, dom = _case(3, 512, seed=9, vel_scale=0.0, world=24.0)
     _, ts = _specs(dom)
-    st = tstx.bin_particles(tstate.from_numpy(pos, vel, C), dom, ts)
+    st = tstx.bin_particles(tstate.from_numpy(pos, vel, C, device="cpu"), dom, ts)
     assert int(st.count.sum()) == 512
     st.stream[:, 0:3, :] = 10.0
     tshape, nt = tstx._tile_geometry(dom, ts)
@@ -172,7 +173,7 @@ def test_shell_drop_watermark_on_budget_exhaustion():
     pos = np.zeros((8, 2), np.float32)
     pos[:4] = [5.0, 5.0]
     pos[4:] = [10.0, 10.0]
-    p = tstate.from_numpy(pos)
+    p = tstate.from_numpy(pos, device="cpu")
     _, ok = _specs(dom)
     st = tstx.bin_particles(p, dom, ok)
     assert int(st.count.sum()) == 8 and int(st.shell_drop[0]) == 0
