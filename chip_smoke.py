@@ -9,10 +9,19 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 2. build    compile csrc/*.cu with nvcc, one process per source started
             together, then link; prints each step's wall seconds (the ptxas
             report goes to the output directory)
-3. kernels  bin a 3D dam of 1,000,000 particles; run each of the five
-            stream kernel wrappers and its plain PyTorch version on the same
-            card tensors, at the shapes the main path gives them; compare and
-            time both with CUDA events
+3. kernels  bin a 3D dam of 1,000,000 particles (and a 2D dam of
+            100,000); run each of the five stream kernel wrappers and its
+            plain PyTorch version on the same card tensors, at the shapes
+            the main path gives them; compare and time both with CUDA
+            events.  Both halo launch kinds (mass: CH=1, passes [0, D);
+            m+f: CH=D, passes [0, D-1)) must be bit-equal to the gated
+            chain of plain passes, also through the general kernel (a
+            window geometry with E != 2T), and the deposits and the fused
+            collect bit-equal across two launches; the unfused collect and
+            a copy of each halo output's size are timed beside them.  Then
+            the deposits and the fused collect, checked the same way, at
+            3D specs whose blocks need more than 48 KB of shared memory
+            (cap 256; tile 8 at caps 128 and 256)
 4. pallas kernels
             the four pallas kernels (p2g1 deposit, force deposit, fused
             p2g2, collect) against their plain versions at the 3D 1M dam
@@ -24,7 +33,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 6. slice    Session(stream, cuda) of the 1M dam, 2 frames (62 substeps,
             re-bins included) with every launch counter reset just before:
             conservation, shell_drop == 0, finite state, the fluid falls
-            (+y is down), every kernel launched; then one substep of stream
+            (+y is down), every kernel launched, two halo launches per
+            substep; then one substep of stream
             against dense from the same state, max |dpos| <= 1e-4
 7. pallas slice
             Session(pallas) of the 1M dam built with no device argument (the
@@ -45,6 +55,7 @@ time the card could take, launches on the main path), the card line, and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -120,11 +131,19 @@ def particle_ops(kind: str, D: int, valid: int) -> int:
 def stream_bounds(st, g, D: int) -> dict:
     """(bytes, ops) of each stream kernel on this state: each input read
     once (only the valid slots of the stream, only the windows of occupied
-    tiles where an empty tile reads none), each output written once."""
+    tiles where an empty tile reads none), each output written once.  The
+    halo has one entry per launch kind: the mass halo (CH = 1, passes
+    [0, D)) and the m+f halo (CH = D, passes [0, D-1)), each reading the
+    count, the face tables and its occupied input windows (the gate), and
+    adding two terms per pass to every output value."""
     A, nc = st.count.shape[0], g.ncell
     valid = int(st.count.sum())
     occ = int((st.count > 0).sum())
     tiles = 2 * A * F32
+
+    def halo(CH, passes):
+        return ((occ + A) * CH * nc * F32 + (1 + 2 * D) * A * F32, 2 * passes * A * CH * nc)
+
     return {
         "deposit_p2g1": (valid * (2 * D + D * D + 1) * F32 + tiles + A * (1 + D) * nc * F32,
                          particle_ops("p2g1", D, valid)),
@@ -134,7 +153,8 @@ def stream_bounds(st, g, D: int) -> dict:
         "collect": (valid * (D + 2) * F32 + occ * (1 + D) * nc * F32 + tiles
                     + (A * g.F * g.cap + A * g.cap + A * (1 + D) * nc) * F32,
                     particle_ops("collect", D, valid) + particle_ops("p2g1", D, valid)),
-        "halo_axis": (2 * A * D * nc * F32 + tiles, 2 * A * D * nc),
+        "halo_mass": halo(1, D),
+        "halo_mf": halo(D, D - 1),
         "halo_gblk": ((A * (1 + D) * nc + A * (1 + D) * nc) * F32 + tiles, 4 * A * D * nc),
     }
 
@@ -194,102 +214,216 @@ def dam_1m(device, n: int = N_1M, seed: int = 0):
     return scene.scaled_dam_break(gen, n, dim=3, device=device)
 
 
-def phase_kernels(device, n: int, card: str, reps: int = 10):
-    """Each kernel against its plain version on one binned 1M state.  The
-    state gets random velocities and APIC matrices (the seeding
-    distributions of tests/data) so every channel carries data."""
-    cfg, p, dom = dam_1m(device, n)
+def stream_state(device, n: int, dim: int, tile: int = 0, cap: int = 0, keep: int = 1):
+    """A dam of ``n`` particles with random velocities and APIC matrices
+    (the seeding distributions of tests/data, so every channel carries
+    data), binned for the stream kernels: by the default spec, or, with
+    ``tile`` and ``cap``, by a spec of that tile edge and cap over every
+    tile, keeping every ``keep``-th particle so the tiles fit the cap."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    cfg, p, dom = scene.scaled_dam_break(gen, n, dim=dim, device=device)
+    if keep > 1:
+        p = state.ParticleState.create(p.pos[::keep].contiguous(), device=device)
     gen = torch.Generator(device=device).manual_seed(1)
     p.vel = 0.3 * torch.randn(p.vel.shape, generator=gen, device=device)
     p.C = 0.05 * torch.randn(p.C.shape, generator=gen, device=device)
     spec = stx.default_spec(cfg, dom, p.n)
-    check(int(stx.overflow_count(p.pos, dom, spec, vel=p.vel, dt=cfg.dt)) == 0, "1M scene fits the spec")
-    st = stx.bin_particles(p, dom, spec, dt=cfg.dt)
-    g = stx.tile_geom(dom, spec)
-    D, A = 3, spec.A
-    nbr = [st.nbr[i] for i in range(2 * D)]
-    params6 = torch.tensor([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
-                            cfg.pressure_floor, cfg.dynamic_viscosity],
-                           dtype=torch.float32, device=device)
-    params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
-    dtg = sk.gravity_step(cfg.dt, cfg.gravity)
+    if tile:
+        spec = dataclasses.replace(spec, tile=tile, cap=cap,
+                                   active=int(np.prod([s // tile for s in dom.shape])))
+    check(int(stx.overflow_count(p.pos, dom, spec, vel=p.vel, dt=cfg.dt)) == 0,
+          f"{dim}D scene fits the spec")
+    return cfg, spec, stx.bin_particles(p, dom, spec, dt=cfg.dt), stx.tile_geom(dom, spec)
 
-    d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
-    m = d1[:, :1].contiguous()
-    for d in range(D):
-        m = sk.halo_axis(m, nbr[2 * d], nbr[2 * d + 1], g, d)
-    d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
-    x = d2
-    for d in range(D - 1):
-        x = sk.halo_axis(x, nbr[2 * d], nbr[2 * d + 1], g, d)
-    gblk = sk.halo_gblk(x, m, nbr[4], nbr[5], dtg, g, D - 1)
-    m1 = d1[:, :1].contiguous()
-    print(f"[kernels] n={p.n} A={A} occupied={int((st.count > 0).sum())} "
-          f"need={int(st.need_peak[0])} windows={tuple(d1.shape)} stream={tuple(st.stream.shape)}")
 
-    cases = {
-        "deposit_p2g1": (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g),
-                         lambda: sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
-        "halo_axis": (lambda: sk.halo_axis(d2, nbr[0], nbr[1], g, 0),
-                      lambda: sk.halo_axis_plain(d2, nbr[0], nbr[1], g, 0)),
-        "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
-                         lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6, d1, g)),
-        "halo_gblk": (lambda: sk.halo_gblk(x, m, nbr[4], nbr[5], dtg, g, D - 1),
-                      lambda: sk.halo_gblk_plain(x, m, nbr[4], nbr[5], dtg, g, D - 1)),
-        "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g, True),
-                    lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)),
-    }
-    bounds = stream_bounds(st, g, D)
+def deposit_params(cfg, device) -> torch.Tensor:
+    """p2g2's params: [dt, rest_density, eos_stiffness, eos_power, floor, mu]."""
+    return torch.tensor([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
+                         cfg.pressure_floor, cfg.dynamic_viscosity],
+                        dtype=torch.float32, device=device)
+
+
+# the two halo launch kinds of a substep, as (channels, last pass)
+HALO_KINDS = {"halo_mass": lambda D: (1, D), "halo_mf": lambda D: (D, D - 1)}
+
+
+def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D))):
+    """Each stream kernel against its plain version on one binned state at
+    the main path's shapes: the 3D 1M dam (whose times go into the kernel
+    table) and a 2D dam of 100,000 (the D=2 instantiations).  Both halo
+    launch kinds are bit-equal to the gated chain of plain passes; the
+    deposits and the fused collect give bit-equal outputs when launched
+    twice on the same inputs."""
     results = {}
-    for name, (kern, plain) in cases.items():
-        got, want = kern(), plain()
-        sync(device)
-        if name == "collect":
-            err = float((got[0] - want[0]).abs().max())
-            check(err <= 1e-5, f"collect rows max|err| {err} <= 1e-5")
-            check(torch.equal(got[1], want[1]), "collect drift flag equal")
-            scale = float(want[2].abs().max())
-            dep_err = float((got[2] - want[2]).abs().max())
-            check(dep_err <= 1e-4 * scale, f"fused p2g1 {dep_err} <= 1e-4 * {scale}")
-            unf = sk.collect(st.count, st.tid, params, st.stream, gblk, g, False)
-            check(torch.equal(unf[0], got[0]) and torch.equal(unf[1], got[1]),
-                  "unfused collect equals the fused one's rows and flag")
-            # mouse on at the box centre, packed-scene x walls every 64 cells
-            centre = cfg.boundary_clip[1][0] / 2
-            pw = stx.collect_params(cfg, *step.mouse((centre, centre)), 64.0, device)
-            gw = sk.collect(st.count, st.tid, pw, st.stream, gblk, g, True)
-            ww = sk.collect_plain(st.count, st.tid, pw, st.stream, gblk, g, True)
-            walls_err = float((gw[0] - ww[0]).abs().max())
-            check(walls_err <= 1e-5 and torch.equal(gw[1], ww[1]),
-                  f"collect with mouse + scene stride: rows {walls_err} <= 1e-5, flag equal")
-            extra = (f" flag_equal=True fused_p2g1_err={dep_err:.3e} (scale {scale:.3e})"
-                     f" mouse+stride_err={walls_err:.3e}")
-        elif name.startswith("deposit"):
+    for dim, n in sizes:
+        cfg, spec, st, g = stream_state(device, n, dim)
+        D = dim
+        nbr = st.nbr
+        params6 = deposit_params(cfg, device)
+        params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+        dtg = sk.gravity_step(cfg.dt, cfg.gravity)
+
+        d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
+        m1 = d1[:, :1].contiguous()
+        m = sk.halo_axes(m1, st.count, nbr, g, 0, D)
+        d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
+        x = sk.halo_axes(d2, st.count, nbr, g, 0, D - 1)
+        gblk = sk.halo_gblk(x, m, nbr[2 * D - 2], nbr[2 * D - 1], dtg, g, D - 1)
+        halo_in = {"halo_mass": m1, "halo_mf": d2}
+        print(f"[kernels] {dim}D n={n} A={spec.A} occupied={int((st.count > 0).sum())} "
+              f"need={int(st.need_peak[0])} windows={tuple(d1.shape)} stream={tuple(st.stream.shape)}")
+
+        def halo_case(kind):
+            CH, last = HALO_KINDS[kind](D)
+            xin = halo_in[kind]
+            return (lambda: sk.halo_axes(xin, st.count, nbr, g, 0, last),
+                    lambda: sk.halo_axes_plain(xin, st.count, nbr, g, 0, last))
+
+        cases = {
+            "deposit_p2g1": (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g),
+                             lambda: sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
+            "halo_mass": halo_case("halo_mass"),
+            "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
+                             lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6, d1, g)),
+            "halo_mf": halo_case("halo_mf"),
+            "halo_gblk": (lambda: sk.halo_gblk(x, m, nbr[2 * D - 2], nbr[2 * D - 1], dtg, g, D - 1),
+                          lambda: sk.halo_gblk_plain(x, m, nbr[2 * D - 2], nbr[2 * D - 1], dtg, g, D - 1)),
+            "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g, True),
+                        lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)),
+        }
+        bounds = stream_bounds(st, g, D)
+        for name, (kern, plain) in cases.items():
+            got, want = kern(), plain()
+            sync(device)
+            if name == "collect":
+                err = float((got[0] - want[0]).abs().max())
+                check(err <= 1e-5, f"{dim}D collect rows max|err| {err} <= 1e-5")
+                check(torch.equal(got[1], want[1]), f"{dim}D collect drift flag equal")
+                scale = float(want[2].abs().max())
+                dep_err = float((got[2] - want[2]).abs().max())
+                check(dep_err <= 1e-4 * scale, f"{dim}D fused p2g1 {dep_err} <= 1e-4 * {scale}")
+                again = kern()
+                check(all(torch.equal(a, b) for a, b in zip(again, got)),
+                      f"{dim}D fused collect bitwise equal across two launches")
+                unf = sk.collect(st.count, st.tid, params, st.stream, gblk, g, False)
+                check(torch.equal(unf[0], got[0]) and torch.equal(unf[1], got[1]),
+                      f"{dim}D unfused collect equals the fused one's rows and flag")
+                unfused_ms = time_ms(lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g, False),
+                                     reps, device)
+                # mouse on at the box centre, packed-scene x walls every 64 cells
+                centre = cfg.boundary_clip[1][0] / 2
+                pw = stx.collect_params(cfg, *step.mouse((centre, centre)), 64.0, device)
+                gw = sk.collect(st.count, st.tid, pw, st.stream, gblk, g, True)
+                ww = sk.collect_plain(st.count, st.tid, pw, st.stream, gblk, g, True)
+                walls_err = float((gw[0] - ww[0]).abs().max())
+                check(walls_err <= 1e-5 and torch.equal(gw[1], ww[1]),
+                      f"{dim}D collect with mouse + scene stride: rows {walls_err} <= 1e-5, flag equal")
+                extra = (f" flag_equal=True fused_p2g1_err={dep_err:.3e} (scale {scale:.3e})"
+                         f" mouse+stride_err={walls_err:.3e} repeat_bit_equal=True"
+                         f" unfused {unfused_ms:.4f} ms")
+                del again, unf, gw, ww
+            elif name.startswith("deposit"):
+                scale = float(want.abs().max())
+                err = float((got - want).abs().max())
+                check(err <= 1e-4 * scale, f"{dim}D {name} max|err| {err} <= 1e-4 * max|window| {scale}")
+                check(torch.equal(kern(), got), f"{dim}D {name} bitwise equal across two launches")
+                extra = f" max|window|={scale:.4e} repeat_bit_equal=True"
+            elif name == "halo_gblk":
+                err = float((got - want).abs().max())
+                rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+                check(rel <= 1e-6, f"{dim}D halo_gblk relative err {rel} <= 1e-6")
+                extra = f" max_rel={rel:.3e}"
+            else:
+                CH, last = HALO_KINDS[name](D)
+                err = float((got - want).abs().max())
+                check(torch.equal(got, want), f"{dim}D {name} (CH={CH}, passes [0, {last})) bit-equal "
+                      "to the gated chain of plain passes")
+                copy_ms = time_ms(lambda: torch.empty_like(got).copy_(got), reps, device)
+                extra = (f" CH={CH} passes=[0,{last}) bit_equal=True"
+                         f" (a copy of the output's size: {copy_ms:.4f} ms)")
+            del got, want
+            ms = time_ms(kern, reps, device)
+            plain_ms = time_ms(plain, max(2, reps // 5), device)
+            bound_ms, bound_by = bound(*bounds[name])
+            if dim == 3:
+                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            print(f"[kernels] {dim}D {name}: max_abs_err={err:.3e}{extra} kernel {ms:.4f} ms "
+                  f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+        # the kernel for any other window geometry: E = 10 != 2T (halo 3) on the same tiles
+        g3 = dataclasses.replace(g, halo=3)
+        gen = torch.Generator(device=device).manual_seed(2)
+        for kind, (CH, last) in ((k, f(D)) for k, f in HALO_KINDS.items()):
+            x3 = torch.randn((spec.A, CH, g3.ncell), generator=gen, device=device)
+            check(torch.equal(sk.halo_axes(x3, st.count, nbr, g3, 0, last),
+                              sk.halo_axes_plain(x3, st.count, nbr, g3, 0, last)),
+                  f"{dim}D {kind} with E={g3.E} != 2T bit-equal to the gated chain of plain passes")
+            del x3
+        print(f"[kernels] {dim}D halo_mass and halo_mf at E={g3.E} != 2T (the general kernel): "
+              f"bit_equal=True  [{card}]")
+        del st, d1, m1, m, d2, x, gblk, halo_in
+        torch.cuda.empty_cache()
+    # K4's one row: a substep launches each halo kind once, so its time per
+    # launch on the main path is the mean of the two kinds
+    kinds = [results.pop(kind) for kind in HALO_KINDS]
+    results["halo_axis"] = {
+        "max_abs_err": max(k["max_abs_err"] for k in kinds),
+        **{key: sum(k[key] for k in kinds) / 2 for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes" if all(k["bound_by"] == "bytes" for k in kinds) else "operations",
+        "library_ms": None,
+        "kinds": {kind: {key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                  for kind, k in zip(HALO_KINDS, kinds)},
+    }
+    return results
+
+
+# 3D stream specs beside the main path's (T=4, cap=128) whose deposit and
+# fused-collect blocks need more than the 48 KB of shared memory a launch
+# gets by default: (tile, cap, keep every k-th particle of the dam so the
+# tiles fit the cap); T=8 keeps halo 2, so E=12 != 2T (the general halo)
+DEPOSIT_GEOMETRIES = ((4, 256, 1), (8, 128, 8), (8, 256, 4))
+
+
+def phase_deposit_geometries(device, card: str, n: int = 200_000):
+    """K1, K2 and the fused K3 against their plain versions, at the
+    tolerances of phase_kernels and bit-equal across two launches, at the
+    specs of DEPOSIT_GEOMETRIES: their launches opt into the larger block."""
+    for tile, cap, keep in DEPOSIT_GEOMETRIES:
+        cfg, spec, st, g = stream_state(device, n, 3, tile=tile, cap=cap, keep=keep)
+        params6 = deposit_params(cfg, device)
+        params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+        d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
+        m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g, 0, 3)
+        d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
+        x = sk.halo_axes(d2, st.count, st.nbr, g, 0, 2)
+        gblk = sk.halo_gblk(x, m, st.nbr[4], st.nbr[5], sk.gravity_step(cfg.dt, cfg.gravity), g, 2)
+        what = f"3D T={tile} E={g.E} cap={cap}"
+        for name, got, want in (
+                ("deposit_p2g1", d1, sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
+                ("deposit_p2g2", d2, sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6,
+                                                           d1, g))):
             scale = float(want.abs().max())
             err = float((got - want).abs().max())
-            check(err <= 1e-4 * scale, f"{name} max|err| {err} <= 1e-4 * max|window| {scale}")
-            extra = f" max|window|={scale:.4e}"
-        elif name == "halo_gblk":
-            err = float((got - want).abs().max())
-            rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
-            check(rel <= 1e-6, f"halo_gblk relative err {rel} <= 1e-6")
-            extra = f" max_rel={rel:.3e}"
-        else:
-            err = float((got - want).abs().max())
-            check(torch.equal(got, want), "halo_axis (m+f) bit-equal")
-            mass = sk.halo_axis(m1, nbr[0], nbr[1], g, 0)
-            check(torch.equal(mass, sk.halo_axis_plain(m1, nbr[0], nbr[1], g, 0)),
-                  "halo_axis (mass) bit-equal")
-            extra = " bit_equal=True (CH=3 and CH=1)"
-        del got, want
-        ms = time_ms(kern, reps, device)
-        plain_ms = time_ms(plain, max(2, reps // 5), device)
-        bound_ms, bound_by = bound(*bounds[name])
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-        print(f"[kernels] {name}: max_abs_err={err:.3e}{extra} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
-    return results
+            check(err <= 1e-4 * scale, f"{what} {name} max|err| {err} <= 1e-4 * {scale}")
+        check(torch.equal(sk.deposit_p2g1(st.count, st.tid, st.stream, g), d1)
+              and torch.equal(sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g), d2),
+              f"{what} deposits bitwise equal across two launches")
+        got = sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)
+        want = sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)
+        rows = float((got[0] - want[0]).abs().max())
+        scale = float(want[2].abs().max())
+        dep = float((got[2] - want[2]).abs().max())
+        check(rows <= 1e-5 and torch.equal(got[1], want[1]) and dep <= 1e-4 * scale,
+              f"{what} fused collect: rows {rows} <= 1e-5, flag equal, p2g1 {dep} <= 1e-4 * {scale}")
+        again = sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)
+        check(all(torch.equal(a, b) for a, b in zip(again, got)),
+              f"{what} fused collect bitwise equal across two launches")
+        print(f"[kernels] {what} A={spec.A} occupied={int((st.count > 0).sum())} "
+              f"max count={int(st.count.max())}: deposit_p2g1, deposit_p2g2 and the fused "
+              f"collect agree with plain (rows {rows:.3e}, p2g1 {dep:.3e} of {scale:.3e}) and "
+              f"repeat bit-equal  [{card}]")
+        del st, d1, m, d2, x, gblk, got, want, again
+        torch.cuda.empty_cache()
 
 
 def pallas_state(device, n: int, dim: int):
@@ -435,6 +569,9 @@ def phase_slice(device, n: int, card: str, frames: int = 2):
     dt_run = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
     check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
+    steps = frames * cfg.iterations
+    check(launches["halo_axis"] == 2 * steps,
+          f"one mass and one m+f halo launch per substep: {launches['halo_axis']} == 2 x {steps}")
     check(sess.live_count() == n, "conservation")
     check(sess.shell_drop() == 0, "shell_drop == 0")
     q = sess.particles()
@@ -442,7 +579,6 @@ def phase_slice(device, n: int, card: str, frames: int = 2):
         check(bool(torch.isfinite(getattr(q, f)).all()), f"finite {f}")
     y1 = float(q.pos[:, 1].mean())
     check(y1 > y0, f"mean y rose ({y0:.4f} -> {y1:.4f}; +y is down)")
-    steps = frames * cfg.iterations
     print(f"[slice] n={n} frames={frames} substeps={steps} {dt_run * 1e3 / frames:.1f} ms/frame "
           f"{n * steps / dt_run:.4e} particle-steps/s rebins={sess.rebins()} "
           f"need_peak={sess.need_peak()} of A={sess.spec.A} mean_y {y0:.3f}->{y1:.3f} "
@@ -599,7 +735,8 @@ def main() -> int:
     print(f"[build] {cuda_build.library_path().name} in {build_s:.2f} s ({steps or 'cached'}; "
           f"ptxas report: chiprun_out/chip_smoke_ptxas.txt)")
 
-    results = phase_kernels(device, N_1M, card)
+    results = phase_kernels(device, card)
+    phase_deposit_geometries(device, card)
     results.update(phase_pallas_kernels(device, card))
     phase_goldens(device, card)
     launches = phase_slice(device, N_1M, card)

@@ -5,7 +5,8 @@
 //   deposit_kernel<D, P2G2=false>  make_deposit_kernel(mode="p2g1")   (:676)
 //   deposit_kernel<D, P2G2=true>   make_deposit_kernel(mode="p2g2")   (:676)
 //   collect_kernel<D, FUSED>       make_collect_kernel(fused_p2g1)    (:1163)
-//   halo_axis_kernel               _make_halo_axis                    (:2006)
+//   halo_axes_kernel<NP, CH>       _make_halo_axis, NP passes chained (:2006)
+//     (halo_axes_any_kernel<NP> for E != 2T and other pass/channel counts)
 //   halo_gblk_kernel               _make_halo_gblk                    (:1882)
 //
 // Layouts (tile-major; A active tiles, slots per tile cap, window E = T+2h):
@@ -16,15 +17,17 @@
 //   flag   [A, cap]
 //   count, tid [A] int32; nbr rows [A] int32 with A = "no neighbour"
 //
-// Every kernel launches one block per active tile (or a flat grid for the
-// halo passes) over all A tiles: a tile whose count is 0 writes zeros and
-// returns, so no output is ever left uninitialized and the host never reads
-// a count to size a grid.  Deposits use the cell-owner (gather) form: each
-// thread owns window cells and walks the tile's particles in slot order, so
-// sums are deterministic (no float atomics) and a replayed snapshot is
-// bit-identical.  Build with -fmad=false: every product and sum is rounded
-// on its own, in the same order as the plain PyTorch versions in
-// ops/stream_kernels.py, which the on-card check compares against.
+// Every kernel launches one block per active tile (the halo packs several)
+// over all A tiles: a tile whose count is 0 writes zeros and returns (the
+// halo reads it as zero), so no output is ever left uninitialized and the
+// host never reads a count to size a grid.  Deposits scatter each particle's
+// 3^D taps, one lane per tap, into a tile window in shared memory, one
+// particle after the other in slot order: no float atomics, every cell sums
+// its particles in slot order, so every launch sums alike and a replayed
+// snapshot is bit-identical.  Build with -fmad=false: every product and sum
+// is rounded on its own, in the order of the plain PyTorch versions in
+// ops/stream_kernels.py, which the on-card check compares against (the
+// plain deposits' index_add_ sums particles in its own order).
 //
 // The B-spline weights, the Tait pressure and the particle tail come from
 // mpm_common.cuh, shared with the pallas backend's kernels.
@@ -39,6 +42,25 @@
 
 namespace {
 
+// n / d for 0 <= n < 2^32 / d, as one multiply-high with m = ceil(2^32 / d)
+// (Granlund-Montgomery) in place of a runtime division; d = 1 is n itself.
+struct FastDiv {
+  unsigned int m;
+  int d;
+};
+
+FastDiv fast_div(int d) {
+  return FastDiv{d > 1 ? static_cast<unsigned int>(0xFFFFFFFFull / static_cast<unsigned int>(d) + 1)
+                       : 0u,
+                 d};
+}
+
+__device__ __forceinline__ int div_by(int n, FastDiv f) {
+  return f.d == 1 ? n : static_cast<int>(__umulhi(static_cast<unsigned int>(n), f.m));
+}
+
+__host__ __device__ constexpr int pow3(int n) { return n == 0 ? 1 : 3 * pow3(n - 1); }
+
 struct Geom {
   int A;          // active tiles (grid size)
   int T, h, E;    // tile edge, halo reach, window edge
@@ -47,103 +69,217 @@ struct Geom {
   int F;          // stream rows
   int tshape[3];  // tiles per axis
   int origin[3];  // domain origin, cells
+  FastDiv divE, divN;  // / E, / ncell
+  int wstride[3];      // shared deposit window: cell stride of each axis
+  int wch;             // shared deposit window: floats per channel
 };
 
-// Per-slot stencil staging shared by the deposit and fused-collect paths.
-// Shared layout, [field][slot] so that staging threads write distinct banks
-// and the cell loop reads one broadcast word per field:
-//   s_base [D][cap] int, s_w [3][D][cap], s_dvec [D][cap],
-//   s_m [cap], s_v [D][cap], s_C [D*D][cap]  (p2g2 keeps the eq-16 term in s_C)
+// Local stencil of one particle: the window row base per axis (local cell +
+// h - 1, clipped to the drift window exactly like _kernel_profiles_from),
+// dvec, the three per-axis quadratic B-spline weights w[o][d], and the
+// base's offset in the shared deposit window.  floorf before the int
+// conversion: positions and local cells can be negative.
 template <int D>
-struct Stage {
-  int* base;
-  float* w;
-  float* dvec;
-  float* m;
-  float* v;
-  float* C;
-  __device__ Stage(float* smem, int cap) {
-    base = reinterpret_cast<int*>(smem);
-    w = smem + D * cap;
-    dvec = w + 3 * D * cap;
-    m = dvec + D * cap;
-    v = m + cap;
-    C = v + D * cap;
-  }
-  static constexpr int words_per_slot() { return D + 3 * D + D + 1 + D + D * D; }
+struct Stencil {
+  int base[D];
+  float dvec[D];
+  float w[3][D];
+  int cell;
 };
 
-// Local stencil of slot s: the window row base (local cell + h - 1, clipped
-// to the drift window exactly like _kernel_profiles_from), dvec and the three
-// per-axis quadratic B-spline weights.  floorf before the int conversion:
-// positions and local cells can be negative.
 template <int D>
-__device__ __forceinline__ void stage_stencil(const Stage<D>& sh, const Geom& g,
-                                              int tid, const float* pos, int s) {
-  const int cap = g.cap;
+__device__ __forceinline__ Stencil<D> stencil_of(const Geom& g, int tid, const float* pos) {
+  Stencil<D> st;
+  st.cell = 0;
+#pragma unroll
   for (int d = 0; d < D; ++d) {
     const float cf = floorf(pos[d]);
     const int lc = mpm::local_cell(cf, d, D, tid, g.T, g.tshape, g.origin);
     int b = lc + g.h - 1;
     b = b < 0 ? 0 : (b > g.E - 3 ? g.E - 3 : b);
-    const float dv = (pos[d] - cf) - 0.5f;
-    sh.base[d * cap + s] = b;
-    sh.dvec[d * cap + s] = dv;
-    mpm::bspline_weights(dv, sh.w[(0 * D + d) * cap + s], sh.w[(1 * D + d) * cap + s],
-                         sh.w[(2 * D + d) * cap + s]);
+    st.base[d] = b;
+    st.dvec[d] = (pos[d] - cf) - 0.5f;
+    mpm::bspline_weights(st.dvec[d], st.w[0][d], st.w[1][d], st.w[2][d]);
+    st.cell += b * g.wstride[d];
+  }
+  return st;
+}
+
+// Calls f(w, e, dpos) for each tap of a stencil in stencil order (axis 0
+// fastest): w = w_0 w_1 .. in axis order, e the flat window cell, dpos =
+// (o - 1) - dvec the tap's cell centre minus the particle.  The last axis
+// runs in a loop and the others are unrolled, so the weights stay in
+// registers at a register count that keeps several blocks on an SM.
+template <int D, typename F>
+__device__ __forceinline__ void for_taps(const Stencil<D>& st, const Geom& g, F&& f) {
+  constexpr int L = D - 1;
+#pragma unroll 1
+  for (int ol = 0; ol < 3; ++ol) {
+    const float wl = ol == 0 ? st.w[0][L] : (ol == 1 ? st.w[1][L] : st.w[2][L]);
+#pragma unroll
+    for (int k = 0; k < pow3(L); ++k) {
+      int o[D];
+      int r = k;
+      for (int d = 0; d < L; ++d) {
+        o[d] = r % 3;
+        r /= 3;
+      }
+      o[L] = ol;
+      float w = st.w[o[0]][0];
+      for (int d = 1; d < L; ++d) w = w * st.w[o[d]][d];
+      w = w * wl;
+      int e = 0;
+      float dpos[D];
+      for (int d = 0; d < D; ++d) {
+        e = e * g.E + st.base[d] + o[d];
+        dpos[d] = static_cast<float>(o[d] - 1) - st.dvec[d];
+      }
+      f(w, e, dpos);
+    }
   }
 }
 
-// Cell-owner deposit of the staged particles [0, cnt) into one tile window.
+__device__ __forceinline__ float comp(const float4& q, int k) {
+  return k == 0 ? q.x : (k == 1 ? q.y : (k == 2 ? q.z : q.w));
+}
+
+// Per-slot staging record in shared memory for the deposit, RQ float4s per
+// slot (RQ odd, so one thread per slot writing its own record and a warp
+// reading one slot are both free of bank conflicts):
+//   q[0]          dvec[0..D-1], mass
+//   q[1 + i]      row i of C (p2g2: of the eq-16 term), then v_i   (i < D)
+//   q[1 + D]      the base's window offset (int)
+//   q[2 + D] ..   the tap weights, w[o][d] at word 3d + o
+template <int D>
+struct Stage {
+  static constexpr int WQ = (3 * D + 3) / 4;
+  static constexpr int RQ = (2 + D + WQ) | 1;
+  static constexpr int W = 4 * (2 + D);  // word of the first weight
+  float4* q;
+  __device__ explicit Stage(float* smem) : q(reinterpret_cast<float4*>(smem)) {}
+  __host__ __device__ static constexpr int words_per_slot() { return 4 * RQ; }
+
+  __device__ __forceinline__ void store(int s, const Stencil<D>& st, float mass, const float* v,
+                                        const float* C) const {
+    float4* r = q + s * RQ;
+    float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int d = 0; d < D; ++d) t[d] = st.dvec[d];
+    t[D] = mass;
+    r[0] = make_float4(t[0], t[1], t[2], t[3]);
+    for (int i = 0; i < D; ++i) {
+      for (int j = 0; j < D; ++j) t[j] = C[i * D + j];
+      t[D] = v ? v[i] : 0.0f;
+      r[1 + i] = make_float4(t[0], t[1], t[2], t[3]);
+    }
+    reinterpret_cast<int*>(r + 1 + D)[0] = st.cell;
+    float* w = reinterpret_cast<float*>(r) + W;
+    for (int d = 0; d < D; ++d)
+      for (int o = 0; o < 3; ++o) w[3 * d + o] = st.w[o][d];
+  }
+};
+
+// Cell (e_0, .., e_{D-1}) of flat window index e, e_{D-1} fastest.
+template <int D>
+__device__ __forceinline__ void window_coords(int e, const Geom& g, int* ec) {
+  for (int d = D - 1; d > 0; --d) {
+    const int q = div_by(e, g.divE);
+    ec[d] = e - q * g.E;
+    e = q;
+  }
+  ec[0] = e;
+}
+
+// Tap-parallel deposit of the staged particles [0, cnt) into one tile
+// window.  The window lives in shared memory (`win`, channels g.wch floats
+// apart, cells at the padded strides g.wstride, so the 3^D taps of one
+// particle fall in distinct banks).  Lane k < 3^D of a warp owns stencil
+// tap k, and a warp owns one channel (3D) or three (2D, 9 taps each); the
+// warp walks the particles in slot order and each lane adds its tap's value
+// to its cell, computing two particles' values before their two adds.  One
+// particle's taps land in distinct cells and __syncwarp orders one
+// particle's adds before the next's, so every cell sums its particles in
+// slot order from 0.0f, with no atomics, and every lane's work is a tap
+// that deposits (a cell-owner scan, each cell testing every particle of the
+// tile, hits ~5% of its tests).  Then the window is written out, each
+// output cell once.
 // p2g1: CH = 1 + D channels, mass w*m and APIC momentum w*m*(v + C dpos).
 // p2g2: CH = D force channels w*(term dpos), plus the tile's p2g1 momentum
 //       rows d1[1..D] (the fused m+f add).
 // dpos = (o - 1) - dvec is the tap's cell centre minus the particle.
 template <int D, bool P2G2>
-__device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt,
+__device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt, float* win,
                                float* __restrict__ out, const float* __restrict__ d1) {
   constexpr int CH = P2G2 ? D : 1 + D;
-  const int cap = g.cap, E = g.E, ncell = g.ncell;
-  for (int e = threadIdx.x; e < ncell; e += blockDim.x) {
-    int ec[D];
-    int rem = e;
-    for (int d = D - 1; d >= 0; --d) {
-      ec[d] = rem % E;
-      rem /= E;
+  constexpr int K = D == 3 ? 27 : 9;  // taps
+  constexpr int G = 32 / K;           // channels per warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < CH * g.wch; i += blockDim.x) win[i] = 0.0f;
+  __syncthreads();
+
+  const int k = lane % K, sub = lane / K;
+  int o[D];
+  int tap = 0;
+  {
+    int r = k;
+    for (int d = 0; d < D; ++d) {  // stencil order, axis 0 fastest
+      o[d] = r % 3;
+      r /= 3;
+      tap += o[d] * g.wstride[d];
     }
-    float acc[CH];
-    for (int c = 0; c < CH; ++c) acc[c] = 0.0f;
-    for (int s = 0; s < cnt; ++s) {
-      int o[D];
-      bool in = true;
-      for (int d = 0; d < D; ++d) {
-        o[d] = ec[d] - sh.base[d * cap + s];
-        in = in && (o[d] >= 0) && (o[d] <= 2);
-      }
-      if (!in) continue;
-      float w = sh.w[(o[0] * D + 0) * cap + s];
-      for (int d = 1; d < D; ++d) w = w * sh.w[(o[d] * D + d) * cap + s];
+  }
+  for (int c0 = warp * G; c0 < CH; c0 += nwarp * G) {  // uniform over the warp
+    const int c = c0 + sub;
+    const bool on = sub < G && c < CH;
+    float* wc = win + c * g.wch + tap;
+    const int i = P2G2 ? c : c - 1;  // the row of C (and v) this lane's channel reads
+    // this lane's value of particle s and the cell it lands in
+    auto tap_value = [&](int s, int* cell) {
+      const float4* r = sh.q + s * Stage<D>::RQ;
+      const float* rw = reinterpret_cast<const float*>(r) + Stage<D>::W;
+      const float4 q0 = r[0];
+      float w = rw[o[0]];
+      for (int d = 1; d < D; ++d) w = w * rw[3 * d + o[d]];
       float dpos[D];
-      for (int j = 0; j < D; ++j) dpos[j] = static_cast<float>(o[j] - 1) - sh.dvec[j * cap + s];
-      if (!P2G2) {
-        const float mc = w * sh.m[s];
-        acc[0] = acc[0] + mc;
-        for (int i = 0; i < D; ++i) {
-          float q = sh.C[(i * D + 0) * cap + s] * dpos[0];
-          for (int j = 1; j < D; ++j) q = q + sh.C[(i * D + j) * cap + s] * dpos[j];
-          acc[1 + i] = acc[1 + i] + mc * (sh.v[i * cap + s] + q);
-        }
-      } else {
-        for (int i = 0; i < D; ++i) {
-          float f = sh.C[(i * D + 0) * cap + s] * dpos[0];
-          for (int j = 1; j < D; ++j) f = f + sh.C[(i * D + j) * cap + s] * dpos[j];
-          acc[i] = acc[i] + w * f;
-        }
+      for (int d = 0; d < D; ++d) dpos[d] = static_cast<float>(o[d] - 1) - comp(q0, d);
+      *cell = reinterpret_cast<const int*>(r + 1 + D)[0];
+      if (!P2G2 && c == 0) return w * comp(q0, D);
+      const float4 qi = r[1 + i];
+      float f = comp(qi, 0) * dpos[0];
+      for (int j = 1; j < D; ++j) f = f + comp(qi, j) * dpos[j];
+      return P2G2 ? w * f : (w * comp(q0, D)) * (comp(qi, D) + f);
+    };
+    // two particles' values at a time, their adds in slot order
+    int s = 0;
+    for (; s + 1 < cnt; s += 2) {
+      int cell0 = 0, cell1 = 0;
+      float val0 = 0.0f, val1 = 0.0f;
+      if (on) {
+        val0 = tap_value(s, &cell0);
+        val1 = tap_value(s + 1, &cell1);
+        wc[cell0] = wc[cell0] + val0;
       }
+      __syncwarp();
+      if (on) wc[cell1] = wc[cell1] + val1;
+      __syncwarp();
     }
-    for (int c = 0; c < CH; ++c) {
-      out[c * ncell + e] = P2G2 ? acc[c] + d1[(1 + c) * ncell + e] : acc[c];
+    if (s < cnt) {
+      if (on) {
+        int cell;
+        const float val = tap_value(s, &cell);
+        wc[cell] = wc[cell] + val;
+      }
+      __syncwarp();
     }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < CH * g.ncell; i += blockDim.x) {
+    const int c = div_by(i, g.divN);
+    int ec[D];
+    window_coords<D>(i - c * g.ncell, g, ec);
+    int cell = c * g.wch;
+    for (int d = 0; d < D; ++d) cell += ec[d] * g.wstride[d];
+    out[i] = P2G2 ? win[cell] + d1[g.ncell + i] : win[cell];
   }
 }
 
@@ -153,18 +289,19 @@ __device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt,
 // Bound: by the layout, an occupied 3D tile reads its stream block
 // (F*cap*4 = 9.7 KB) and, for p2g2, the halo'd mass and p2g1 windows
 // (10 KB), and writes (1+D) or D windows of E^3 = 512 cells (8 KB / 6 KB);
-// an empty tile only writes zeros.  Measured on an NVIDIA H100 80GB HBM3
-// (700 W) at the 1M-particle shape (32,768 tiles, 17,554 occupied): 0.71 ms
-// for p2g1 and for p2g2, several times what those bytes take at the card's
-// peak bandwidth, so the cell-owner scan is the limit: every thread tests
-// its E^D/cap = 4 cells against each of the tile's particles (512 x count
-// tap tests per tile), out of shared memory.  The design keeps every intermediate
-// (weights, bases, values) in shared memory and writes each output cell
-// once, with no atomics.
+// an empty tile only writes zeros, which alone is most of the bytes.  At
+// the 1M-particle shape (32,768 tiles, 17,554 occupied) on an NVIDIA H100
+// 80GB HBM3 (700 W), chip_smoke.py measured 0.70 ms for each mode with a
+// cell-owner scan as the deposit (5.5-7x the byte bound) and 0.30 ms (p2g1)
+// and 0.32 ms (p2g2) with the tap-parallel deposit, ~3x the byte bound: the
+// limit is now the serial walk over a tile's ~57 particles in each warp.
+// Every intermediate (stencils, values, the window) stays in shared memory
+// and each output cell is written once, with no atomics.
 //
 // p2g2 additionally gathers each particle's density from the halo'd mass
 // window (3^D taps), then its Tait pressure (with the floor), volume and
-// eq-16 term -4 dt V (-p I + mu (C + C^T)), which it stages in s_C.
+// eq-16 term -4 dt V (-p I + mu (C + C^T)), which it stages as the
+// record's C rows.
 // params: [dt, rest_density, eos_stiffness, eos_power, pressure_floor, mu].
 template <int D, bool P2G2>
 __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
@@ -175,7 +312,7 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
                                const float* __restrict__ params,
                                float* __restrict__ out) {
   constexpr int CH = P2G2 ? D : 1 + D;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x;
   const int s = threadIdx.x;
   const int cap = g.cap;
@@ -186,54 +323,40 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
     return;
   }
   const int tid = tidv[a];
-  Stage<D> sh(smem, cap);
+  const Stage<D> sh(smem);
   const float* blk = stream + static_cast<int64_t>(a) * g.F * cap;
   if (s < cnt) {
-    float pos[D];
+    float pos[D], C[D * D];
     for (int d = 0; d < D; ++d) pos[d] = blk[d * cap + s];
-    stage_stencil<D>(sh, g, tid, pos, s);
+    for (int ij = 0; ij < D * D; ++ij) C[ij] = blk[(2 * D + ij) * cap + s];
+    const Stencil<D> st = stencil_of<D>(g, tid, pos);
     const float mass = blk[(2 * D + D * D) * cap + s];
     if (!P2G2) {
-      sh.m[s] = mass;
-      for (int i = 0; i < D; ++i) sh.v[i * cap + s] = blk[(D + i) * cap + s];
-      for (int ij = 0; ij < D * D; ++ij) sh.C[ij * cap + s] = blk[(2 * D + ij) * cap + s];
+      float v[D];
+      for (int i = 0; i < D; ++i) v[i] = blk[(D + i) * cap + s];
+      sh.store(s, st, mass, v, C);
     } else {
       // density gather from the halo'd mass window, taps in stencil order
-      // (axis 0 fastest)
       const float* mw = hs_m + static_cast<int64_t>(a) * g.ncell;
       float rho = 0.0f;
-      int nk = 1;
-      for (int d = 0; d < D; ++d) nk *= 3;
-      for (int k = 0; k < nk; ++k) {
-        int o[D];
-        int r = k;
-        for (int d = 0; d < D; ++d) {
-          o[d] = r % 3;
-          r /= 3;
-        }
-        float w = sh.w[(o[0] * D + 0) * cap + s];
-        for (int d = 1; d < D; ++d) w = w * sh.w[(o[d] * D + d) * cap + s];
-        int e = 0;
-        for (int d = 0; d < D; ++d) e = e * g.E + sh.base[d * cap + s] + o[d];
-        rho = rho + w * mw[e];
-      }
+      for_taps<D>(st, g, [&](float w, int e, const float*) { rho = rho + w * mw[e]; });
       const float dt = params[0], rest = params[1], k_eos = params[2];
       const float gamma = params[3], floor_p = params[4], mu = params[5];
       const float volume = rho > 0.0f ? mass / rho : 0.0f;
       const float pressure = mpm::tait_pressure(rho, rest, k_eos, gamma, floor_p);
       const float scale = (-4.0f * dt) * volume;
+      float term[D * D];
       for (int i = 0; i < D; ++i) {
         for (int j = 0; j < D; ++j) {
-          const float cij = blk[(2 * D + i * D + j) * cap + s];
-          const float cji = blk[(2 * D + j * D + i) * cap + s];
-          const float visc = mu * (cij + cji);
-          sh.C[(i * D + j) * cap + s] = scale * (i == j ? -pressure + visc : visc);
+          const float visc = mu * (C[i * D + j] + C[j * D + i]);
+          term[i * D + j] = scale * (i == j ? -pressure + visc : visc);
         }
       }
+      sh.store(s, st, mass, nullptr, term);
     }
   }
   __syncthreads();
-  deposit_window<D, P2G2>(sh, g, cnt, tile_out,
+  deposit_window<D, P2G2>(sh, g, cnt, smem + Stage<D>::words_per_slot() * cap, tile_out,
                           P2G2 ? d1 + static_cast<int64_t>(a) * (1 + D) * g.ncell : nullptr);
 }
 
@@ -253,8 +376,10 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 // gblk window (8 KB, 27 taps per particle, within one 8 KB block so they hit
 // L1/L2) and writes the new block (9.7 KB), the flag (0.5 KB) and, fused,
 // 8 KB of windows: ~36 KB per tile, ~1.2 GB per call at 32,768 tiles.
-// Measured fused, at that shape on an NVIDIA H100 80GB HBM3 (700 W):
-// 0.88 ms, of which the fused deposit's cell-owner scan is the larger part.
+// Measured at that shape on an NVIDIA H100 80GB HBM3 (700 W) by
+// chip_smoke.py: 0.89 ms fused with a cell-owner scan as the deposit; with
+// the tap-parallel deposit of deposit_kernel 0.49 ms fused and 0.21 ms
+// unfused (the g2p and tail alone), ~2.1x the fused byte bound.
 //
 // params: [dt, rest, k, gamma, floor, mouse_radius, damp, mouse_active,
 //          mouse_x, mouse_y, lo[D], hi[D], scene_stride].
@@ -267,7 +392,7 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
                                float* __restrict__ out_stream,
                                float* __restrict__ flag,
                                float* __restrict__ dep) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x;
   const int s = threadIdx.x;
   const int cap = g.cap, F = g.F;
@@ -284,14 +409,13 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
     return;
   }
   const int tid = tidv[a];
-  Stage<D> sh(smem, cap);
   const bool valid = s < cnt;
   float newpos[D], v[D], newC[D * D];
   float mass = 0.0f;
   if (valid) {
     float pos[D];
     for (int d = 0; d < D; ++d) pos[d] = blk[d * cap + s];
-    stage_stencil<D>(sh, g, tid, pos, s);  // own slot only: no barrier needed
+    const Stencil<D> st = stencil_of<D>(g, tid, pos);
     const float* gw = gblk + static_cast<int64_t>(a) * (1 + D) * g.ncell;
     float B[D][D];
     for (int i = 0; i < D; ++i) {
@@ -299,28 +423,14 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
       for (int j = 0; j < D; ++j) B[i][j] = 0.0f;
     }
     float rho = 0.0f;
-    int nk = 1;
-    for (int d = 0; d < D; ++d) nk *= 3;
-    for (int k = 0; k < nk; ++k) {
-      int o[D];
-      int r = k;
-      for (int d = 0; d < D; ++d) {
-        o[d] = r % 3;
-        r /= 3;
-      }
-      float w = sh.w[(o[0] * D + 0) * cap + s];
-      for (int d = 1; d < D; ++d) w = w * sh.w[(o[d] * D + d) * cap + s];
-      int e = 0;
-      for (int d = 0; d < D; ++d) e = e * g.E + sh.base[d * cap + s] + o[d];
-      float dpos[D];
-      for (int j = 0; j < D; ++j) dpos[j] = static_cast<float>(o[j] - 1) - sh.dvec[j * cap + s];
+    for_taps<D>(st, g, [&](float w, int e, const float* dpos) {
       for (int i = 0; i < D; ++i) {
         const float wv = w * gw[i * g.ncell + e];
         v[i] = v[i] + wv;
         for (int j = 0; j < D; ++j) B[i][j] = B[i][j] + wv * dpos[j];
       }
       rho = rho + w * gw[D * g.ncell + e];
-    }
+    });
     for (int i = 0; i < D; ++i)
       for (int j = 0; j < D; ++j) newC[i * D + j] = 4.0f * B[i][j];
 
@@ -353,25 +463,220 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
     flag[static_cast<int64_t>(a) * cap + s] = 0.0f;
   }
   if (FUSED) {
-    __syncthreads();  // every thread is done reading the old stencil
-    if (valid) {
-      stage_stencil<D>(sh, g, tid, newpos, s);
-      sh.m[s] = mass;
-      for (int i = 0; i < D; ++i) sh.v[i * cap + s] = v[i];
-      for (int ij = 0; ij < D * D; ++ij) sh.C[ij * cap + s] = newC[ij];
-    }
+    const Stage<D> sh(smem);
+    if (valid) sh.store(s, stencil_of<D>(g, tid, newpos), mass, v, newC);
     __syncthreads();
-    deposit_window<D, false>(sh, g, cnt, tile_dep, nullptr);
+    deposit_window<D, false>(sh, g, cnt, smem + Stage<D>::words_per_slot() * cap, tile_dep,
+                             nullptr);
   }
 }
 
 // Halo windows overlap by E - T = 2h cells along each axis.  One pass along
-// axis d adds the +1 neighbour's window shifted by -T*stride_d into the
-// cells e_d >= T, and the -1 neighbour's shifted by +T*stride_d into the
-// cells e_d < E - T; a neighbour index == A reads as zero.  Both directions
-// read the pass input, so the output is a separate buffer.  The sum order
-// (own + plus) + minus, with 0.0f where masked, is halo_pull's, so the pass
-// is bit-identical to the XLA gather form.
+// axis k adds the +1 neighbour's window shifted by -T*stride_k into the
+// cells e_k >= T, and the -1 neighbour's shifted by +T*stride_k into the
+// cells e_k < E - T; a neighbour index == A reads as zero.  Both
+// directions read the pass input.
+//
+// Passes [first, first + NP) chained, as one tree per output cell.  The
+// value after pass k at (tile t, cell c) is
+//   (v_k(t, c) + [c_k >= T] v_k(p_k(t), c - T s_k)) + [c_k < E-T] v_k(m_k(t), c + T s_k)
+// with v_first the gated input; a masked term and a tile A add 0.0f.  Its
+// leaves are raw input reads at the end of a route of neighbour tiles; a
+// thread evaluates the tree in the passes' order, so the result is
+// bit-identical to the chained passes.  Node n's children are 3n (own),
+// 3n+1 (+ neighbour) and 3n+2 (- neighbour), the top level is the last
+// pass: leaf n's base-3 digit l (level 0 = the first pass, least
+// significant) names the neighbour taken at level l.
+
+struct HaloLevels {
+  FastDiv stride[3];  // per level, first pass first: / the axis's cell stride
+  int sh[3];          // per level: T * that stride
+};
+
+// Resolves the leaf routes of tiles [a0, a0 + tpb) through the face tables
+// nbr [2D, A] into shared memory, [tpb][3^NP]: a route through a missing
+// neighbour, or ending at a zero-count tile (the occupancy gate), is A.
+template <int NP>
+__device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ count,
+                                            const int* __restrict__ nbr, int A, int first,
+                                            int tpb, int a0) {
+  constexpr int K = pow3(NP);
+  for (int i = threadIdx.x; i < tpb * K; i += blockDim.x) {
+    const int j = i / K, leaf = i - j * K;
+    int t = a0 + j < A ? a0 + j : A;
+    int digit_of = K;
+    for (int l = NP - 1; l >= 0; --l) {  // the top level (last pass) first
+      digit_of /= 3;
+      const int digit = (leaf / digit_of) % 3;
+      if (digit != 0 && t < A) t = nbr[static_cast<int64_t>(2 * (first + l) + digit - 1) * A + t];
+    }
+    route[i] = t < A && count[t] > 0 ? t : A;
+  }
+}
+
+// halo_axes_kernel — replaces _make_halo_axis (stream_transfer.py:2006),
+// NP of its passes chained in one launch, for the window geometry of every
+// stream spec the port builds, E = 2T (h = T/2).  There one of a level's
+// two masks is always on: a cell's tree has 2^NP leaves, leaf b taking the
+// neighbour at level l where bit l is set, and a level sums as
+// (own + nb) + 0.0f or (own + 0.0f) + nb.  The input is read as
+// where(count > 0, x, 0), the occupancy gate of the JAX stages, so no
+// zero-count tile's window is read.
+//
+// Layout: 128 threads per block over `tpb` tiles of 2048 cells in all (3D:
+// four tiles, 2D: thirty-two), in rounds of four cells per thread, CH
+// channels: a thread issues the 4 x CH x 2^NP leaf loads of a round before
+// its first add, so it waits on memory once per round.  The block first
+// resolves its tiles' routes into shared memory (halo_routes), so no
+// thread walks the tables, and the dependent table reads of four tiles
+// overlap (with fewer tiles per block the route reads stay exposed, with
+// more the rounds serialise); cell coordinates come from multiply-high
+// divisions.  Own leaves are coalesced
+// reads of the tile's window; neighbour leaves read windows that nearby
+// blocks read too, mostly from L2.
+//
+// Bound: bytes, each occupied input window read once and every output
+// window written once: at the 1M shape (32,768 tiles, 17,554 occupied)
+// 36 + 67 MB for the mass launch and 108 + 201 MB for the m+f launch.
+// Measured there on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py:
+// 0.12 ms (mass, 3 passes) and 0.17 ms (m+f, 2 passes), where one
+// separate launch per pass took 0.35 ms and 0.63 ms, and a copy of the
+// output's size 0.05 ms and 0.14 ms.  The mass launch waits on its routes
+// (three dependent table reads per tile) more than on bytes.
+template <int NP, int CH>
+__global__ void __launch_bounds__(128) halo_axes_kernel(
+    const float* __restrict__ x, const int* __restrict__ count, const int* __restrict__ nbr,
+    float* __restrict__ out, int A, int ncell, int E, int T, int first, int tpb, FastDiv divN,
+    FastDiv divE, HaloLevels lv) {
+  extern __shared__ int route[];  // [tpb][3^NP]
+  constexpr int K = pow3(NP), B = 1 << NP, CPT = 4;
+  const int a0 = blockIdx.x * tpb;
+  halo_routes<NP>(route, count, nbr, A, first, tpb, a0);
+  __syncthreads();
+  const int row = CH * ncell;  // element offsets fit 32 bits (checked at launch)
+  for (int base = 0; base < tpb * ncell; base += CPT * 128) {
+    float v[CPT][CH][B];
+    int minus[CPT];  // bit l: the level-l neighbour is the - one
+    bool ok[CPT];
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      const int it = base + u * 128 + threadIdx.x;
+      const int j = div_by(it, divN), e = it - j * ncell;
+      ok[u] = it < tpb * ncell && a0 + j < A;
+      int off[B], leaf[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b) off[b] = leaf[b] = 0;
+      int mbits = 0, digit = 1;
+#pragma unroll
+      for (int l = 0; l < NP; ++l) {
+        const int q = div_by(e, lv.stride[l]);
+        const bool m = q - div_by(q, divE) * E < E - T;
+        mbits |= m ? 1 << l : 0;
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          if (b & (1 << l)) {
+            off[b] += m ? lv.sh[l] : -lv.sh[l];
+            leaf[b] += (m ? 2 : 1) * digit;
+          }
+        }
+        digit *= 3;
+      }
+      minus[u] = mbits;
+      const int* rt = route + (ok[u] ? j : 0) * K;
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int t = rt[leaf[b]];
+        const bool on = ok[u] && t < A;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) v[u][c][b] = on ? x[t * row + c * ncell + e + off[b]] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+#pragma unroll
+        for (int l = 0; l < NP; ++l) {  // first pass first; pairs differ in bit l
+          const bool m = minus[u] & (1 << l);
+#pragma unroll
+          for (int b = 0; b < (B >> (l + 1)); ++b) {
+            const float own = v[u][c][2 * b], nb = v[u][c][2 * b + 1];
+            v[u][c][b] = m ? (own + 0.0f) + nb : (own + nb) + 0.0f;
+          }
+        }
+        if (ok[u]) {
+          const int it = base + u * 128 + threadIdx.x;
+          const int j = div_by(it, divN);
+          out[(a0 + j) * row + c * ncell + it - j * ncell] = v[u][c][0];
+        }
+      }
+    }
+  }
+}
+
+// The same passes for any other window geometry (E != 2T, where a level
+// may add both neighbours or neither) or channel count: one cell at a time,
+// the tree walked recursively over all 3^NP leaves.
+struct HaloCell {
+  const float* x;    // input rows at this thread's channel
+  const int* route;  // the tile's leaf tiles [3^NP] (shared), A = reads 0
+  int64_t row;       // floats per tile (CH * E^D)
+  int A, T, E;
+  int ek[3];  // per level: the cell's coordinate on the level's axis
+  int sh[3];  // per level: T * the axis's cell stride
+};
+
+template <int LV>
+__device__ __forceinline__ float halo_tree(const HaloCell& c, int node, int e) {
+  if constexpr (LV == 0) {
+    const int t = c.route[node];
+    return t < c.A ? c.x[t * c.row + e] : 0.0f;
+  } else {
+    constexpr int lv = LV - 1;
+    float acc = halo_tree<LV - 1>(c, 3 * node, e);
+    const float yp = c.ek[lv] >= c.T ? halo_tree<LV - 1>(c, 3 * node + 1, e - c.sh[lv]) : 0.0f;
+    acc = acc + yp;
+    const float ym = c.ek[lv] < c.E - c.T ? halo_tree<LV - 1>(c, 3 * node + 2, e + c.sh[lv]) : 0.0f;
+    return acc + ym;
+  }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(128) halo_axes_any_kernel(
+    const float* __restrict__ x, const int* __restrict__ count, const int* __restrict__ nbr,
+    float* __restrict__ out, int A, int CH, int ncell, int E, int T, int first, int tpb,
+    FastDiv divN, FastDiv divE, HaloLevels lv) {
+  extern __shared__ int route[];  // [tpb][3^NP]
+  constexpr int K = pow3(NP);
+  const int a0 = blockIdx.x * tpb;
+  halo_routes<NP>(route, count, nbr, A, first, tpb, a0);
+  __syncthreads();
+  for (int it = threadIdx.x; it < tpb * ncell; it += blockDim.x) {
+    const int j = div_by(it, divN), e = it - j * ncell;
+    const int a = a0 + j;
+    if (a >= A) break;
+    HaloCell c;
+    c.route = route + j * K;
+    c.row = static_cast<int64_t>(CH) * ncell;
+    c.A = A;
+    c.T = T;
+    c.E = E;
+#pragma unroll
+    for (int l = 0; l < NP; ++l) {
+      const int q = div_by(e, lv.stride[l]);
+      c.ek[l] = q - div_by(q, divE) * E;
+      c.sh[l] = lv.sh[l];
+    }
+    float* o = out + a * c.row + e;
+    for (int ch = 0; ch < CH; ++ch) {
+      c.x = x + ch * ncell;
+      o[ch * ncell] = halo_tree<NP>(c, 0, e);
+    }
+  }
+}
+
+// One pass along an axis (halo_pull's order, (own + plus) + minus, 0.0f
+// where masked) for the last m+f pass, fused into halo_gblk_kernel.
 __device__ __forceinline__ float halo_sum(const float* __restrict__ x,
                                           const int* __restrict__ nbp,
                                           const int* __restrict__ nbm,
@@ -389,25 +694,6 @@ __device__ __forceinline__ float halo_sum(const float* __restrict__ x,
   const float ym = (e_d < E - T && m < A) ? x[static_cast<int64_t>(m) * L + l + shift] : 0.0f;
   acc = acc + ym;
   return acc;
-}
-
-// halo_axis_kernel — replaces _make_halo_axis (stream_transfer.py:2006).
-// Bound: pure data movement, one output float per thread from up to three
-// reads (own + two neighbour rows): by the layout 3 reads + 1 write of
-// A*CH*E^D floats, ~0.8 GB per m+f pass at 32,768 tiles; measured 0.31 ms
-// for that pass on an NVIDIA H100 80GB HBM3 (700 W).  Threads of a warp
-// read consecutive cells of one row, so every read is coalesced; the
-// per-row neighbour DMA of the TPU kernel is the row index nbp/nbm here.
-__global__ void halo_axis_kernel(const float* __restrict__ x,
-                                 const int* __restrict__ nbp,
-                                 const int* __restrict__ nbm,
-                                 float* __restrict__ out, int A, int CH,
-                                 int ncell, int E, int T, int lstride) {
-  const int L = CH * ncell;
-  const int64_t total = static_cast<int64_t>(A) * L;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  out[i] = halo_sum(x, nbp, nbm, i, A, L, ncell, E, T, lstride);
 }
 
 // halo_gblk_kernel — replaces _make_halo_gblk (stream_transfer.py:1882):
@@ -454,12 +740,41 @@ Geom make_geom(int dim, int A, int T, int h, int cap, const int* tshape, const i
     g.tshape[d] = d < dim ? tshape[d] : 1;
     g.origin[d] = d < dim ? origin[d] : 0;
   }
+  g.divE = fast_div(g.E);
+  g.divN = fast_div(g.ncell);
+  // padded window strides: lines E + 1 apart, planes and channels 3 banks
+  // apart modulo 32, so the 27 (or 3 x 9) taps of a warp hit distinct banks
+  auto pad3 = [](int x) { return x + ((3 - x) % 32 + 32) % 32; };
+  for (int d = 0; d < 3; ++d) g.wstride[d] = 0;
+  g.wstride[dim - 1] = 1;
+  if (dim >= 2) g.wstride[dim - 2] = g.E + 1;
+  if (dim >= 3) g.wstride[0] = pad3(g.E * g.wstride[1]);
+  g.wch = pad3(g.E * g.wstride[0]);
   return g;
 }
 
+// Dynamic shared memory of a deposit or collect block: the stage, then the
+// deposit window.
 template <int D>
-size_t stage_bytes(int cap) {
-  return static_cast<size_t>(Stage<D>::words_per_slot()) * cap * sizeof(float);
+size_t block_bytes(const Geom& g) {
+  return (static_cast<size_t>(Stage<D>::words_per_slot()) * g.cap + (1 + D) * g.wch) *
+         sizeof(float);
+}
+
+// Launches a deposit or collect kernel, one block of cap threads per tile,
+// with `smem` bytes of dynamic shared memory.  Past the 48 KB a launch gets
+// by default (3D at cap = 256, or wider windows) the kernel is first opted
+// into its size; a size the card cannot give returns that call's error.
+template <typename... P, typename... Args>
+int launch_tiles(void (*kernel)(Geom, P...), const Geom& g, size_t smem, cudaStream_t st,
+                 Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<g.A, g.cap, smem, st>>>(g, args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 unsigned int flat_blocks(int64_t total, int threads) {
@@ -478,16 +793,14 @@ int fluid_deposit(int dim, int mode, const int* count, const int* tid,
   const Geom g = make_geom(dim, A, T, h, cap, tshape, origin);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   if (dim == 2 && mode == 1)
-    deposit_kernel<2, false><<<A, cap, stage_bytes<2>(cap), st>>>(g, count, tid, stream, hs_m, d1, params, out);
-  else if (dim == 2 && mode == 2)
-    deposit_kernel<2, true><<<A, cap, stage_bytes<2>(cap), st>>>(g, count, tid, stream, hs_m, d1, params, out);
-  else if (dim == 3 && mode == 1)
-    deposit_kernel<3, false><<<A, cap, stage_bytes<3>(cap), st>>>(g, count, tid, stream, hs_m, d1, params, out);
-  else if (dim == 3 && mode == 2)
-    deposit_kernel<3, true><<<A, cap, stage_bytes<3>(cap), st>>>(g, count, tid, stream, hs_m, d1, params, out);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_tiles(deposit_kernel<2, false>, g, block_bytes<2>(g), st, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 2 && mode == 2)
+    return launch_tiles(deposit_kernel<2, true>, g, block_bytes<2>(g), st, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 3 && mode == 1)
+    return launch_tiles(deposit_kernel<3, false>, g, block_bytes<3>(g), st, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 3 && mode == 2)
+    return launch_tiles(deposit_kernel<3, true>, g, block_bytes<3>(g), st, count, tid, stream, hs_m, d1, params, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int fluid_collect(int dim, int fused, const int* count, const int* tid,
@@ -497,25 +810,56 @@ int fluid_collect(int dim, int fused, const int* count, const int* tid,
   const Geom g = make_geom(dim, A, T, h, cap, tshape, origin);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   if (dim == 2 && !fused)
-    collect_kernel<2, false><<<A, cap, stage_bytes<2>(cap), st>>>(g, count, tid, params, stream, gblk, out_stream, flag, dep);
-  else if (dim == 2 && fused)
-    collect_kernel<2, true><<<A, cap, stage_bytes<2>(cap), st>>>(g, count, tid, params, stream, gblk, out_stream, flag, dep);
-  else if (dim == 3 && !fused)
-    collect_kernel<3, false><<<A, cap, stage_bytes<3>(cap), st>>>(g, count, tid, params, stream, gblk, out_stream, flag, dep);
-  else if (dim == 3 && fused)
-    collect_kernel<3, true><<<A, cap, stage_bytes<3>(cap), st>>>(g, count, tid, params, stream, gblk, out_stream, flag, dep);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_tiles(collect_kernel<2, false>, g, 0, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 2 && fused)
+    return launch_tiles(collect_kernel<2, true>, g, block_bytes<2>(g), st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 3 && !fused)
+    return launch_tiles(collect_kernel<3, false>, g, 0, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 3 && fused)
+    return launch_tiles(collect_kernel<3, true>, g, block_bytes<3>(g), st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int fluid_halo_axis(const float* x, const int* nbp, const int* nbm, float* out,
-                    int A, int CH, int ncell, int E, int T, int lstride,
-                    void* cuda_stream) {
-  const int threads = 256;
-  const int64_t total = static_cast<int64_t>(A) * CH * ncell;
-  halo_axis_kernel<<<flat_blocks(total, threads), threads, 0,
-                     static_cast<cudaStream_t>(cuda_stream)>>>(x, nbp, nbm, out, A, CH, ncell, E, T, lstride);
+// Halo passes [first, last) over windows [A, CH, E^dim], in one launch.
+int fluid_halo_axes(const float* x, const int* count, const int* nbr, float* out, int A,
+                    int CH, int dim, int E, int T, int first, int last, void* cuda_stream) {
+  if (dim < 2 || dim > 3 || first < 0 || first >= last || last > dim || CH < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int ncell = 1;
+  for (int d = 0; d < dim; ++d) ncell *= E;
+  if (static_cast<int64_t>(A) * CH * ncell >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tpb = ncell >= 2048 ? 1 : 2048 / ncell;  // tiles per block
+  const int threads = 128;
+  const unsigned int blocks = static_cast<unsigned int>((A + tpb - 1) / tpb);
+  HaloLevels lv;
+  for (int l = 0; l < 3; ++l) {
+    int stride = 1;
+    for (int d = first + l + 1; d < dim; ++d) stride *= E;
+    lv.stride[l] = fast_div(stride);
+    lv.sh[l] = T * stride;
+  }
+  const FastDiv divN = fast_div(ncell), divE = fast_div(E);
+  const size_t smem = static_cast<size_t>(tpb) * pow3(last - first) * sizeof(int);
+  cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
+  const int NP = last - first;
+  // The substep's (passes, channels) pairs at E = 2T: the mass halo (D, 1)
+  // and the m+f halo (D - 1, D), in 3D and in 2D.  Every other call takes
+  // the general kernel.
+#define HALO_AXES(np, ch)                                                                 \
+  if (E == 2 * T && NP == np && CH == ch) {                                               \
+    halo_axes_kernel<np, ch><<<blocks, threads, smem, st>>>(x, count, nbr, out, A, ncell, \
+                                                            E, T, first, tpb, divN, divE, lv); \
+    return static_cast<int>(cudaGetLastError());                                          \
+  }
+  HALO_AXES(3, 1) HALO_AXES(2, 3) HALO_AXES(2, 1) HALO_AXES(1, 2)
+#undef HALO_AXES
+#define HALO_ANY(np)                                                                        \
+  if (NP == np)                                                                             \
+    halo_axes_any_kernel<np><<<blocks, threads, smem, st>>>(x, count, nbr, out, A, CH, ncell, \
+                                                            E, T, first, tpb, divN, divE, lv);
+  HALO_ANY(1) HALO_ANY(2) HALO_ANY(3)
+#undef HALO_ANY
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """The stream backend's five kernel entry points: wrapper, plain version, count.
 
-Each of ``deposit_p2g1``, ``deposit_p2g2``, ``collect``, ``halo_axis`` and
+Each of ``deposit_p2g1``, ``deposit_p2g2``, ``collect``, ``halo_axes`` and
 ``halo_gblk`` is a wrapper that checks its tensors and then
 
 * for CPU tensors, runs the plain PyTorch version below (direct 3^D taps
@@ -11,12 +11,15 @@ Each of ``deposit_p2g1``, ``deposit_p2g2``, ``collect``, ``halo_axis`` and
   There is no fallback from a CUDA tensor to the plain version.
 
 ``LAUNCHES[name]`` counts the kernel launches of each wrapper (never the
-plain versions), so a run can show that its main path went through every
-kernel.
+plain versions), one name per TPU kernel, so a run can show that its main
+path went through every kernel; ``halo_axes`` counts as ``halo_axis``.
 
-The plain versions compute in the kernels' arithmetic order (taps in
-stencil order, axis 0 fastest; particles in slot order), so on the card the
-two differ only where ``index_add_`` sums in another order.
+The plain versions compute each particle's and each tap's values in the
+kernels' arithmetic order (taps in stencil order, axis 0 fastest), and
+collect and the halo sum in the kernels' order too, so those agree bit for
+bit on the card.  The deposits do not: the kernels sum a cell's particles
+in slot order and the plain versions with ``index_add_``, in its own order,
+so the two differ by rounding.
 
 Layouts (see ``csrc/stream_kernels.cu``): stream ``[A, F, cap]``, windows
 ``[A, CH, E^D]`` in flat cell order ``(e_0, ..., e_{D-1})``, flag
@@ -278,6 +281,15 @@ def halo_axis_plain(x, nbp, nbm, g: TileGeom, axis: int) -> torch.Tensor:
     return acc + torch.where(e_d < E - T, ys, 0.0)
 
 
+def halo_axes_plain(x, count, nbr, g: TileGeom, first: int, last: int) -> torch.Tensor:
+    """Passes [first, last) of the separable halo, one after the other, on
+    the occupancy-gated input ``where(count > 0, x, 0)``."""
+    x = torch.where((count > 0)[:, None, None], x, 0.0)
+    for d in range(first, last):
+        x = halo_axis_plain(x, nbr[2 * d], nbr[2 * d + 1], g, d)
+    return x
+
+
 def halo_gblk_plain(x, hs_m, nbp, nbm, dtg, g: TileGeom, axis: int) -> torch.Tensor:
     mf = halo_axis_plain(x, nbp, nbm, g, axis)
     dtg = torch.as_tensor(dtg, dtype=torch.float32, device=x.device)
@@ -340,8 +352,9 @@ def _check_tiles(count, tid, stream, g: TileGeom):
     _check("count", count, (A,), torch.int32, dev)
     _check("tid", tid, (A,), torch.int32, dev)
     _check("stream", stream, (A, g.F, g.cap), torch.float32, dev)
-    if g.cap > 256:
-        raise ValueError(f"cap {g.cap} > 256: the kernels launch one thread per slot")
+    if g.cap > 256 or g.cap % 32:
+        raise ValueError(f"cap {g.cap}: the kernels launch one thread per slot, "
+                         "whole warps of at most 256")
     return A, dev
 
 
@@ -404,17 +417,24 @@ def _check_halo(x, nbp, nbm, g: TileGeom):
     return A, CH, dev
 
 
-def halo_axis(x, nbp, nbm, g: TileGeom, axis: int) -> torch.Tensor:
-    """One separable halo pass along ``axis`` over windows [A, CH, E^D];
-    ``nbp``/``nbm`` are the active indices of the +/- face neighbours
-    (A = none).  Returns a new tensor."""
-    A, CH, dev = _check_halo(x, nbp, nbm, g)
+def halo_axes(x, count, nbr, g: TileGeom, first: int, last: int) -> torch.Tensor:
+    """Halo passes [first, last) over windows [A, CH, E^D] in one launch,
+    the input read as ``where(count > 0, x, 0)``; ``nbr`` [2D, A] holds the
+    active indices of each axis's +/- face neighbours (A = none).  Returns
+    a new tensor, bit-equal to the passes chained (``halo_axes_plain``)."""
+    A, CH = x.shape[0], x.shape[1]
+    dev = x.device
+    _check("x", x, (A, CH, g.ncell), torch.float32, dev)
+    _check("count", count, (A,), torch.int32, dev)
+    _check("nbr", nbr, (2 * g.dim, A), torch.int32, dev)
+    if not 0 <= first < last <= g.dim:
+        raise ValueError(f"passes [{first}, {last}): not a non-empty range in [0, {g.dim})")
     if _on_cpu(dev):
-        return halo_axis_plain(x, nbp, nbm, g, axis)
+        return halo_axes_plain(x, count, nbr, g, first, last)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
-        _launch("halo_axis", "fluid_halo_axis", _ptr(x), _ptr(nbp), _ptr(nbm), _ptr(out),
-                A, CH, g.ncell, g.E, g.tile, g.E ** (g.dim - 1 - axis))
+        _launch("halo_axis", "fluid_halo_axes", _ptr(x), _ptr(count), _ptr(nbr), _ptr(out),
+                A, CH, g.dim, g.E, g.tile, first, last)
     return out
 
 

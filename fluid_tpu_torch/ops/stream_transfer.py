@@ -8,9 +8,10 @@ its tile's drift window, which the collect kernel flags; the frame then
 re-bins.  One substep runs the stages of ``substep_stages``:
 
   dep1       p2g_1 deposit (mass + APIC momentum) into per-tile windows
-  halo_m     separable halo of the mass channel
+  halo_m     separable halo of the mass channel, all D passes in one launch
   dep2       density, Tait EOS, eq-16 force, plus the p2g_1 momentum
-  halo_gblk  momentum+force halo, the last pass fused with the grid update
+  halo_gblk  momentum+force halo: D-1 passes in one launch, then the last
+             pass fused with the grid update
   collect    g2p + particle tail + drift flag (+ the next substep's p2g_1)
 
 The five kernel entry points live in ``stream_kernels.py``: hand-written CUDA
@@ -437,18 +438,13 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
         return sk.deposit_p2g1(st.count, st.tid, st.stream, g)
 
     def halo_m(st, dep1v):
-        x = dep1v[:, :1].contiguous()
-        for d in range(D):
-            x = sk.halo_axis(x, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
-        return x
+        return sk.halo_axes(dep1v[:, :1].contiguous(), st.count, st.nbr, g, 0, D)
 
     def dep2(st, dep1v, hs_m):
         return sk.deposit_p2g2(st.count, st.tid, st.stream, hs_m, params6, dep1v, g)
 
     def halo_gblk(st, dep2v, hs_m):
-        x = dep2v
-        for d in range(D - 1):
-            x = sk.halo_axis(x, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
+        x = sk.halo_axes(dep2v, st.count, st.nbr, g, 0, D - 1)
         last = 2 * (D - 1)
         return sk.halo_gblk(x, hs_m, st.nbr[last], st.nbr[last + 1], dtg, g, D - 1)
 

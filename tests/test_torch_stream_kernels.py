@@ -11,7 +11,8 @@ every comparison isolates one kernel.  Tolerances:
   contract through the one-window matmul identity, whose cancellation loses
   a few ulp against the direct taps); pressure rows 2e-5 relative instead,
   since the EOS slope 4 k rho^3 / rho0^4 amplifies the density's ulp;
-* halo passes: bit-equal (pure adds in halo_pull's order);
+* halo passes: bit-equal (pure adds in halo_pull's order), on the
+  occupancy-gated input that both packages' substeps feed them;
 * halo_gblk: 1e-6 absolute and relative, as tests/test_stream.py uses.
 """
 
@@ -155,29 +156,87 @@ def test_collect_matches_pallas(dim, variant):
         assert int((got[0][:, dim:2 * dim] != calm[0][:, dim:2 * dim]).sum()) > 10
 
 
+def _gated(x, count):
+    """numpy windows [A, CH, E^D] with the zero-count tiles' rows zeroed."""
+    return np.where((np.asarray(count) > 0)[:, None, None], x, np.float32(0.0))
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 def test_halo_axis_matches_halo_pull(dim):
-    """D passes of the port's halo_axis are bit-equal to halo_pull."""
+    """The port's one-launch halo over passes [0, D) is bit-equal to
+    halo_pull on the same gated input."""
     r = _reference(dim)
     st, g, A = r["tst"], r["geom"], r["tspec"].A
     rng = np.random.default_rng(dim)
     for CH in (1, dim):
-        x = rng.uniform(-1, 1, (A, CH, g.ncell)).astype(np.float32)
+        x = _gated(rng.uniform(-1, 1, (A, CH, g.ncell)).astype(np.float32), st.count)
         want = jstx.halo_pull(jnp.asarray(x.reshape(A, -1)), r["st"].nbr, g.tshape, 4, 8)
-        got = torch.as_tensor(x)
-        for d in range(dim):
-            got = sk.halo_axis(got, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
+        got = sk.halo_axes(torch.as_tensor(x), st.count, st.nbr, g, 0, dim)
         np.testing.assert_array_equal(got.numpy().reshape(A, -1), np.asarray(want))
+
+
+def _halo_tree(x, count, nbr, g, first, last):
+    """The kernel's evaluation order written out: per output cell, the
+    nested sum of the chained passes, each leaf a raw read of the gated
+    input at the end of a route of neighbour tiles (A reads zero)."""
+    A = x.shape[0]
+    xp = torch.cat([x, torch.zeros_like(x[:1])])
+    nbr = torch.cat([nbr.long(), torch.full_like(nbr[:, :1], A, dtype=torch.long)], dim=1)
+    e = torch.arange(g.ncell)
+    occ = torch.cat([count > 0, torch.zeros(1, dtype=torch.bool)])
+
+    def node(level, tiles, cells):  # tiles [A] (A = none), cells [ncell]
+        if level == first:
+            leaf = xp[tiles][:, :, cells]
+            return torch.where(occ[tiles][:, None, None], leaf, 0.0)
+        d = level - 1
+        stride = g.E ** (g.dim - 1 - d)
+        e_d = (e // stride) % g.E
+        shift = g.tile * stride
+        acc = node(d, tiles, cells)
+        yp = node(d, nbr[2 * d][tiles], (cells - shift).clamp(0, g.ncell - 1))
+        acc = acc + torch.where(e_d >= g.tile, yp, 0.0)
+        ym = node(d, nbr[2 * d + 1][tiles], (cells + shift).clamp(0, g.ncell - 1))
+        return acc + torch.where(e_d < g.E - g.tile, ym, 0.0)
+
+    return node(last, torch.arange(A), e)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("channels", ["mass", "momentum"])
+@pytest.mark.parametrize("passes", ["all", "all_but_last"])
+def test_halo_axes_matches_chained_plain_passes(dim, channels, passes):
+    """The one-launch halo over [0, D) (mass) or [0, D-1) (ahead of
+    halo_gblk) equals the same passes chained through halo_axis_plain on
+    the gated input, and so does the kernel's tree order, bit for bit; the
+    gate matters (zero-count tiles carry data here)."""
+    r = _reference(dim)
+    st, g, A = r["tst"], r["geom"], r["tspec"].A
+    CH = 1 if channels == "mass" else dim
+    last = dim if passes == "all" else dim - 1
+    rng = np.random.default_rng(10 * dim + CH)
+    x = torch.as_tensor(rng.uniform(-1, 1, (A, CH, g.ncell)).astype(np.float32))
+    want = _gated(x.numpy(), st.count)
+    for d in range(last):
+        want = sk.halo_axis_plain(torch.as_tensor(want), st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
+    got = sk.halo_axes(x, st.count, st.nbr, g, 0, last)
+    assert torch.equal(got, want)
+    assert torch.equal(_halo_tree(x, st.count, st.nbr, g, 0, last), want)
+    ungated = x
+    for d in range(last):
+        ungated = sk.halo_axis_plain(ungated, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
+    assert int((st.count == 0).sum()) > 0 and not torch.equal(ungated, want)
 
 
 def test_halo_gblk_matches_pallas_interpret():
     """Last halo pass + grid update against _make_halo_gblk (interpret),
-    after D-1 axis passes, on random windows with zero-mass cells mixed in."""
+    after D-1 axis passes (the port's in one launch), on random gated
+    windows with zero-mass cells mixed in."""
     r = _reference(3)
     st, g, A, cfg, spec = r["tst"], r["geom"], r["tspec"].A, r["cfg"], r["spec"]
     D, S1 = 3, g.ncell // 128
     rng = np.random.default_rng(11)
-    mf = rng.normal(size=(A, D, g.ncell)).astype(np.float32)
+    mf = _gated(rng.normal(size=(A, D, g.ncell)).astype(np.float32), st.count)
     m = np.maximum(rng.uniform(-0.5, 2.0, (A, 1, g.ncell)), 0.0).astype(np.float32)
     x = jnp.asarray(mf.reshape(A, D * S1, 128))
     jnbr = r["st"].nbr
@@ -186,12 +245,31 @@ def test_halo_gblk_matches_pallas_interpret():
     want = jstx._make_halo_gblk(spec, D, D - 1, cfg.dt, cfg.gravity)(
         x, jnp.asarray(m.reshape(A, S1, 128)), jnbr[2 * (D - 1)], jnbr[2 * (D - 1) + 1]
     )
-    got = torch.as_tensor(mf)
-    for d in range(D - 1):
-        got = sk.halo_axis(got, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
+    got = sk.halo_axes(torch.as_tensor(mf), st.count, st.nbr, g, 0, D - 1)
     got = sk.halo_gblk(got, torch.as_tensor(m), st.nbr[4], st.nbr[5],
                        sk.gravity_step(cfg.dt, cfg.gravity), g, D - 1)
     _close(got.numpy().reshape(A, -1), np.asarray(want).reshape(A, -1), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["count_dtype", "count_shape", "nbr_shape", "pass_range",
+                                 "empty_range"])
+def test_halo_axes_rejects_bad_arguments(bad):
+    r = _reference(2)
+    st, g = r["tst"], r["geom"]
+    x = r["d1"][:, :1].contiguous()
+    args = {"count": st.count, "nbr": st.nbr, "first": 0, "last": 2}
+    if bad == "count_dtype":
+        args["count"] = st.count.long()
+    elif bad == "count_shape":
+        args["count"] = torch.cat([st.count, st.count[:1]])
+    elif bad == "nbr_shape":
+        args["nbr"] = st.nbr[:2].contiguous()
+    elif bad == "pass_range":
+        args["last"] = 3
+    else:
+        args["first"] = args["last"] = 1
+    with pytest.raises(TypeError if bad == "count_dtype" else ValueError):
+        sk.halo_axes(x, args["count"], args["nbr"], g, args["first"], args["last"])
 
 
 def test_wrappers_check_their_inputs():
@@ -204,7 +282,7 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         sk.deposit_p2g1(st.count, st.tid, st.stream[:, :-1].contiguous(), g)
     with pytest.raises(ValueError):
-        sk.halo_axis(r["d1"].transpose(0, 1), st.nbr[0], st.nbr[1], g, 0)
+        sk.halo_axes(r["d1"].transpose(0, 1), st.count, st.nbr, g, 0, 2)
     with pytest.raises(ValueError):
         sk.deposit_p2g1(st.count.to("meta"), st.tid.to("meta"), st.stream.to("meta"), g)
     assert all(v == 0 for v in sk.LAUNCHES.values())  # plain versions count nothing
