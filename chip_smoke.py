@@ -13,15 +13,18 @@ Phases, each printing its own line; any failure raises and exits non-zero:
             100,000); run each of the five stream kernel wrappers and its
             plain PyTorch version on the same card tensors, at the shapes
             the main path gives them; compare and time both with CUDA
-            events.  Both halo launch kinds (mass: CH=1, passes [0, D);
-            m+f: CH=D, passes [0, D-1)) must be bit-equal to the gated
+            events.  Both halo launch kinds (mass: CH=1, passes [0, D), on
+            the main path; m+f: CH=D, passes [0, D-1), on no path since
+            halo_gblk took all D passes) must be bit-equal to the gated
             chain of plain passes, also through the general kernel (a
-            window geometry with E != 2T), and the deposits and the fused
-            collect bit-equal across two launches; the unfused collect and
-            a copy of each halo output's size are timed beside them.  Then
-            the deposits and the fused collect, checked the same way, at
-            3D specs whose blocks need more than 48 KB of shared memory
-            (cap 256; tile 8 at caps 128 and 256)
+            window geometry with E != 2T); halo_gblk matches its plain
+            version (v rows 1e-6 relative, the mass row and the zero-count
+            tiles equal), also at E != 2T; the deposits and the fused
+            collect are bit-equal across two launches; the unfused collect
+            and a copy of each halo output's size are timed beside them.
+            Then the deposits, halo_gblk and the fused collect, checked the
+            same way, at 3D specs whose blocks need more than 48 KB of
+            shared memory (cap 256; tile 8 at caps 128 and 256)
 4. pallas kernels
             the four pallas kernels (p2g1 deposit, force deposit, fused
             p2g2, collect) against their plain versions at the 3D 1M dam
@@ -33,8 +36,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 6. slice    Session(stream, cuda) of the 1M dam, 2 frames (62 substeps,
             re-bins included) with every launch counter reset just before:
             conservation, shell_drop == 0, finite state, the fluid falls
-            (+y is down), every kernel launched, two halo launches per
-            substep; then one substep of stream
+            (+y is down), every kernel launched, one halo_axis (the mass
+            halo) and one halo_gblk launch per substep; then one substep of stream
             against dense from the same state, max |dpos| <= 1e-4
 7. pallas slice
             Session(pallas) of the 1M dam built with no device argument (the
@@ -135,7 +138,10 @@ def stream_bounds(st, g, D: int) -> dict:
     halo has one entry per launch kind: the mass halo (CH = 1, passes
     [0, D)) and the m+f halo (CH = D, passes [0, D-1)), each reading the
     count, the face tables and its occupied input windows (the gate), and
-    adding two terms per pass to every output value."""
+    adding two terms per pass to every output value.  halo_gblk reads the
+    count, the face tables and the occupied m+f and mass windows, writes
+    every grid-value window, and at occupied tiles adds two terms per pass
+    and divides and adds once per v value."""
     A, nc = st.count.shape[0], g.ncell
     valid = int(st.count.sum())
     occ = int((st.count > 0).sum())
@@ -155,7 +161,8 @@ def stream_bounds(st, g, D: int) -> dict:
                     particle_ops("collect", D, valid) + particle_ops("p2g1", D, valid)),
         "halo_mass": halo(1, D),
         "halo_mf": halo(D, D - 1),
-        "halo_gblk": ((A * (1 + D) * nc + A * (1 + D) * nc) * F32 + tiles, 4 * A * D * nc),
+        "halo_gblk": ((occ * (D + 1) * nc + A * (1 + D) * nc + (1 + 2 * D) * A) * F32,
+                      occ * D * nc * (2 * D + 2)),
     }
 
 
@@ -243,17 +250,35 @@ def deposit_params(cfg, device) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
-# the two halo launch kinds of a substep, as (channels, last pass)
+# the two halo launch kinds, as (channels, last pass): the mass halo of the
+# main path, and the m+f halo's first D - 1 passes, on no path since
+# halo_gblk runs all D passes
 HALO_KINDS = {"halo_mass": lambda D: (1, D), "halo_mf": lambda D: (D, D - 1)}
+HALO_ON_PATH = {"halo_mass": True, "halo_mf": False}
+
+
+def check_gblk(got, want, count, what: str) -> float:
+    """halo_gblk against its plain version: the v rows within 1e-6
+    relative, the mass row and the zero-count tiles equal; returns the
+    largest relative error."""
+    D = got.shape[1] - 1
+    rel = float(((got[:, :D] - want[:, :D]).abs() / want[:, :D].abs().clamp_min(1e-30)).max())
+    check(rel <= 1e-6, f"{what} halo_gblk v rows relative err {rel} <= 1e-6")
+    check(torch.equal(got[:, D], want[:, D]), f"{what} halo_gblk mass row equal")
+    empty = count == 0
+    check(int(torch.count_nonzero(got[empty])) == 0 and torch.equal(got[empty], want[empty]),
+          f"{what} halo_gblk zero at the {int(empty.sum())} zero-count tiles")
+    return rel
 
 
 def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D))):
     """Each stream kernel against its plain version on one binned state at
     the main path's shapes: the 3D 1M dam (whose times go into the kernel
     table) and a 2D dam of 100,000 (the D=2 instantiations).  Both halo
-    launch kinds are bit-equal to the gated chain of plain passes; the
-    deposits and the fused collect give bit-equal outputs when launched
-    twice on the same inputs."""
+    launch kinds are bit-equal to the gated chain of plain passes and
+    halo_gblk matches its plain version (check_gblk); the deposits and the
+    fused collect give bit-equal outputs when launched twice on the same
+    inputs."""
     results = {}
     for dim, n in sizes:
         cfg, spec, st, g = stream_state(device, n, dim)
@@ -267,8 +292,7 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
         m1 = d1[:, :1].contiguous()
         m = sk.halo_axes(m1, st.count, nbr, g, 0, D)
         d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
-        x = sk.halo_axes(d2, st.count, nbr, g, 0, D - 1)
-        gblk = sk.halo_gblk(x, m, nbr[2 * D - 2], nbr[2 * D - 1], dtg, g, D - 1)
+        gblk = sk.halo_gblk(d2, m, st.count, nbr, dtg, g)
         halo_in = {"halo_mass": m1, "halo_mf": d2}
         print(f"[kernels] {dim}D n={n} A={spec.A} occupied={int((st.count > 0).sum())} "
               f"need={int(st.need_peak[0])} windows={tuple(d1.shape)} stream={tuple(st.stream.shape)}")
@@ -286,8 +310,8 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
             "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
                              lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6, d1, g)),
             "halo_mf": halo_case("halo_mf"),
-            "halo_gblk": (lambda: sk.halo_gblk(x, m, nbr[2 * D - 2], nbr[2 * D - 1], dtg, g, D - 1),
-                          lambda: sk.halo_gblk_plain(x, m, nbr[2 * D - 2], nbr[2 * D - 1], dtg, g, D - 1)),
+            "halo_gblk": (lambda: sk.halo_gblk(d2, m, st.count, nbr, dtg, g),
+                          lambda: sk.halo_gblk_plain(d2, m, st.count, nbr, dtg, g)),
             "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g, True),
                         lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)),
         }
@@ -330,9 +354,8 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                 extra = f" max|window|={scale:.4e} repeat_bit_equal=True"
             elif name == "halo_gblk":
                 err = float((got - want).abs().max())
-                rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
-                check(rel <= 1e-6, f"{dim}D halo_gblk relative err {rel} <= 1e-6")
-                extra = f" max_rel={rel:.3e}"
+                rel = check_gblk(got, want, st.count, f"{dim}D")
+                extra = f" max_rel={rel:.3e} mass_row_equal=True zero_tiles_equal=True"
             else:
                 CH, last = HALO_KINDS[name](D)
                 err = float((got - want).abs().max())
@@ -340,6 +363,7 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                       "to the gated chain of plain passes")
                 copy_ms = time_ms(lambda: torch.empty_like(got).copy_(got), reps, device)
                 extra = (f" CH={CH} passes=[0,{last}) bit_equal=True"
+                         f"{'' if HALO_ON_PATH[name] else ' (on no path)'}"
                          f" (a copy of the output's size: {copy_ms:.4f} ms)")
             del got, want
             ms = time_ms(kern, reps, device)
@@ -359,20 +383,25 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                               sk.halo_axes_plain(x3, st.count, nbr, g3, 0, last)),
                   f"{dim}D {kind} with E={g3.E} != 2T bit-equal to the gated chain of plain passes")
             del x3
+        x3 = torch.randn((spec.A, D, g3.ncell), generator=gen, device=device)
+        m3 = torch.rand((spec.A, 1, g3.ncell), generator=gen, device=device)
+        m3 = torch.where(m3 < 0.2, 0.0, m3)  # zero-mass cells mixed in
+        rel3 = check_gblk(sk.halo_gblk(x3, m3, st.count, nbr, dtg, g3),
+                          sk.halo_gblk_plain(x3, m3, st.count, nbr, dtg, g3), st.count,
+                          f"{dim}D E={g3.E}")
         print(f"[kernels] {dim}D halo_mass and halo_mf at E={g3.E} != 2T (the general kernel): "
-              f"bit_equal=True  [{card}]")
-        del st, d1, m1, m, d2, x, gblk, halo_in
+              f"bit_equal=True; halo_gblk there: max_rel={rel3:.3e}, mass row and zero tiles "
+              f"equal  [{card}]")
+        del st, d1, m1, m, d2, gblk, halo_in, x3, m3
         torch.cuda.empty_cache()
-    # K4's one row: a substep launches each halo kind once, so its time per
-    # launch on the main path is the mean of the two kinds
-    kinds = [results.pop(kind) for kind in HALO_KINDS]
+    # K4's one row is the kind the main path launches (the mass halo, once
+    # per substep); both kinds stand under "kinds"
+    kinds = {kind: results.pop(kind) for kind in HALO_KINDS}
     results["halo_axis"] = {
-        "max_abs_err": max(k["max_abs_err"] for k in kinds),
-        **{key: sum(k[key] for k in kinds) / 2 for key in ("ms", "plain_ms", "bound_ms")},
-        "bound_by": "bytes" if all(k["bound_by"] == "bytes" for k in kinds) else "operations",
-        "library_ms": None,
-        "kinds": {kind: {key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
-                  for kind, k in zip(HALO_KINDS, kinds)},
+        **kinds["halo_mass"],
+        "kinds": {kind: {**{key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                         "on_path": HALO_ON_PATH[kind]}
+                  for kind, k in kinds.items()},
     }
     return results
 
@@ -385,9 +414,11 @@ DEPOSIT_GEOMETRIES = ((4, 256, 1), (8, 128, 8), (8, 256, 4))
 
 
 def phase_deposit_geometries(device, card: str, n: int = 200_000):
-    """K1, K2 and the fused K3 against their plain versions, at the
-    tolerances of phase_kernels and bit-equal across two launches, at the
-    specs of DEPOSIT_GEOMETRIES: their launches opt into the larger block."""
+    """K1, K2, K5 and the fused K3 against their plain versions, at the
+    tolerances of phase_kernels, the deposits and K3 bit-equal across two
+    launches, at the specs of DEPOSIT_GEOMETRIES: the deposit and collect
+    launches opt into the larger block, and tile 8 (E = 12 != 2T) takes
+    the general halo_gblk kernel."""
     for tile, cap, keep in DEPOSIT_GEOMETRIES:
         cfg, spec, st, g = stream_state(device, n, 3, tile=tile, cap=cap, keep=keep)
         params6 = deposit_params(cfg, device)
@@ -395,9 +426,10 @@ def phase_deposit_geometries(device, card: str, n: int = 200_000):
         d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
         m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g, 0, 3)
         d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
-        x = sk.halo_axes(d2, st.count, st.nbr, g, 0, 2)
-        gblk = sk.halo_gblk(x, m, st.nbr[4], st.nbr[5], sk.gravity_step(cfg.dt, cfg.gravity), g, 2)
+        dtg = sk.gravity_step(cfg.dt, cfg.gravity)
+        gblk = sk.halo_gblk(d2, m, st.count, st.nbr, dtg, g)
         what = f"3D T={tile} E={g.E} cap={cap}"
+        rel = check_gblk(gblk, sk.halo_gblk_plain(d2, m, st.count, st.nbr, dtg, g), st.count, what)
         for name, got, want in (
                 ("deposit_p2g1", d1, sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
                 ("deposit_p2g2", d2, sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6,
@@ -421,8 +453,8 @@ def phase_deposit_geometries(device, card: str, n: int = 200_000):
         print(f"[kernels] {what} A={spec.A} occupied={int((st.count > 0).sum())} "
               f"max count={int(st.count.max())}: deposit_p2g1, deposit_p2g2 and the fused "
               f"collect agree with plain (rows {rows:.3e}, p2g1 {dep:.3e} of {scale:.3e}) and "
-              f"repeat bit-equal  [{card}]")
-        del st, d1, m, d2, x, gblk, got, want, again
+              f"repeat bit-equal; halo_gblk max_rel={rel:.3e}, mass row and zero tiles equal  [{card}]")
+        del st, d1, m, d2, gblk, got, want, again
         torch.cuda.empty_cache()
 
 
@@ -570,8 +602,8 @@ def phase_slice(device, n: int, card: str, frames: int = 2):
     launches = dict(sk.LAUNCHES)
     check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
     steps = frames * cfg.iterations
-    check(launches["halo_axis"] == 2 * steps,
-          f"one mass and one m+f halo launch per substep: {launches['halo_axis']} == 2 x {steps}")
+    check(launches["halo_axis"] == steps and launches["halo_gblk"] == steps,
+          f"one mass halo and one halo_gblk launch per substep: {launches} vs {steps} substeps")
     check(sess.live_count() == n, "conservation")
     check(sess.shell_drop() == 0, "shell_drop == 0")
     q = sess.particles()

@@ -5,9 +5,11 @@
 //   deposit_kernel<D, P2G2=false>  make_deposit_kernel(mode="p2g1")   (:676)
 //   deposit_kernel<D, P2G2=true>   make_deposit_kernel(mode="p2g2")   (:676)
 //   collect_kernel<D, FUSED>       make_collect_kernel(fused_p2g1)    (:1163)
-//   halo_axes_kernel<NP, CH>       _make_halo_axis, NP passes chained (:2006)
-//     (halo_axes_any_kernel<NP> for E != 2T and other pass/channel counts)
-//   halo_gblk_kernel               _make_halo_gblk                    (:1882)
+//   halo_axes_kernel<NP, CH, false>  _make_halo_axis, NP passes chained (:2006)
+//   halo_axes_kernel<D, D, true>     _make_halo_gblk (:1882) with the D - 1
+//                                    _make_halo_axis passes ahead of it
+//     (halo_axes_any_kernel<NP, GBLK> for E != 2T and other pass/channel
+//     counts)
 //
 // Layouts (tile-major; A active tiles, slots per tile cap, window E = T+2h):
 //   stream [A, F, cap]  fields as rows, so thread j reading slot j of a field
@@ -23,7 +25,8 @@
 // host never reads a count to size a grid.  Deposits scatter each particle's
 // 3^D taps, one lane per tap, into a tile window in shared memory, one
 // particle after the other in slot order: no float atomics, every cell sums
-// its particles in slot order, so every launch sums alike and a replayed
+// its particles in slot order (p2g2: two slot ranges, each in slot order,
+// then added in a fixed order), so every launch sums alike and a replayed
 // snapshot is bit-identical.  Build with -fmad=false: every product and sum
 // is rounded on its own, in the order of the plain PyTorch versions in
 // ops/stream_kernels.py, which the on-card check compares against (the
@@ -202,19 +205,25 @@ __device__ __forceinline__ void window_coords(int e, const Geom& g, int* ec) {
 // that deposits (a cell-owner scan, each cell testing every particle of the
 // tile, hits ~5% of its tests).  Then the window is written out, each
 // output cell once.
+// SPLIT > 1 cuts the walk into SPLIT consecutive slot ranges of
+// ceil(cnt / SPLIT) particles, each with its own partial window (SPLIT x CH
+// virtual channels, part-major, one warp each in 3D), and the write-out
+// sums a cell's parts in part order: ((part 0 + part 1) + ..) + d1.  The
+// order is fixed, so every launch still sums alike.
 // p2g1: CH = 1 + D channels, mass w*m and APIC momentum w*m*(v + C dpos).
 // p2g2: CH = D force channels w*(term dpos), plus the tile's p2g1 momentum
 //       rows d1[1..D] (the fused m+f add).
 // dpos = (o - 1) - dvec is the tap's cell centre minus the particle.
-template <int D, bool P2G2>
+template <int D, bool P2G2, int SPLIT = 1>
 __device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt, float* win,
                                float* __restrict__ out, const float* __restrict__ d1) {
   constexpr int CH = P2G2 ? D : 1 + D;
+  constexpr int NV = SPLIT * CH;      // (part, channel) windows
   constexpr int K = D == 3 ? 27 : 9;  // taps
   constexpr int G = 32 / K;           // channels per warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarp = blockDim.x >> 5;
-  for (int i = threadIdx.x; i < CH * g.wch; i += blockDim.x) win[i] = 0.0f;
+  for (int i = threadIdx.x; i < NV * g.wch; i += blockDim.x) win[i] = 0.0f;
   __syncthreads();
 
   const int k = lane % K, sub = lane / K;
@@ -228,14 +237,17 @@ __device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt, float
       tap += o[d] * g.wstride[d];
     }
   }
-  for (int c0 = warp * G; c0 < CH; c0 += nwarp * G) {  // uniform over the warp
-    const int c = c0 + sub;
-    const bool on = sub < G && c < CH;
-    float* wc = win + c * g.wch + tap;
+  const int steps = (cnt + SPLIT - 1) / SPLIT;  // particles per part
+  for (int v0 = warp * G; v0 < NV; v0 += nwarp * G) {  // uniform over the warp
+    const int vc = v0 + sub;
+    const bool on = sub < G && vc < NV;
+    const int c = vc % CH, first = vc / CH * steps;
+    const int len = cnt - first < steps ? cnt - first : steps;  // this part's particles
+    float* wc = win + vc * g.wch + tap;
     const int i = P2G2 ? c : c - 1;  // the row of C (and v) this lane's channel reads
-    // this lane's value of particle s and the cell it lands in
+    // this lane's value of particle first + s and the cell it lands in
     auto tap_value = [&](int s, int* cell) {
-      const float4* r = sh.q + s * Stage<D>::RQ;
+      const float4* r = sh.q + (first + s) * Stage<D>::RQ;
       const float* rw = reinterpret_cast<const float*>(r) + Stage<D>::W;
       const float4 q0 = r[0];
       float w = rw[o[0]];
@@ -249,22 +261,23 @@ __device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt, float
       for (int j = 1; j < D; ++j) f = f + comp(qi, j) * dpos[j];
       return P2G2 ? w * f : (w * comp(q0, D)) * (comp(qi, D) + f);
     };
-    // two particles' values at a time, their adds in slot order
+    // two particles' values at a time, their adds in slot order; the parts
+    // differ in length by at most one, so the warp steps together
     int s = 0;
-    for (; s + 1 < cnt; s += 2) {
+    for (; s + 1 < steps; s += 2) {
+      const bool on0 = on && (SPLIT == 1 || s < len);
+      const bool on1 = on && (SPLIT == 1 || s + 1 < len);
       int cell0 = 0, cell1 = 0;
       float val0 = 0.0f, val1 = 0.0f;
-      if (on) {
-        val0 = tap_value(s, &cell0);
-        val1 = tap_value(s + 1, &cell1);
-        wc[cell0] = wc[cell0] + val0;
-      }
+      if (on0) val0 = tap_value(s, &cell0);
+      if (on1) val1 = tap_value(s + 1, &cell1);
+      if (on0) wc[cell0] = wc[cell0] + val0;
       __syncwarp();
-      if (on) wc[cell1] = wc[cell1] + val1;
+      if (on1) wc[cell1] = wc[cell1] + val1;
       __syncwarp();
     }
-    if (s < cnt) {
-      if (on) {
+    if (s < steps) {
+      if (on && (SPLIT == 1 || s < len)) {
         int cell;
         const float val = tap_value(s, &cell);
         wc[cell] = wc[cell] + val;
@@ -279,7 +292,9 @@ __device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt, float
     window_coords<D>(i - c * g.ncell, g, ec);
     int cell = c * g.wch;
     for (int d = 0; d < D; ++d) cell += ec[d] * g.wstride[d];
-    out[i] = P2G2 ? win[cell] + d1[g.ncell + i] : win[cell];
+    float acc = win[cell];
+    for (int p = 1; p < SPLIT; ++p) acc = acc + win[p * CH * g.wch + cell];
+    out[i] = P2G2 ? acc + d1[g.ncell + i] : acc;
   }
 }
 
@@ -294,15 +309,26 @@ __device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt, float
 // 80GB HBM3 (700 W), chip_smoke.py measured 0.70 ms for each mode with a
 // cell-owner scan as the deposit (5.5-7x the byte bound) and 0.30 ms (p2g1)
 // and 0.32 ms (p2g2) with the tap-parallel deposit, ~3x the byte bound: the
-// limit is now the serial walk over a tile's ~57 particles in each warp.
+// limit is the serial walk over a tile's ~57 particles in each warp.
 // Every intermediate (stencils, values, the window) stays in shared memory
 // and each output cell is written once, with no atomics.
 //
 // p2g2 additionally gathers each particle's density from the halo'd mass
 // window (3^D taps), then its Tait pressure (with the floor), volume and
 // eq-16 term -4 dt V (-p I + mu (C + C^T)), which it stages as the
-// record's C rows.
+// record's C rows.  Its walk is split in two (P2G2_SPLIT): a warp per
+// channel and half of the tile's particles, six warps in 3D (192 threads,
+// block_threads), each into its own partial window.  Measured at the 1M
+// shape (same card, chip_smoke.py): 0.311-0.313 ms against 0.318-0.320 ms
+// for one warp per channel, not the halving a walk of half the length
+// would give: the walk is bound by the instructions the SM issues, not by
+// the length of one warp's walk, and the split issues as many.  A lane
+// depositing its tap into all D channels, with one warp per half, issues
+// fewer but hides less latency (0.37-0.39 ms); a copy of the mass window
+// in shared memory for the gather was slower with the split.
 // params: [dt, rest_density, eos_stiffness, eos_power, pressure_floor, mu].
+constexpr int P2G2_SPLIT = 2;
+
 template <int D, bool P2G2>
 __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
                                const int* __restrict__ tidv,
@@ -356,8 +382,9 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
     }
   }
   __syncthreads();
-  deposit_window<D, P2G2>(sh, g, cnt, smem + Stage<D>::words_per_slot() * cap, tile_out,
-                          P2G2 ? d1 + static_cast<int64_t>(a) * (1 + D) * g.ncell : nullptr);
+  deposit_window<D, P2G2, P2G2 ? P2G2_SPLIT : 1>(
+      sh, g, cnt, smem + Stage<D>::words_per_slot() * cap, tile_out,
+      P2G2 ? d1 + static_cast<int64_t>(a) * (1 + D) * g.ncell : nullptr);
 }
 
 // collect_kernel — replaces make_collect_kernel (stream_transfer.py:1163).
@@ -493,9 +520,17 @@ struct HaloLevels {
   int sh[3];          // per level: T * that stride
 };
 
+// The grid update that halo_gblk applies to the m+f halo sums of a cell:
+// v_c = mf_c / m + dtg_c where m > 0, else 0, then the mass row m.
+struct GridUpdate {
+  const float* hs_m;  // halo'd mass windows [A, 1, E^D]
+  float dtg[3];       // dt * gravity, per axis
+};
+
 // Resolves the leaf routes of tiles [a0, a0 + tpb) through the face tables
 // nbr [2D, A] into shared memory, [tpb][3^NP]: a route through a missing
 // neighbour, or ending at a zero-count tile (the occupancy gate), is A.
+// Leaf 0 is the tile itself: A there means the tile holds no particle.
 template <int NP>
 __device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ count,
                                             const int* __restrict__ nbr, int A, int first,
@@ -524,9 +559,10 @@ __device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ 
 // zero-count tile's window is read.
 //
 // Layout: 128 threads per block over `tpb` tiles of 2048 cells in all (3D:
-// four tiles, 2D: thirty-two), in rounds of four cells per thread, CH
-// channels: a thread issues the 4 x CH x 2^NP leaf loads of a round before
-// its first add, so it waits on memory once per round.  The block first
+// four tiles, 2D: thirty-two), in rounds of CPT cells per thread (four; two
+// where CH x 2^NP passes 16), CH channels: a thread issues the
+// CPT x CH x 2^NP leaf loads of a round before its first add, so it waits
+// on memory once per round.  The block first
 // resolves its tiles' routes into shared memory (halo_routes), so no
 // thread walks the tables, and the dependent table reads of four tiles
 // overlap (with fewer tiles per block the route reads stay exposed, with
@@ -543,19 +579,46 @@ __device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ 
 // separate launch per pass took 0.35 ms and 0.63 ms, and a copy of the
 // output's size 0.05 ms and 0.14 ms.  The mass launch waits on its routes
 // (three dependent table reads per tile) more than on bytes.
-template <int NP, int CH>
+//
+// halo_axes_kernel<D, D, true> (GBLK) — replaces _make_halo_gblk
+// (stream_transfer.py:1882) with the D - 1 _make_halo_axis passes ahead of
+// it, as the port's halo_gblk: all D
+// passes of the m+f halo (NP = CH = D) and the grid update as an epilogue
+// before the one write, grid-value windows [A, 1+D, E^D] (the D v rows,
+// then the halo'd mass).  A tile with count 0 writes zeros and reads no
+// window; a block of such tiles (the tail of the occupied-first order)
+// writes its zeros and returns before resolving routes.  Bound: bytes,
+// the occupied m+f and mass windows read once and every output window
+// written once: 108 + 36 + 268 MB at the 1M shape, 0.123 ms.  The two
+// launches it replaces (the D-1-pass m+f halo, then the last pass fused
+// with the update by one thread per output value, 64-bit index divisions
+// and every tile) wrote and read back the 201 MB of m+f windows in
+// between: 0.17 + 0.40 ms, where this launch measured 0.23 ms (same card,
+// chip_smoke.py).
+template <int NP, int CH, bool GBLK>
 __global__ void __launch_bounds__(128) halo_axes_kernel(
     const float* __restrict__ x, const int* __restrict__ count, const int* __restrict__ nbr,
     float* __restrict__ out, int A, int ncell, int E, int T, int first, int tpb, FastDiv divN,
-    FastDiv divE, HaloLevels lv) {
+    FastDiv divE, HaloLevels lv, GridUpdate up) {
   extern __shared__ int route[];  // [tpb][3^NP]
-  constexpr int K = pow3(NP), B = 1 << NP, CPT = 4;
+  constexpr int K = pow3(NP), B = 1 << NP, CPT = CH * B > 16 ? 2 : 4;
   const int a0 = blockIdx.x * tpb;
+  const int row = CH * ncell;  // element offsets fit 32 bits (checked at launch)
+  const int orow = GBLK ? row + ncell : row;
+  if (GBLK) {
+    bool live = false;
+    for (int j = threadIdx.x; j < tpb; j += blockDim.x) live |= a0 + j < A && count[a0 + j] > 0;
+    if (!__syncthreads_or(live)) {
+      const int n = (A - a0 < tpb ? A - a0 : tpb) * orow;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) out[a0 * orow + i] = 0.0f;
+      return;
+    }
+  }
   halo_routes<NP>(route, count, nbr, A, first, tpb, a0);
   __syncthreads();
-  const int row = CH * ncell;  // element offsets fit 32 bits (checked at launch)
   for (int base = 0; base < tpb * ncell; base += CPT * 128) {
     float v[CPT][CH][B];
+    float m[CPT];    // GBLK: the cell's halo'd mass
     int minus[CPT];  // bit l: the level-l neighbour is the - one
     bool ok[CPT];
 #pragma unroll
@@ -570,23 +633,26 @@ __global__ void __launch_bounds__(128) halo_axes_kernel(
 #pragma unroll
       for (int l = 0; l < NP; ++l) {
         const int q = div_by(e, lv.stride[l]);
-        const bool m = q - div_by(q, divE) * E < E - T;
-        mbits |= m ? 1 << l : 0;
+        const bool mk = q - div_by(q, divE) * E < E - T;
+        mbits |= mk ? 1 << l : 0;
 #pragma unroll
         for (int b = 0; b < B; ++b) {
           if (b & (1 << l)) {
-            off[b] += m ? lv.sh[l] : -lv.sh[l];
-            leaf[b] += (m ? 2 : 1) * digit;
+            off[b] += mk ? lv.sh[l] : -lv.sh[l];
+            leaf[b] += (mk ? 2 : 1) * digit;
           }
         }
         digit *= 3;
       }
       minus[u] = mbits;
       const int* rt = route + (ok[u] ? j : 0) * K;
+      // GBLK: a zero-count tile reads nothing (its own route is A)
+      const bool live = ok[u] && (!GBLK || rt[0] < A);
+      if (GBLK) m[u] = live ? up.hs_m[(a0 + j) * ncell + e] : 0.0f;
 #pragma unroll
       for (int b = 0; b < B; ++b) {
         const int t = rt[leaf[b]];
-        const bool on = ok[u] && t < A;
+        const bool on = live && t < A;
 #pragma unroll
         for (int c = 0; c < CH; ++c) v[u][c][b] = on ? x[t * row + c * ncell + e + off[b]] : 0.0f;
       }
@@ -597,17 +663,23 @@ __global__ void __launch_bounds__(128) halo_axes_kernel(
       for (int c = 0; c < CH; ++c) {
 #pragma unroll
         for (int l = 0; l < NP; ++l) {  // first pass first; pairs differ in bit l
-          const bool m = minus[u] & (1 << l);
+          const bool mk = minus[u] & (1 << l);
 #pragma unroll
           for (int b = 0; b < (B >> (l + 1)); ++b) {
             const float own = v[u][c][2 * b], nb = v[u][c][2 * b + 1];
-            v[u][c][b] = m ? (own + 0.0f) + nb : (own + nb) + 0.0f;
+            v[u][c][b] = mk ? (own + 0.0f) + nb : (own + nb) + 0.0f;
           }
         }
         if (ok[u]) {
           const int it = base + u * 128 + threadIdx.x;
           const int j = div_by(it, divN);
-          out[(a0 + j) * row + c * ncell + it - j * ncell] = v[u][c][0];
+          const int o = (a0 + j) * orow + c * ncell + it - j * ncell;
+          if (GBLK) {
+            out[o] = m[u] > 0.0f ? v[u][c][0] / m[u] + up.dtg[c] : 0.0f;
+            if (c == CH - 1) out[o + ncell] = m[u];  // the mass row
+          } else {
+            out[o] = v[u][c][0];
+          }
         }
       }
     }
@@ -616,7 +688,7 @@ __global__ void __launch_bounds__(128) halo_axes_kernel(
 
 // The same passes for any other window geometry (E != 2T, where a level
 // may add both neighbours or neither) or channel count: one cell at a time,
-// the tree walked recursively over all 3^NP leaves.
+// the tree walked recursively over all 3^NP leaves; GBLK as above.
 struct HaloCell {
   const float* x;    // input rows at this thread's channel
   const int* route;  // the tile's leaf tiles [3^NP] (shared), A = reads 0
@@ -641,11 +713,11 @@ __device__ __forceinline__ float halo_tree(const HaloCell& c, int node, int e) {
   }
 }
 
-template <int NP>
+template <int NP, bool GBLK>
 __global__ void __launch_bounds__(128) halo_axes_any_kernel(
     const float* __restrict__ x, const int* __restrict__ count, const int* __restrict__ nbr,
     float* __restrict__ out, int A, int CH, int ncell, int E, int T, int first, int tpb,
-    FastDiv divN, FastDiv divE, HaloLevels lv) {
+    FastDiv divN, FastDiv divE, HaloLevels lv, GridUpdate up) {
   extern __shared__ int route[];  // [tpb][3^NP]
   constexpr int K = pow3(NP);
   const int a0 = blockIdx.x * tpb;
@@ -667,63 +739,16 @@ __global__ void __launch_bounds__(128) halo_axes_any_kernel(
       c.ek[l] = q - div_by(q, divE) * E;
       c.sh[l] = lv.sh[l];
     }
-    float* o = out + a * c.row + e;
+    const bool live = !GBLK || c.route[0] < A;
+    const float m = GBLK && live ? up.hs_m[static_cast<int64_t>(a) * ncell + e] : 0.0f;
+    float* o = out + a * (c.row + (GBLK ? ncell : 0)) + e;
     for (int ch = 0; ch < CH; ++ch) {
       c.x = x + ch * ncell;
-      o[ch * ncell] = halo_tree<NP>(c, 0, e);
+      const float mf = live ? halo_tree<NP>(c, 0, e) : 0.0f;
+      o[ch * ncell] = GBLK ? (m > 0.0f ? mf / m + up.dtg[ch] : 0.0f) : mf;
     }
+    if (GBLK) o[CH * ncell] = m;
   }
-}
-
-// One pass along an axis (halo_pull's order, (own + plus) + minus, 0.0f
-// where masked) for the last m+f pass, fused into halo_gblk_kernel.
-__device__ __forceinline__ float halo_sum(const float* __restrict__ x,
-                                          const int* __restrict__ nbp,
-                                          const int* __restrict__ nbm,
-                                          int64_t i, int A, int L, int ncell,
-                                          int E, int T, int lstride) {
-  const int a = static_cast<int>(i / L);
-  const int l = static_cast<int>(i - static_cast<int64_t>(a) * L);
-  const int e_d = ((l % ncell) / lstride) % E;
-  const int shift = T * lstride;
-  const int p = nbp[a];
-  const int m = nbm[a];
-  float acc = x[i];
-  const float yp = (e_d >= T && p < A) ? x[static_cast<int64_t>(p) * L + l - shift] : 0.0f;
-  acc = acc + yp;
-  const float ym = (e_d < E - T && m < A) ? x[static_cast<int64_t>(m) * L + l + shift] : 0.0f;
-  acc = acc + ym;
-  return acc;
-}
-
-// halo_gblk_kernel — replaces _make_halo_gblk (stream_transfer.py:1882):
-// the last m+f halo pass fused with the grid update, v = mf/m + dt g where
-// m > 0, else 0; emits the grid-value window [A, 1+D, E^D] (v rows, then the
-// halo'd mass).  Bound: like a halo pass plus one mass read and the mass
-// row written again, ~1 GB per call at 32,768 tiles in 3D by the layout;
-// measured 0.40 ms there on an NVIDIA H100 80GB HBM3 (700 W).  The fusion
-// saves the separate grid-update pass over the windows.
-__global__ void halo_gblk_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ hs_m,
-                                 const int* __restrict__ nbp,
-                                 const int* __restrict__ nbm,
-                                 float* __restrict__ out, int A, int D,
-                                 int ncell, int E, int T, int lstride,
-                                 float dtg0, float dtg1, float dtg2) {
-  const int L = D * ncell;
-  const int64_t total = static_cast<int64_t>(A) * L;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const float mf = halo_sum(x, nbp, nbm, i, A, L, ncell, E, T, lstride);
-  const int a = static_cast<int>(i / L);
-  const int l = static_cast<int>(i - static_cast<int64_t>(a) * L);
-  const int c = l / ncell;
-  const int e = l - c * ncell;
-  const float m = hs_m[static_cast<int64_t>(a) * ncell + e];
-  const float dtg = c == 0 ? dtg0 : (c == 1 ? dtg1 : dtg2);
-  float* tile = out + static_cast<int64_t>(a) * (1 + D) * ncell;
-  tile[c * ncell + e] = m > 0.0f ? mf / m + dtg : 0.0f;
-  if (c == 0) tile[D * ncell + e] = m;
 }
 
 Geom make_geom(int dim, int A, int T, int h, int cap, const int* tshape, const int* origin) {
@@ -754,31 +779,86 @@ Geom make_geom(int dim, int A, int T, int h, int cap, const int* tshape, const i
 }
 
 // Dynamic shared memory of a deposit or collect block: the stage, then the
-// deposit window.
+// deposit window of `nwin` channels (p2g2: its P2G2_SPLIT partial windows).
 template <int D>
-size_t block_bytes(const Geom& g) {
-  return (static_cast<size_t>(Stage<D>::words_per_slot()) * g.cap + (1 + D) * g.wch) *
+size_t block_bytes(const Geom& g, int nwin) {
+  return (static_cast<size_t>(Stage<D>::words_per_slot()) * g.cap + nwin * g.wch) *
          sizeof(float);
 }
 
-// Launches a deposit or collect kernel, one block of cap threads per tile,
-// with `smem` bytes of dynamic shared memory.  Past the 48 KB a launch gets
-// by default (3D at cap = 256, or wider windows) the kernel is first opted
-// into its size; a size the card cannot give returns that call's error.
+// Threads of a deposit or collect block: one per slot, and for p2g2 at
+// least one warp per (part, channel) window of its walk.
+template <int D>
+int block_threads(const Geom& g, bool p2g2) {
+  constexpr int G = 32 / (D == 3 ? 27 : 9);  // channels per warp
+  const int warps = (P2G2_SPLIT * D + G - 1) / G;
+  return p2g2 && 32 * warps > g.cap ? 32 * warps : g.cap;
+}
+
+// Launches a deposit or collect kernel, one block per tile, with `smem`
+// bytes of dynamic shared memory.  Past the 48 KB a launch gets by default
+// (3D at cap = 256, or wider windows) the kernel is first opted into its
+// size; a size the card cannot give returns that call's error.
 template <typename... P, typename... Args>
-int launch_tiles(void (*kernel)(Geom, P...), const Geom& g, size_t smem, cudaStream_t st,
-                 Args... args) {
+int launch_tiles(void (*kernel)(Geom, P...), const Geom& g, int threads, size_t smem,
+                 cudaStream_t st, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<g.A, g.cap, smem, st>>>(g, args...);
+  kernel<<<g.A, threads, smem, st>>>(g, args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-unsigned int flat_blocks(int64_t total, int threads) {
-  return static_cast<unsigned int>((total + threads - 1) / threads);
+// Halo passes [first, last) over windows [A, CH, E^dim] in one launch of
+// halo_axes_kernel (E = 2T, the substep's (passes, channels) pairs) or
+// halo_axes_any_kernel (every other call); GBLK with the grid update.
+template <bool GBLK>
+int launch_halo(const float* x, const int* count, const int* nbr, float* out, int A, int CH,
+                int dim, int E, int T, int first, int last, GridUpdate up, cudaStream_t st) {
+  if (dim < 2 || dim > 3 || first < 0 || first >= last || last > dim || CH < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int ncell = 1;
+  for (int d = 0; d < dim; ++d) ncell *= E;
+  if (static_cast<int64_t>(A) * (GBLK ? CH + 1 : CH) * ncell >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tpb = ncell >= 2048 ? 1 : 2048 / ncell;  // tiles per block
+  const int threads = 128;
+  const unsigned int blocks = static_cast<unsigned int>((A + tpb - 1) / tpb);
+  HaloLevels lv;
+  for (int l = 0; l < 3; ++l) {
+    int stride = 1;
+    for (int d = first + l + 1; d < dim; ++d) stride *= E;
+    lv.stride[l] = fast_div(stride);
+    lv.sh[l] = T * stride;
+  }
+  const FastDiv divN = fast_div(ncell), divE = fast_div(E);
+  const size_t smem = static_cast<size_t>(tpb) * pow3(last - first) * sizeof(int);
+  const int NP = last - first;
+#define HALO_AXES(np, ch)                                                                   \
+  if (E == 2 * T && NP == np && CH == ch) {                                                 \
+    halo_axes_kernel<np, ch, GBLK><<<blocks, threads, smem, st>>>(                          \
+        x, count, nbr, out, A, ncell, E, T, first, tpb, divN, divE, lv, up);                \
+    return static_cast<int>(cudaGetLastError());                                            \
+  }
+#define HALO_ANY(np)                                                                        \
+  if (NP == np)                                                                             \
+    halo_axes_any_kernel<np, GBLK><<<blocks, threads, smem, st>>>(                          \
+        x, count, nbr, out, A, CH, ncell, E, T, first, tpb, divN, divE, lv, up);
+  if constexpr (GBLK) {
+    // the m+f halo of all D passes (CH = D), in 3D and in 2D
+    HALO_AXES(3, 3) HALO_AXES(2, 2)
+    HALO_ANY(2) HALO_ANY(3)
+  } else {
+    // the mass halo (D passes, CH = 1), and the m+f halo's first D - 1
+    // passes (CH = D), the two-launch form of halo_gblk: on no path
+    HALO_AXES(3, 1) HALO_AXES(2, 3) HALO_AXES(2, 1) HALO_AXES(1, 2)
+    HALO_ANY(1) HALO_ANY(2) HALO_ANY(3)
+  }
+#undef HALO_AXES
+#undef HALO_ANY
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -793,13 +873,13 @@ int fluid_deposit(int dim, int mode, const int* count, const int* tid,
   const Geom g = make_geom(dim, A, T, h, cap, tshape, origin);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   if (dim == 2 && mode == 1)
-    return launch_tiles(deposit_kernel<2, false>, g, block_bytes<2>(g), st, count, tid, stream, hs_m, d1, params, out);
+    return launch_tiles(deposit_kernel<2, false>, g, g.cap, block_bytes<2>(g, 3), st, count, tid, stream, hs_m, d1, params, out);
   if (dim == 2 && mode == 2)
-    return launch_tiles(deposit_kernel<2, true>, g, block_bytes<2>(g), st, count, tid, stream, hs_m, d1, params, out);
+    return launch_tiles(deposit_kernel<2, true>, g, block_threads<2>(g, true), block_bytes<2>(g, P2G2_SPLIT * 2), st, count, tid, stream, hs_m, d1, params, out);
   if (dim == 3 && mode == 1)
-    return launch_tiles(deposit_kernel<3, false>, g, block_bytes<3>(g), st, count, tid, stream, hs_m, d1, params, out);
+    return launch_tiles(deposit_kernel<3, false>, g, g.cap, block_bytes<3>(g, 4), st, count, tid, stream, hs_m, d1, params, out);
   if (dim == 3 && mode == 2)
-    return launch_tiles(deposit_kernel<3, true>, g, block_bytes<3>(g), st, count, tid, stream, hs_m, d1, params, out);
+    return launch_tiles(deposit_kernel<3, true>, g, block_threads<3>(g, true), block_bytes<3>(g, P2G2_SPLIT * 3), st, count, tid, stream, hs_m, d1, params, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -810,69 +890,32 @@ int fluid_collect(int dim, int fused, const int* count, const int* tid,
   const Geom g = make_geom(dim, A, T, h, cap, tshape, origin);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   if (dim == 2 && !fused)
-    return launch_tiles(collect_kernel<2, false>, g, 0, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+    return launch_tiles(collect_kernel<2, false>, g, g.cap, 0, st, count, tid, params, stream, gblk, out_stream, flag, dep);
   if (dim == 2 && fused)
-    return launch_tiles(collect_kernel<2, true>, g, block_bytes<2>(g), st, count, tid, params, stream, gblk, out_stream, flag, dep);
+    return launch_tiles(collect_kernel<2, true>, g, g.cap, block_bytes<2>(g, 3), st, count, tid, params, stream, gblk, out_stream, flag, dep);
   if (dim == 3 && !fused)
-    return launch_tiles(collect_kernel<3, false>, g, 0, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+    return launch_tiles(collect_kernel<3, false>, g, g.cap, 0, st, count, tid, params, stream, gblk, out_stream, flag, dep);
   if (dim == 3 && fused)
-    return launch_tiles(collect_kernel<3, true>, g, block_bytes<3>(g), st, count, tid, params, stream, gblk, out_stream, flag, dep);
+    return launch_tiles(collect_kernel<3, true>, g, g.cap, block_bytes<3>(g, 4), st, count, tid, params, stream, gblk, out_stream, flag, dep);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Halo passes [first, last) over windows [A, CH, E^dim], in one launch.
 int fluid_halo_axes(const float* x, const int* count, const int* nbr, float* out, int A,
                     int CH, int dim, int E, int T, int first, int last, void* cuda_stream) {
-  if (dim < 2 || dim > 3 || first < 0 || first >= last || last > dim || CH < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int ncell = 1;
-  for (int d = 0; d < dim; ++d) ncell *= E;
-  if (static_cast<int64_t>(A) * CH * ncell >= (int64_t{1} << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int tpb = ncell >= 2048 ? 1 : 2048 / ncell;  // tiles per block
-  const int threads = 128;
-  const unsigned int blocks = static_cast<unsigned int>((A + tpb - 1) / tpb);
-  HaloLevels lv;
-  for (int l = 0; l < 3; ++l) {
-    int stride = 1;
-    for (int d = first + l + 1; d < dim; ++d) stride *= E;
-    lv.stride[l] = fast_div(stride);
-    lv.sh[l] = T * stride;
-  }
-  const FastDiv divN = fast_div(ncell), divE = fast_div(E);
-  const size_t smem = static_cast<size_t>(tpb) * pow3(last - first) * sizeof(int);
-  cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  const int NP = last - first;
-  // The substep's (passes, channels) pairs at E = 2T: the mass halo (D, 1)
-  // and the m+f halo (D - 1, D), in 3D and in 2D.  Every other call takes
-  // the general kernel.
-#define HALO_AXES(np, ch)                                                                 \
-  if (E == 2 * T && NP == np && CH == ch) {                                               \
-    halo_axes_kernel<np, ch><<<blocks, threads, smem, st>>>(x, count, nbr, out, A, ncell, \
-                                                            E, T, first, tpb, divN, divE, lv); \
-    return static_cast<int>(cudaGetLastError());                                          \
-  }
-  HALO_AXES(3, 1) HALO_AXES(2, 3) HALO_AXES(2, 1) HALO_AXES(1, 2)
-#undef HALO_AXES
-#define HALO_ANY(np)                                                                        \
-  if (NP == np)                                                                             \
-    halo_axes_any_kernel<np><<<blocks, threads, smem, st>>>(x, count, nbr, out, A, CH, ncell, \
-                                                            E, T, first, tpb, divN, divE, lv);
-  HALO_ANY(1) HALO_ANY(2) HALO_ANY(3)
-#undef HALO_ANY
-  return static_cast<int>(cudaGetLastError());
+  return launch_halo<false>(x, count, nbr, out, A, CH, dim, E, T, first, last,
+                            GridUpdate{nullptr, {0.0f, 0.0f, 0.0f}},
+                            static_cast<cudaStream_t>(cuda_stream));
 }
 
-int fluid_halo_gblk(const float* x, const float* hs_m, const int* nbp,
-                    const int* nbm, float* out, int A, int D, int ncell, int E,
-                    int T, int lstride, float dtg0, float dtg1, float dtg2,
-                    void* cuda_stream) {
-  const int threads = 256;
-  const int64_t total = static_cast<int64_t>(A) * D * ncell;
-  halo_gblk_kernel<<<flat_blocks(total, threads), threads, 0,
-                     static_cast<cudaStream_t>(cuda_stream)>>>(x, hs_m, nbp, nbm, out, A, D, ncell, E, T, lstride,
-                                                               dtg0, dtg1, dtg2);
-  return static_cast<int>(cudaGetLastError());
+// The whole m+f halo (passes [0, dim), CH = dim) and the grid update, in
+// one launch: grid-value windows [A, 1 + dim, E^dim].
+int fluid_halo_gblk(const float* x, const float* hs_m, const int* count, const int* nbr,
+                    float* out, int A, int dim, int E, int T, float dtg0, float dtg1,
+                    float dtg2, void* cuda_stream) {
+  return launch_halo<true>(x, count, nbr, out, A, dim, dim, E, T, 0, dim,
+                           GridUpdate{hs_m, {dtg0, dtg1, dtg2}},
+                           static_cast<cudaStream_t>(cuda_stream));
 }
 
 }  // extern "C"

@@ -43,7 +43,7 @@ SIGNATURES = {
     "fluid_deposit": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_collect": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_halo_axes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fluid_halo_gblk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    "fluid_halo_gblk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "fluid_pallas_deposit": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_pallas_collect": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }

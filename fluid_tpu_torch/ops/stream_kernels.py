@@ -290,13 +290,16 @@ def halo_axes_plain(x, count, nbr, g: TileGeom, first: int, last: int) -> torch.
     return x
 
 
-def halo_gblk_plain(x, hs_m, nbp, nbm, dtg, g: TileGeom, axis: int) -> torch.Tensor:
-    mf = halo_axis_plain(x, nbp, nbm, g, axis)
+def halo_gblk_plain(x, hs_m, count, nbr, dtg, g: TileGeom) -> torch.Tensor:
+    """All D passes of the m+f halo on the gated input, then the grid
+    update: v = mf/m + dt g where m > 0 else 0, then m; zeros at tiles whose
+    count is 0."""
+    mf = halo_axes_plain(x, count, nbr, g, 0, g.dim)
     dtg = torch.as_tensor(dtg, dtype=torch.float32, device=x.device)
     v = torch.where(
         hs_m > 0.0, mf / torch.where(hs_m > 0.0, hs_m, 1.0) + dtg[None, :, None], 0.0
     )
-    return torch.cat([v, hs_m], dim=1)
+    return torch.where((count > 0)[:, None, None], torch.cat([v, hs_m], dim=1), 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -408,15 +411,6 @@ def collect(count, tid, params, stream, gblk, g: TileGeom, fused: bool):
     return (out, flag, dep) if fused else (out, flag)
 
 
-def _check_halo(x, nbp, nbm, g: TileGeom):
-    A, CH = x.shape[0], x.shape[1]
-    dev = x.device
-    _check("x", x, (A, CH, g.ncell), torch.float32, dev)
-    _check("nbp", nbp, (A,), torch.int32, dev)
-    _check("nbm", nbm, (A,), torch.int32, dev)
-    return A, CH, dev
-
-
 def halo_axes(x, count, nbr, g: TileGeom, first: int, last: int) -> torch.Tensor:
     """Halo passes [first, last) over windows [A, CH, E^D] in one launch,
     the input read as ``where(count > 0, x, 0)``; ``nbr`` [2D, A] holds the
@@ -443,19 +437,23 @@ def gravity_step(dt: float, gravity) -> np.ndarray:
     return np.float32(dt) * np.asarray(gravity, np.float32)
 
 
-def halo_gblk(x, hs_m, nbp, nbm, dtg: np.ndarray, g: TileGeom, axis: int) -> torch.Tensor:
-    """Last m+f halo pass along ``axis`` fused with the grid update: grid
-    values [A, 1+D, E^D] = (mf/m + dt g where m > 0 else 0, then m)."""
-    A, CH, dev = _check_halo(x, nbp, nbm, g)
-    if CH != g.dim:
-        raise ValueError(f"halo_gblk: {CH} channels, expected {g.dim}")
+def halo_gblk(x, hs_m, count, nbr, dtg: np.ndarray, g: TileGeom) -> torch.Tensor:
+    """The whole momentum+force halo (passes [0, D) over the gated m+f
+    windows ``x`` [A, D, E^D]) and the grid update, in one launch: grid
+    values [A, 1+D, E^D] = (mf/m + dt g where m > 0 else 0, then m), with
+    the halo'd masses ``hs_m`` [A, 1, E^D]; zeros at tiles whose count is
+    0, which read nothing."""
+    A = x.shape[0]
+    dev = x.device
+    _check("x", x, (A, g.dim, g.ncell), torch.float32, dev)
     _check("hs_m", hs_m, (A, 1, g.ncell), torch.float32, dev)
+    _check("count", count, (A,), torch.int32, dev)
+    _check("nbr", nbr, (2 * g.dim, A), torch.int32, dev)
     if _on_cpu(dev):
-        return halo_gblk_plain(x, hs_m, nbp, nbm, dtg, g, axis)
+        return halo_gblk_plain(x, hs_m, count, nbr, dtg, g)
     out = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
     d = [float(v) for v in dtg] + [0.0] * (3 - g.dim)
     with torch.cuda.device(dev):
-        _launch("halo_gblk", "fluid_halo_gblk", _ptr(x), _ptr(hs_m), _ptr(nbp), _ptr(nbm),
-                _ptr(out), A, g.dim, g.ncell, g.E, g.tile, g.E ** (g.dim - 1 - axis),
-                d[0], d[1], d[2])
+        _launch("halo_gblk", "fluid_halo_gblk", _ptr(x), _ptr(hs_m), _ptr(count), _ptr(nbr),
+                _ptr(out), A, g.dim, g.E, g.tile, d[0], d[1], d[2])
     return out

@@ -10,8 +10,8 @@ re-bins.  One substep runs the stages of ``substep_stages``:
   dep1       p2g_1 deposit (mass + APIC momentum) into per-tile windows
   halo_m     separable halo of the mass channel, all D passes in one launch
   dep2       density, Tait EOS, eq-16 force, plus the p2g_1 momentum
-  halo_gblk  momentum+force halo: D-1 passes in one launch, then the last
-             pass fused with the grid update
+  halo_gblk  momentum+force halo, all D passes, and the grid update, in
+             one launch
   collect    g2p + particle tail + drift flag (+ the next substep's p2g_1)
 
 The five kernel entry points live in ``stream_kernels.py``: hand-written CUDA
@@ -422,7 +422,8 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
       dep1(st)                   -> p2g_1 windows [A, 1+D, E^D]
       halo_m(st, dep1v)          -> halo'd mass windows [A, 1, E^D]
       dep2(st, dep1v, hs_m)      -> combined momentum+force windows [A, D, E^D]
-      halo_gblk(st, dep2v, hs_m) -> grid values [A, 1+D, E^D] (v rows, mass)
+      halo_gblk(st, dep2v, hs_m) -> grid values [A, 1+D, E^D] (v rows, mass;
+                                    zeros at zero-count tiles)
       collect(st, gblk, params)  -> (stream', flag[, dep1_next if fused])
     """
     D = cfg.dim
@@ -444,9 +445,7 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
         return sk.deposit_p2g2(st.count, st.tid, st.stream, hs_m, params6, dep1v, g)
 
     def halo_gblk(st, dep2v, hs_m):
-        x = sk.halo_axes(dep2v, st.count, st.nbr, g, 0, D - 1)
-        last = 2 * (D - 1)
-        return sk.halo_gblk(x, hs_m, st.nbr[last], st.nbr[last + 1], dtg, g, D - 1)
+        return sk.halo_gblk(dep2v, hs_m, st.count, st.nbr, dtg, g)
 
     def collect(st, gblk, params):
         return sk.collect(st.count, st.tid, params, st.stream, gblk, g, fused)

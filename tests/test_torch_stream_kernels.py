@@ -13,7 +13,9 @@ every comparison isolates one kernel.  Tolerances:
   since the EOS slope 4 k rho^3 / rho0^4 amplifies the density's ulp;
 * halo passes: bit-equal (pure adds in halo_pull's order), on the
   occupancy-gated input that both packages' substeps feed them;
-* halo_gblk: 1e-6 absolute and relative, as tests/test_stream.py uses.
+* halo_gblk: 1e-6 absolute and relative at occupied tiles, as
+  tests/test_stream.py uses (the port divides by m where the Pallas kernel
+  multiplies by 1/m), and exact zeros at zero-count tiles.
 """
 
 import dataclasses
@@ -175,10 +177,12 @@ def test_halo_axis_matches_halo_pull(dim):
         np.testing.assert_array_equal(got.numpy().reshape(A, -1), np.asarray(want))
 
 
-def _halo_tree(x, count, nbr, g, first, last):
+def _halo_tree(x, count, nbr, g, first, last, update=None):
     """The kernel's evaluation order written out: per output cell, the
     nested sum of the chained passes, each leaf a raw read of the gated
-    input at the end of a route of neighbour tiles (A reads zero)."""
+    input at the end of a route of neighbour tiles (A reads zero).  With
+    ``update`` = (hs_m, dtg), halo_gblk's epilogue: a zero-count tile reads
+    no mass (m = 0), v = mf/m + dtg where m > 0 else 0, then the m row."""
     A = x.shape[0]
     xp = torch.cat([x, torch.zeros_like(x[:1])])
     nbr = torch.cat([nbr.long(), torch.full_like(nbr[:, :1], A, dtype=torch.long)], dim=1)
@@ -199,7 +203,14 @@ def _halo_tree(x, count, nbr, g, first, last):
         ym = node(d, nbr[2 * d + 1][tiles], (cells + shift).clamp(0, g.ncell - 1))
         return acc + torch.where(e_d < g.E - g.tile, ym, 0.0)
 
-    return node(last, torch.arange(A), e)
+    mf = node(last, torch.arange(A), e)
+    if update is None:
+        return mf
+    hs_m, dtg = update
+    m = torch.where(occ[:A, None, None], hs_m, 0.0)
+    rows = [torch.where(m[:, 0] > 0.0, mf[:, c] / torch.where(m[:, 0] > 0.0, m[:, 0], 1.0)
+                        + float(dtg[c]), 0.0) for c in range(g.dim)]
+    return torch.cat([torch.stack(rows, dim=1), m], dim=1)
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -228,27 +239,68 @@ def test_halo_axes_matches_chained_plain_passes(dim, channels, passes):
     assert int((st.count == 0).sum()) > 0 and not torch.equal(ungated, want)
 
 
-def test_halo_gblk_matches_pallas_interpret():
-    """Last halo pass + grid update against _make_halo_gblk (interpret),
-    after D-1 axis passes (the port's in one launch), on random gated
-    windows with zero-mass cells mixed in."""
-    r = _reference(3)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_halo_gblk_matches_pallas_interpret(dim):
+    """The whole m+f halo and the grid update in one call, against the JAX
+    chain on the same gated random windows with zero-mass cells mixed in:
+    in 3D D-1 _make_halo_axis passes and _make_halo_gblk (interpret), in 2D
+    halo_pull and the grid update in numpy.  Occupied tiles agree at 1e-6
+    absolute and relative, zero-count tiles are exactly zero; and the
+    kernel's tree order with the epilogue equals halo_gblk_plain bit for
+    bit, also on ungated input (the gate matters there)."""
+    r = _reference(dim)
     st, g, A, cfg, spec = r["tst"], r["geom"], r["tspec"].A, r["cfg"], r["spec"]
-    D, S1 = 3, g.ncell // 128
+    D = dim
     rng = np.random.default_rng(11)
-    mf = _gated(rng.normal(size=(A, D, g.ncell)).astype(np.float32), st.count)
+    raw = rng.normal(size=(A, D, g.ncell)).astype(np.float32)
+    mf = _gated(raw, st.count)
     m = np.maximum(rng.uniform(-0.5, 2.0, (A, 1, g.ncell)), 0.0).astype(np.float32)
-    x = jnp.asarray(mf.reshape(A, D * S1, 128))
+    dtg = sk.gravity_step(cfg.dt, cfg.gravity)
     jnbr = r["st"].nbr
-    for d in range(D - 1):
-        x = jstx._make_halo_axis(spec, D, d, D)(x, jnbr[2 * d], jnbr[2 * d + 1])
-    want = jstx._make_halo_gblk(spec, D, D - 1, cfg.dt, cfg.gravity)(
-        x, jnp.asarray(m.reshape(A, S1, 128)), jnbr[2 * (D - 1)], jnbr[2 * (D - 1) + 1]
-    )
-    got = sk.halo_axes(torch.as_tensor(mf), st.count, st.nbr, g, 0, D - 1)
-    got = sk.halo_gblk(got, torch.as_tensor(m), st.nbr[4], st.nbr[5],
-                       sk.gravity_step(cfg.dt, cfg.gravity), g, D - 1)
-    _close(got.numpy().reshape(A, -1), np.asarray(want).reshape(A, -1), atol=1e-6, rtol=1e-6)
+    if D == 3:
+        S1 = g.ncell // 128
+        x = jnp.asarray(mf.reshape(A, D * S1, 128))
+        for d in range(D - 1):
+            x = jstx._make_halo_axis(spec, D, d, D)(x, jnbr[2 * d], jnbr[2 * d + 1])
+        want = jstx._make_halo_gblk(spec, D, D - 1, cfg.dt, cfg.gravity)(
+            x, jnp.asarray(m.reshape(A, S1, 128)), jnbr[2 * (D - 1)], jnbr[2 * (D - 1) + 1]
+        )
+        want = np.asarray(want).reshape(A, 1 + D, g.ncell)
+    else:
+        hs = np.asarray(jstx.halo_pull(jnp.asarray(mf.reshape(A, -1)), jnbr, g.tshape, 4, 8))
+        hs = hs.reshape(A, D, g.ncell)
+        v = np.where(m > 0.0, hs / np.where(m > 0.0, m, np.float32(1.0)) + dtg[None, :, None],
+                     np.float32(0.0))
+        want = np.concatenate([v, m], axis=1)
+    got = sk.halo_gblk(torch.as_tensor(mf), torch.as_tensor(m), st.count, st.nbr, dtg, g)
+    occ = st.count.numpy() > 0
+    assert 0 < int(occ.sum()) < A and (m[occ] == 0.0).any()  # non-vacuous
+    _close(got.numpy()[occ], want[occ], atol=1e-6, rtol=1e-6)
+    assert int(torch.count_nonzero(got[torch.as_tensor(~occ)])) == 0
+    for x in (torch.as_tensor(mf), torch.as_tensor(raw)):
+        plain = sk.halo_gblk_plain(x, torch.as_tensor(m), st.count, st.nbr, dtg, g)
+        tree = _halo_tree(x, st.count, st.nbr, g, 0, D, update=(torch.as_tensor(m), dtg))
+        assert torch.equal(tree, plain)
+    assert torch.equal(plain, got)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_collect_from_port_gblk_matches_pallas(dim):
+    """Collect on the port's grid values (zeros at zero-count tiles) from
+    the JAX stages' m+f windows and masses gives the particles the JAX
+    grid values give: no valid slot reads a zero-count tile's window."""
+    r = _reference(dim)
+    st, cfg, g = r["tst"], r["cfg"], r["geom"]
+    gblk = sk.halo_gblk(r["d2"], r["hs_m"], st.count, st.nbr,
+                        sk.gravity_step(cfg.dt, cfg.gravity), g)
+    occ = st.count > 0
+    _close(gblk[occ], r["gblk"][occ], atol=1e-6, rtol=1e-6)
+    assert not torch.equal(gblk, r["gblk"])  # the JAX chain fills zero-count tiles
+    params = tstx.collect_params(cfg, *tstep.no_mouse())
+    got = sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)
+    want = sk.collect(st.count, st.tid, params, st.stream, r["gblk"], g, True)
+    for a, b in zip(got, want):
+        _close(a, b, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("bad", ["count_dtype", "count_shape", "nbr_shape", "pass_range",
@@ -285,4 +337,14 @@ def test_wrappers_check_their_inputs():
         sk.halo_axes(r["d1"].transpose(0, 1), st.count, st.nbr, g, 0, 2)
     with pytest.raises(ValueError):
         sk.deposit_p2g1(st.count.to("meta"), st.tid.to("meta"), st.stream.to("meta"), g)
+    dtg = sk.gravity_step(0.1, (0.0, 1.0))
+    m = r["d1"][:, :1].contiguous()
+    with pytest.raises(ValueError):  # 1 + D channels: the p2g1 windows, not the m+f ones
+        sk.halo_gblk(r["d1"], m, st.count, st.nbr, dtg, g)
+    with pytest.raises(TypeError):
+        sk.halo_gblk(r["d2"], m, st.count.long(), st.nbr, dtg, g)
+    with pytest.raises(ValueError):
+        sk.halo_gblk(r["d2"], m, st.count, st.nbr[:2].contiguous(), dtg, g)
+    with pytest.raises(ValueError):
+        sk.halo_gblk(r["d2"], r["d1"][:, :2].contiguous(), st.count, st.nbr, dtg, g)
     assert all(v == 0 for v in sk.LAUNCHES.values())  # plain versions count nothing
