@@ -48,7 +48,26 @@ Phases, each printing its own line; any failure raises and exits non-zero:
             from the same state, max |dpos| <= 1e-4
 8. replay   3D reference scene (4096), stream and pallas: snapshot, frame,
             restore, frame -> bit-identical; then ms per frame at that scene
-9. profile  one 1M frame of each backend under torch.profiler: wall and
+9. app      the app through its entry points, no device argument: the 3D
+            reference scene on the default (stream) backend for 3 headless
+            frames, plain and with the timing overlay, every stream kernel
+            launched, three 40x80 renders, the six stage labels; then
+            ``app.main`` on the pallas backend in 2D, K6, K7 and K8 launched
+10. batch   64 scenes of 4,096 particles (bench.py's batch-64), packed side
+            by side into one 4608x72x72 domain (stride 72, 373,248 tiles,
+            A = 110,000): a strict Session(stream) with the scene stride,
+            one warm frame and 3 timed frames, conservation, shell_drop 0,
+            finite state, each scene inside its own walls and falling; one
+            substep of 8 scenes against dense on each scene alone; then each
+            kernel timed on the packed state and on the state cut to the
+            entries that hold or relay particles (the share of kernel time
+            spent on the unused, zero-count entries); a profiled frame
+11. checkpoint
+            a 3D reference-scene Session(stream), 2 frames, saved and loaded
+            (no device argument); a Session from the loaded state and one
+            from the state in memory run a frame bit-identically;
+            diagnostics finite
+12. profile one 1M frame of each backend under torch.profiler: wall and
             device time, the largest device entries
 
 The last lines are the kernel table as JSON (time, plain time, the least
@@ -58,7 +77,9 @@ time the card could take, launches on the main path), the card line, and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import sys
@@ -70,7 +91,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from fluid_tpu_torch import scene, state, step  # noqa: E402
+from fluid_tpu_torch import app, checkpoint, diagnostics, scene, state, step  # noqa: E402
 from fluid_tpu_torch.config import default_2d, default_3d  # noqa: E402
 from fluid_tpu_torch.domain import make_domain  # noqa: E402
 from fluid_tpu_torch.ops import cuda_build  # noqa: E402
@@ -719,34 +740,235 @@ def phase_replay(device, card: str) -> None:
               f"particle-steps/s rebins={sess.rebins()}  [{card}]")
 
 
+def app_frames(text: str, frames: int, labels) -> list:
+    """The headless output's frame blocks, checked: ``frames`` blocks in
+    order, each a non-empty 40x80 render followed by its timing lines with
+    ``labels``; returns each block's {label: ms}."""
+    blocks = text.split("--- frame ")[1:]
+    check(len(blocks) == frames, f"{frames} frame blocks, got {len(blocks)}")
+    times = []
+    for k, block in enumerate(blocks):
+        lines = block.splitlines()
+        check(lines[0] == f"{k} ---", f"block {k} is frame {k}")
+        view = lines[1:41]
+        check(len(view) == 40 and all(len(line) == 80 for line in view)
+              and any(c != " " for line in view for c in line), f"frame {k}: a non-empty 40x80 render")
+        ms = {line.split(": ")[0]: float(line.split(": ")[1][:-2]) for line in lines[41:]}
+        check(tuple(ms) == tuple(labels), f"frame {k} timing labels {tuple(ms)} == {tuple(labels)}")
+        times.append(ms)
+    return times
+
+
+STREAM_STAGES = ("dep1", "halo m", "dep2 m+f", "halo+gblk", "collect", "rebin")
+
+
+def phase_app(card: str, frames: int = 3) -> None:
+    """The app as a user runs it, with no device argument: the 3D reference
+    scene on the default backend (stream on the card), then with the timing
+    overlay, which probes each stage on the session's state beside its
+    frame; then ``app.main`` on the pallas backend in 2D.  Each run's launch
+    counters are reset just before it and read just after."""
+    for timing in (False, True):
+        out = io.StringIO()
+        sk.reset_launches()
+        app.run(dim=3, n=scene.REFERENCE_N, frames=frames, headless=True, timing=timing, out=out)
+        launches = dict(sk.LAUNCHES)
+        check(all(v > 0 for v in launches.values()), f"app: every stream kernel launched: {launches}")
+        times = app_frames(out.getvalue(), frames, (*STREAM_STAGES, "frame") if timing else ("frame",))
+        frame_ms = ", ".join(f"{t['frame']:.2f}" for t in times)
+        print(f"[app] 3D reference scene (n={scene.REFERENCE_N}), stream{' --timing' if timing else ''}: "
+              f"ms/frame (render + frame + sync) {frame_ms}; launches={launches}  [{card}]")
+        if timing:
+            stages = ", ".join(f"{k} {v:.3f}" for k, v in times[-1].items() if k != "frame")
+            print(f"[app] timing overlay, frame {frames - 1} stage ms (CUDA events): {stages}  [{card}]")
+    pk.reset_launches()
+    sk.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        app.main(["--dim", "2", "--frames", "2", "--headless", "--backend", "pallas"])
+    launches = dict(pk.LAUNCHES)
+    check(all(launches[k] > 0 for k in PALLAS_ON_PATH), f"app pallas: K6, K7, K8 launched: {launches}")
+    check(not any(sk.LAUNCHES.values()), f"app pallas: no stream kernel: {sk.LAUNCHES}")
+    frame_ms = ", ".join(f"{t['frame']:.2f}" for t in app_frames(out.getvalue(), 2, ("frame",)))
+    print(f"[app] main --dim 2 --backend pallas: ms/frame {frame_ms}; launches={launches}  [{card}]")
+
+
+def zero_tile_share(cfg, spec, dom, st, device, card: str, reps: int = 5) -> None:
+    """Each stream kernel on the packed state (all A entries) and on its
+    first entries only: the occupied ones for the deposits and the collect,
+    which read no neighbour, and the occupied and relay ones for the halos,
+    whose routes run through relay tiles (the face tables then name the cut
+    length for "none").  The outputs equal the full launch's first rows bit
+    for bit; the time difference is what the unused, zero-count entries
+    cost."""
+    g = stx.tile_geom(dom, spec)
+    D, A = cfg.dim, spec.A
+    nt = int(np.prod([s // spec.tile for s in dom.shape]))
+    occ = int((st.count > 0).sum())
+    used = int((st.tid < nt).sum())
+    check(bool((st.count[:occ] > 0).all()), "batch: occupied entries first")
+    tables = st.nbr[:, :used]
+    check(bool((tables[tables != A] < used).all()), "batch: face tables name only used entries")
+    tables = torch.where(tables == A, used, tables).contiguous()
+    params6 = deposit_params(cfg, device)
+    params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+    dtg = sk.gravity_step(cfg.dt, cfg.gravity)
+    d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
+    m1 = d1[:, :1].contiguous()
+    hm = sk.halo_axes(m1, st.count, st.nbr, g, 0, D)
+    d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, hm, params6, d1, g)
+    gb = sk.halo_gblk(d2, hm, st.count, st.nbr, dtg, g)
+
+    def cases(k, nbr):
+        count, tid, stream, d1k, m1k, hmk, d2k, gbk = (
+            t[:k].contiguous() for t in (st.count, st.tid, st.stream, d1, m1, hm, d2, gb))
+        return {"deposit_p2g1": lambda: sk.deposit_p2g1(count, tid, stream, g),
+                "halo_axis": lambda: sk.halo_axes(m1k, count, nbr, g, 0, D),
+                "deposit_p2g2": lambda: sk.deposit_p2g2(count, tid, stream, hmk, params6, d1k, g),
+                "halo_gblk": lambda: sk.halo_gblk(d2k, hmk, count, nbr, dtg, g),
+                "collect": lambda: sk.collect(count, tid, params, stream, gbk, g, True)}
+
+    full = cases(A, st.nbr)
+    cut = {"occupied": (occ, cases(occ, None)), "occupied+relay": (used, cases(used, tables))}
+    which = {"deposit_p2g1": "occupied", "deposit_p2g2": "occupied", "collect": "occupied",
+             "halo_axis": "occupied+relay", "halo_gblk": "occupied+relay"}
+    t_full = t_cut = 0.0
+    for name, kern in full.items():
+        k, short = cut[which[name]][0], cut[which[name]][1][name]
+        got, want = short(), kern()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        check(all(torch.equal(a, b[:k]) for a, b in zip(got, want)),
+              f"batch {name} on the first {k} entries equals the full launch's rows")
+        del got, want
+        ms_full = time_ms(kern, reps, device)
+        ms_cut = time_ms(short, reps, device)
+        if name != "deposit_p2g1":  # once per frame; the rest once per substep
+            t_full, t_cut = t_full + ms_full, t_cut + ms_cut
+        print(f"[batch] {name}: {ms_full:.4f} ms over A={A}, {ms_cut:.4f} ms over the first {k} "
+              f"({which[name]}) entries: {1 - ms_cut / ms_full:.1%} on the rest  [{card}]")
+    print(f"[batch] per substep (halo_axis, deposit_p2g2, halo_gblk, collect): {t_full:.4f} ms "
+          f"over A={A} ({occ} occupied, {used - occ} relay, {A - used} unused entries), "
+          f"{t_cut:.4f} ms over the entries each kernel needs: {1 - t_cut / t_full:.1%} of the "
+          f"substep's kernel time on zero-count entries  [{card}]")
+
+
+def phase_batch(device, card: str, batch: int = 64, n: int = scene.REFERENCE_N, frames: int = 3,
+                check_scenes: int = 8) -> None:
+    """bench.py's batch-64 (``:630``): 64 randomized 3D dam breaks of 4,096
+    particles, packed along x into one domain with per-scene walls."""
+    cfg = default_3d()
+    stack, _ = scene.batched_dam_break(torch.Generator().manual_seed(0), cfg, batch, n, device=device)
+    packed, dom, stride = scene.pack_scenes(stack, cfg)
+    spec = dataclasses.replace(stx.default_spec(cfg, dom, packed.n), scene_stride=stride)
+    nt = int(np.prod([s // spec.tile for s in dom.shape]))
+    print(f"[batch] {batch} scenes x {n} = {packed.n} particles, domain {dom.shape} (stride "
+          f"{stride:g}, {nt} tiles), A={spec.A} cap={spec.cap}  [{card}]")
+    y0 = stack.pos[..., 1].mean(dim=1)
+    sess = Session(cfg, dom, packed, backend="stream", spec=spec)
+    sess.frame()  # warm: strict checks included
+    sync(device)
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    sess.run(frames)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    check(all(v > 0 for v in launches.values()), f"batch: every stream kernel launched: {launches}")
+    check(sess.live_count() == packed.n and sess.shell_drop() == 0, "batch: conservation, shell_drop 0")
+    q = sess.particles()
+    for f in state.FIELDS:
+        check(bool(torch.isfinite(getattr(q, f)).all()), f"batch: finite {f}")
+    u = scene.unpack_scenes(q, batch, n, stride)
+    lo, hi = cfg.boundary_clip
+    x = u.pos[..., 0]
+    check(bool(((x >= lo[0]) & (x <= hi[0])).all()), "batch: every scene inside its own walls")
+    y1 = u.pos[..., 1].mean(dim=1)
+    check(bool((y1 > y0).all()), "batch: every scene's mean y rose (+y is down)")
+    steps = (frames + 1) * cfg.iterations
+    print(f"[batch] {wall * 1e3 / frames:.1f} ms/frame, "
+          f"{packed.n * cfg.iterations * frames / wall:.4e} particle-steps/s over {frames} frames; "
+          f"rebins={sess.rebins()} in {steps} substeps, need_peak={sess.need_peak()} of A={spec.A}, "
+          f"launches={launches}  [{card}]")
+
+    # one substep of the packed state against dense on each scene alone
+    mp, ma = step.no_mouse()
+    after = scene.unpack_scenes(stx.frame(q, cfg, dom, mp, ma, spec=spec, substeps=1), batch, n, stride)
+    sdom = make_domain(cfg, halo_cells=4)
+    worst = []
+    for k in np.linspace(0, batch - 1, check_scenes).round().astype(int).tolist():
+        alone = state.ParticleState(**{f: getattr(u, f)[k].contiguous() for f in state.FIELDS})
+        want, _ = step.substep(alone, cfg, sdom, mp, ma, backend="dense")
+        d = (after.pos[k] - want.pos).abs().amax(dim=0)
+        # packed x carries k * stride: its float32 rounding is half an ulp there
+        ulp = float(torch.finfo(torch.float32).eps) * 2.0 ** np.floor(np.log2(k * stride + hi[0]))
+        check(float(d[1:].max()) <= 1e-4 and float(d[0]) <= 1e-4 + ulp / 2,
+              f"batch scene {k}: max|dpos| (x, y, z) {d.tolist()} <= 1e-4 (x: + {ulp / 2:.3e})")
+        worst.append(f"{k}: {float(d[0]):.2e}/{float(d[1:].max()):.2e}")
+    print(f"[batch] one substep, packed stream vs dense per scene, max|dpos| x/(y,z) by scene: "
+          f"{'; '.join(worst)}  [{card}]")
+    zero_tile_share(cfg, spec, dom, sess.stream_state(), device, card)
+    profile_frame(sess, f"{batch} x {n} packed", card, top=6, tag="batch")
+
+
+def phase_checkpoint(device, card: str, out_dir: str) -> None:
+    """Save and resume on the card: the loaded state and the state in
+    memory each start a Session (the same un-binned input bins the same
+    way), and their next frames are bit-identical."""
+    cfg, p, dom = scene.reference_scene_3d(seed=0)
+    sess = Session(cfg, dom, p, backend="stream")
+    sess.run(2)
+    path = os.path.join(out_dir, "chip_smoke_checkpoint.npz")
+    checkpoint.save(path, sess.particles(), cfg, frame=2)
+    q, cfg2, frame = checkpoint.load(path)
+    check(q.device.type == "cuda" and cfg2 == cfg and frame == 2, "checkpoint: config, frame, on the card")
+    a = Session(cfg, dom, sess.particles(), backend="stream")
+    b = Session(cfg2, dom, q, backend="stream")
+    a.frame()
+    b.frame()
+    qa, qb = a.particles(), b.particles()
+    for f in state.FIELDS:
+        check(torch.equal(getattr(qa, f), getattr(qb, f)), f"checkpoint: resumed frame bit-identical: {f}")
+    m = diagnostics.metrics(qb)
+    check(all(bool(torch.isfinite(v).all()) for v in m.values()) and int(m["n"]) == p.n,
+          f"checkpoint: finite diagnostics, n == {p.n}")
+    print(f"[checkpoint] 3D reference scene: saved after 2 frames, resumed bit-identical; "
+          f"{diagnostics.format_metrics(m)}  [{card}]")
+
+
 def phase_profile(card: str, n: int = N_1M, top: int = 8) -> None:
     """One frame of the 1M dam per backend under torch.profiler, after a
-    warm-up frame: host wall time, device time (the sum of every kernel's
-    and copy's time) and the largest device entries."""
-    from torch.profiler import ProfilerActivity, profile
-
+    warm-up frame (``profile_frame``)."""
     for backend in ("stream", "pallas"):
         cfg, p, dom = scene.scaled_dam_break(torch.Generator().manual_seed(0), n)
         sess = Session(cfg, dom, p, backend=backend)
         sess.frame()
-        sync(p.device)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sess.frame()
-            sync(p.device)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        rows.sort(key=lambda e: e.device_time_total, reverse=True)
-        device_ms = sum(e.device_time_total for e in rows) / 1e3
-        own_ms = sum(e.device_time_total for e in rows  # csrc/*.cu kernels
-                     if e.key.removeprefix("void ").startswith("(anonymous namespace)::")) / 1e3
-        check(device_ms > 0, f"{backend}: the profiler saw device time")
-        print(f"[profile] {backend} n={n}, one frame: wall {wall_ms:.2f} ms (profiler on), device "
-              f"{device_ms:.2f} ms, busy {device_ms / wall_ms:.1%}; csrc kernels {own_ms:.2f} ms, "
-              f"PyTorch ops {device_ms - own_ms:.2f} ms  [{card}]")
-        for e in rows[:top]:
-            print(f"[profile]   {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+        profile_frame(sess, f"{backend} n={n}", card, top)
         del sess, p
+
+
+def profile_frame(sess: Session, what: str, card: str, top: int = 8, tag: str = "profile") -> None:
+    """One frame of ``sess`` under torch.profiler: host wall time, device
+    time (the sum of every kernel's and copy's time), the csrc kernels'
+    share and the largest device entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(sess.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.frame()
+        sync(sess.device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: e.device_time_total, reverse=True)
+    device_ms = sum(e.device_time_total for e in rows) / 1e3
+    own_ms = sum(e.device_time_total for e in rows  # csrc/*.cu kernels
+                 if e.key.removeprefix("void ").startswith("(anonymous namespace)::")) / 1e3
+    check(device_ms > 0, f"{what}: the profiler saw device time")
+    print(f"[{tag}] {what}, one frame: wall {wall_ms:.2f} ms (profiler on), device "
+          f"{device_ms:.2f} ms, busy {device_ms / wall_ms:.1%}; csrc kernels {own_ms:.2f} ms, "
+          f"PyTorch ops {device_ms - own_ms:.2f} ms  [{card}]")
+    for e in rows[:top]:
+        print(f"[{tag}]   {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
 
 
 def main() -> int:
@@ -774,6 +996,9 @@ def main() -> int:
     launches = phase_slice(device, N_1M, card)
     launches.update(phase_pallas_slice(card))
     phase_replay(device, card)
+    phase_app(card)
+    phase_batch(device, card)
+    phase_checkpoint(device, card, out_dir)
     phase_profile(card)
 
     kernels = [

@@ -349,15 +349,22 @@ def _launch(name: str, fn, *args, counts: dict = LAUNCHES) -> None:
     counts[name] += 1
 
 
+def check_cap(cap: int) -> None:
+    """Raise unless ``cap`` suits the kernels: one thread per slot, whole
+    warps, at most 256 (``StreamSpec`` checks it when it is built)."""
+    if cap > 256 or cap % 32:
+        raise ValueError(f"cap {cap}: the kernels launch one thread per slot, "
+                         "whole warps of at most 256")
+
+
 def _check_tiles(count, tid, stream, g: TileGeom):
     A = count.shape[0]
     dev = stream.device
     _check("count", count, (A,), torch.int32, dev)
     _check("tid", tid, (A,), torch.int32, dev)
     _check("stream", stream, (A, g.F, g.cap), torch.float32, dev)
-    if g.cap > 256 or g.cap % 32:
-        raise ValueError(f"cap {g.cap}: the kernels launch one thread per slot, "
-                         "whole warps of at most 256")
+    if dev.type == "cuda":
+        check_cap(g.cap)
     return A, dev
 
 

@@ -40,6 +40,7 @@ import torch
 from ..config import Config
 from ..domain import Domain
 from ..state import GridState, ParticleState
+from . import pallas_transfer as ptx
 from . import stream_kernels as sk
 
 _LOOKAHEAD = 6.0  # predictive-binning horizon, in substeps
@@ -50,7 +51,7 @@ class StreamSpec:
     """Static layout parameters."""
 
     tile: int = 4  # T: cells per tile edge
-    cap: int = 128  # particle slots per tile (one CUDA thread per slot, <= 256)
+    cap: int = 128  # particle slots per tile (one CUDA thread per slot: whole warps, <= 256)
     halo: int = 2  # h: window reach beyond the tile; E = T + 2h
     active: int = 64  # A: active-tile budget
     # packed-scene stride along x: per-scene walls at
@@ -60,6 +61,7 @@ class StreamSpec:
     def __post_init__(self):
         if self.halo < 1:
             raise ValueError("halo must cover the stencil radius (>= 1)")
+        sk.check_cap(self.cap)
 
     @property
     def E(self) -> int:
@@ -402,17 +404,11 @@ def collect_params(cfg: Config, mouse_pos, mouse_active, stride: float = 0.0,
                    device=None) -> torch.Tensor:
     """[11 + 2D] f32: dt, rest_density, eos_stiffness, eos_power,
     pressure_floor, mouse_radius, boundary_damp_dist, mouse_active, mouse_x,
-    mouse_y, clip_lo[D], clip_hi[D], scene_stride."""
-    lo, hi = cfg.boundary_clip
-    base = torch.tensor(
-        [cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
-         cfg.pressure_floor, cfg.mouse_radius, cfg.boundary_damp_dist,
-         0.0, 0.0, 0.0, *lo, *hi, stride],
-        dtype=torch.float32,
-    )
-    base[7] = torch.as_tensor(mouse_active).cpu().to(torch.float32)
-    base[8:10] = torch.as_tensor(mouse_pos).cpu().to(torch.float32)
-    return base.to(device)
+    mouse_y, clip_lo[D], clip_hi[D], scene_stride: the pallas collect's
+    parameters plus the stride.  The mouse tensors are copied on the device,
+    never read on the host."""
+    head = ptx.collect_params(cfg, mouse_pos, mouse_active, device)
+    return torch.cat([head, ptx._to_device([stride], device)])
 
 
 def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,

@@ -3,7 +3,8 @@
 Particles bin into an 80x40 console grid (3D projects onto xy,
 ``3d_multi.rs:473``); counts map onto the ramp ``' .-=*%$#'``
 (``2d_multi.rs:465-474``).  The histogram is reduced on the particles'
-device, so a frame moves only the count grid to the host.
+device, so a frame moves only the count grid to the host; ``render`` is
+the whole path from a ``ParticleState`` to console lines.
 """
 
 from __future__ import annotations
@@ -44,3 +45,10 @@ def ascii_frame(counts) -> list[str]:
     counts = counts.cpu().numpy() if isinstance(counts, torch.Tensor) else np.asarray(counts)
     lut = np.array(list(RAMP))
     return ["".join(row) for row in lut[np.clip(counts, 0, len(RAMP) - 1)]]
+
+
+def render(p, viewport_size=DEFAULT_VIEWPORT,
+           console_size: Tuple[int, int] = DEFAULT_CONSOLE) -> list[str]:
+    """Console lines of a ``ParticleState``: histogram on its device, then
+    the ramp on the host."""
+    return ascii_frame(histogram(p.pos, viewport_size, tuple(console_size)))

@@ -7,6 +7,10 @@ Dam-break seeding like the reference's ``main`` (``2d_multi.rs:502-512`` /
 compare the two packages build their inputs in numpy.  The particles land on
 ``device``; None means ``default_device()``, the card (a CPU generator keeps
 a seed's draw the same on every host, and the draw is then moved).
+
+``batched_dam_break`` builds a stack of scenes and ``pack_scenes`` lays it
+out as one domain for the stream backend (per-scene walls through
+``StreamSpec.scene_stride``), as ``fluid_tpu/scene.py`` does.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 
 from .config import Config, default_2d, default_3d
 from .domain import Domain, make_domain
-from .state import ParticleState
+from .state import FIELDS, ParticleState
 from .utils.platform import resolve_device
 
 SEED_BOX_2D = ((16.0, 16.0), (48.0, 48.0))
@@ -26,12 +30,14 @@ SEED_BOX_3D = ((16.0, 16.0, 16.0), (32.0, 32.0, 32.0))
 REFERENCE_N = 4096
 
 
-def uniform_box(gen: torch.Generator, n: int, lo, hi, device=None) -> torch.Tensor:
-    """[n, D] float32 positions uniform in the box ``[lo, hi)``, drawn on
-    the generator's device and moved to ``device`` (None: the card)."""
+def uniform_box(gen: torch.Generator, n, lo, hi, device=None) -> torch.Tensor:
+    """[n, D] float32 positions uniform in the box ``[lo, hi)`` ([*n, D]
+    for a tuple ``n``), drawn on the generator's device and moved to
+    ``device`` (None: the card)."""
     lo_t = torch.as_tensor(lo, dtype=torch.float32, device=gen.device)
     hi_t = torch.as_tensor(hi, dtype=torch.float32, device=gen.device)
-    u = torch.rand((n, len(lo)), generator=gen, dtype=torch.float32, device=gen.device)
+    lead = (n,) if isinstance(n, int) else tuple(n)
+    u = torch.rand((*lead, len(lo)), generator=gen, dtype=torch.float32, device=gen.device)
     return (lo_t + u * (hi_t - lo_t)).to(resolve_device(device))
 
 
@@ -44,6 +50,31 @@ def dam_break(gen: torch.Generator, cfg: Config, n: int = REFERENCE_N,
         box = SEED_BOX_2D if cfg.dim == 2 else SEED_BOX_3D
     pos = uniform_box(gen, n, box[0], box[1], device)
     return ParticleState.create(pos, device=pos.device), make_domain(cfg)
+
+
+def batched_dam_break(gen: torch.Generator, cfg: Config, batch: int, n: int = REFERENCE_N,
+                      jitter: float = 8.0, device=None) -> Tuple[ParticleState, Domain]:
+    """A [batch, N, D] stack of dam-break scenes (``BASELINE.json``'s
+    fifth configuration: 64 randomized 3D scenes).  Each scene's seed box
+    moves by a random shift of up to ``jitter`` world units per axis, kept
+    inside the walls."""
+    box = SEED_BOX_2D if cfg.dim == 2 else SEED_BOX_3D
+    D = cfg.dim
+    f32 = dict(dtype=torch.float32, device=gen.device)
+    lo, hi = torch.tensor(box[0], **f32), torch.tensor(box[1], **f32)
+    clip_lo, clip_hi = (torch.tensor(b, **f32) for b in cfg.boundary_clip)
+    shift = uniform_box(gen, batch, (-jitter,) * D, (jitter,) * D, gen.device)
+    shift = torch.clamp(shift, clip_lo - lo, clip_hi - hi)
+    pos = uniform_box(gen, (batch, n), box[0], box[1], gen.device) + shift[:, None, :]
+    return ParticleState.create(pos, device=resolve_device(device)), make_domain(cfg)
+
+
+def add_particles(state: ParticleState, pos, vel=None, C=None, mass=None) -> ParticleState:
+    """Append particles to a scene (the ``add_particle`` analog,
+    ``2d_multi.rs:104-108``); returns a new state on the scene's device."""
+    extra = ParticleState.create(pos, vel=vel, C=C, mass=mass, device=state.device)
+    return ParticleState(**{f: torch.cat([getattr(state, f), getattr(extra, f)])
+                            for f in FIELDS})
 
 
 def scaled_dam_break(gen: torch.Generator, n: int, dim: int = 3, device=None):
@@ -72,3 +103,49 @@ def reference_scene_3d(seed: int = 0, n: int = REFERENCE_N, device=None):
     cfg = default_3d()
     p, dom = dam_break(torch.Generator().manual_seed(seed), cfg, n, device=device)
     return cfg, p, dom
+
+
+# ---------------------------------------------------------------------------
+# Scene packing: a batch of scenes as one domain for the stream backend
+# ---------------------------------------------------------------------------
+
+
+def pack_scenes(state: ParticleState, cfg: Config,
+                halo_cells: int = 4) -> Tuple[ParticleState, Domain, float]:
+    """Lay a [batch, N, D] stack of scenes side by side along x in one
+    domain.  Scene k moves by ``k * stride`` in x; the stream collect keeps
+    it inside its own walls ``[k stride, k stride + world]`` when the spec's
+    ``scene_stride`` is ``stride``.  Neighbouring grids are ``2 halo_cells``
+    unused cells apart, so scenes never interact.
+
+    Returns (packed particles [batch * N], packed domain, stride)."""
+    if state.pos.ndim != 3:
+        raise ValueError("pack_scenes expects a [batch, N, D] particle stack")
+    batch, n, D = state.pos.shape
+    lo, hi = cfg.boundary_clip
+    if any(abs(v) > 1e-6 for v in lo):
+        raise ValueError("pack_scenes assumes boundary_clip starting at 0")
+    stride = float(-(-int(math.ceil(hi[0]) + 2 * halo_cells) // 8) * 8)
+
+    offsets = torch.arange(batch, dtype=torch.float32, device=state.device) * stride
+    pos = state.pos.clone()
+    pos[..., 0] += offsets[:, None]
+    fields = {f: getattr(state, f) for f in FIELDS} | {"pos": pos}
+    packed = ParticleState(**{f: a.reshape(batch * n, *a.shape[2:]) for f, a in fields.items()})
+
+    shape = (batch * int(stride),) + tuple(
+        -(-(int(math.ceil(hi[d])) + 2 * halo_cells) // 8) * 8 for d in range(1, D)
+    )
+    dom = Domain(origin=(-halo_cells,) * D, shape=shape,
+                 a_rect=((0,) * D, (1,) * D), p_rect=((-1,) * D, (2,) * D))
+    return packed, dom, stride
+
+
+def unpack_scenes(packed: ParticleState, batch: int, n: int, stride: float) -> ParticleState:
+    """Inverse of ``pack_scenes``: [batch, N, ...] with each scene's own x."""
+    fields = {f: getattr(packed, f).reshape(batch, n, *getattr(packed, f).shape[1:])
+              for f in FIELDS}
+    offsets = torch.arange(batch, dtype=torch.float32, device=packed.device) * stride
+    fields["pos"] = fields["pos"].clone()
+    fields["pos"][..., 0] -= offsets[:, None]
+    return ParticleState(**fields)

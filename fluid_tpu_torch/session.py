@@ -31,10 +31,11 @@ from .state import ParticleState
 from .utils.platform import resolve_device
 
 
-def default_backend(device) -> str:
+def default_backend(device=None) -> str:
     """"stream" (hand-written CUDA kernels) on a CUDA device, "dense" on the
-    CPU, where the kernels' plain versions would only be slower."""
-    return "stream" if torch.device(device).type == "cuda" else "dense"
+    CPU, where the kernels' plain versions would only be slower.  ``device``
+    None means ``default_device()``, the card (raises without one)."""
+    return "stream" if resolve_device(device).type == "cuda" else "dense"
 
 
 class Session:
@@ -109,6 +110,14 @@ class Session:
         """Advance ``frames`` frames with the same mouse input."""
         for _ in range(frames):
             self.frame(mouse)
+
+    def block_until_ready(self) -> None:
+        """Wait for the device, then read one element: the read surfaces a
+        device fault here rather than at some later call."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        src = self._st.stream if self.backend == "stream" else self._p.pos
+        float(src.reshape(-1)[0])
 
     # -- state snapshot -----------------------------------------------------
 

@@ -48,11 +48,15 @@ class ParticleState:
 
     @staticmethod
     def create(pos, vel=None, C=None, mass=None, device=None) -> "ParticleState":
-        """Build from positions; the other fields take the reference's seeding
-        values (vel=0, C=0, mass=1 — ``2d_multi.rs:502-512``).  ``device``
-        None means ``default_device()``, the card."""
+        """Build from positions [N, D], or a stack [B, N, D] of scenes (what
+        JAX gets by vmapping ``create``); the other fields take the
+        reference's seeding values (vel=0, C=0, mass=1 —
+        ``2d_multi.rs:502-512``).  ``device`` None means
+        ``default_device()``, the card."""
         pos = torch.as_tensor(pos, dtype=torch.float32, device=resolve_device(device))
-        n, dim = pos.shape
+        if pos.ndim not in (2, 3):
+            raise ValueError(f"positions [N, D] or [B, N, D], got {tuple(pos.shape)}")
+        lead, dim = tuple(pos.shape[:-1]), pos.shape[-1]
         kw = dict(dtype=torch.float32, device=pos.device)
 
         def _or(x, shape, fill):
@@ -62,11 +66,11 @@ class ParticleState:
 
         return ParticleState(
             pos=pos,
-            vel=_or(vel, (n, dim), 0.0),
-            C=_or(C, (n, dim, dim), 0.0),
-            mass=_or(mass, (n,), 1.0),
-            density=torch.zeros((n,), **kw),
-            pressure=torch.zeros((n,), **kw),
+            vel=_or(vel, (*lead, dim), 0.0),
+            C=_or(C, (*lead, dim, dim), 0.0),
+            mass=_or(mass, lead, 1.0),
+            density=torch.zeros(lead, **kw),
+            pressure=torch.zeros(lead, **kw),
         )
 
     def to(self, device) -> "ParticleState":

@@ -3,6 +3,7 @@ stream backend (kernels as their plain versions) against the dense backend
 and the frozen goldens, ``run(k)``, the binned histogram, the overflow check
 and snapshot replay."""
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 from fluid_tpu_torch import render, scene, state, step
 from fluid_tpu_torch.config import default_2d, default_3d
 from fluid_tpu_torch.domain import make_domain
+from fluid_tpu_torch.ops import stream_kernels as sk
 from fluid_tpu_torch.ops import stream_transfer as stx
 from fluid_tpu_torch.session import Session, default_backend
 
@@ -122,6 +124,57 @@ def test_stream_session_matches_frozen_golden(name):
     got = sess.particles()
     for f in ("pos", "vel", "C", "density", "pressure"):
         np.testing.assert_allclose(getattr(got, f).numpy(), z[f], atol=1e-3, rtol=0, err_msg=f)
+
+
+def test_default_backend_without_an_argument():
+    """``default_backend()`` resolves the device as the entry points do:
+    the card, so on a host without CUDA it raises; "cpu" still gives
+    "dense"."""
+    assert default_backend("cpu") == "dense"
+    if torch.cuda.is_available():
+        assert default_backend() == "stream"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            default_backend()
+
+
+@pytest.mark.parametrize("backend", ["stream", "dense"])
+def test_session_block_until_ready(backend):
+    cfg, p, dom = _case()
+    sess = Session(cfg, dom, p, backend=backend, device="cpu")
+    sess.frame()
+    assert sess.block_until_ready() is None and sess.live_count() == 512
+
+
+def test_stream_spec_checks_cap_when_built():
+    """A cap the kernels cannot launch fails when the spec is built, with
+    the kernels' message; the plain versions on the CPU take any cap."""
+    for cap in (512, 96 + 1, 48):
+        with pytest.raises(ValueError, match=f"cap {cap}: the kernels launch one thread per slot"):
+            stx.StreamSpec(cap=cap)
+    assert stx.StreamSpec(cap=256).cap == 256
+    cfg, p, dom = _case()
+    spec = stx.StreamSpec(active=64)
+    st = stx.bin_particles(p, dom, spec)
+    g = dataclasses.replace(stx.tile_geom(dom, spec), cap=512)
+    stream = torch.cat([st.stream, torch.zeros_like(st.stream), torch.zeros_like(st.stream),
+                        torch.zeros_like(st.stream)], dim=2)
+    wide = sk.deposit_p2g1(st.count, st.tid, stream, g)
+    assert torch.equal(wide, sk.deposit_p2g1(st.count, st.tid, st.stream, stx.tile_geom(dom, spec)))
+
+
+def test_collect_params_stay_on_the_device():
+    """The stream collect's parameters are built without reading the mouse
+    tensors on the host: on the meta device, which holds no data, a host
+    read would raise.  On the CPU the values are the expected row."""
+    cfg = default_2d()
+    mp, ma = step.mouse((3.0, 4.0))
+    meta = stx.collect_params(cfg, mp.to("meta"), ma.to("meta"), 72.0, "meta")
+    assert meta.device.type == "meta" and meta.shape == (15,)
+    got = stx.collect_params(cfg, mp, ma, 72.0, "cpu")
+    want = [cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power, cfg.pressure_floor,
+            cfg.mouse_radius, cfg.boundary_damp_dist, 1.0, 3.0, 4.0, 0.0, 0.0, 64.0, 64.0, 72.0]
+    assert torch.equal(got, torch.tensor(want, dtype=torch.float32))
 
 
 def test_entry_points_default_to_the_card():
