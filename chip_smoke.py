@@ -52,7 +52,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
             reference scene on the default (stream) backend for 3 headless
             frames, plain and with the timing overlay, every stream kernel
             launched, three 40x80 renders, the six stage labels; then
-            ``app.main`` on the pallas backend in 2D, K6, K7 and K8 launched
+            ``app.main`` on the pallas backend in 2D, K6, K7 and K8 launched;
+            ``app.main --shards 1`` in 3D, K1-K5 launched
 10. batch   64 scenes of 4,096 particles (bench.py's batch-64), packed side
             by side into one 4608x72x72 domain (stride 72, 373,248 tiles,
             A = 110,000): a strict Session(stream) with the scene stride,
@@ -62,16 +63,28 @@ Phases, each printing its own line; any failure raises and exits non-zero:
             kernel timed on the packed state and on the state cut to the
             entries that hold or relay particles (the share of kernel time
             spent on the unused, zero-count entries); a profiled frame
-11. checkpoint
+11. shards  the sharded stream backend (parallel/stream_shard.py) on the 1M
+            dam as s = 1, 2, 4 x-slabs, every shard on this card: the
+            ghost-gated K4 mass and K5 launches against their plain versions
+            at one shard's shapes after the first exchange (K4 bit-equal, K5
+            as halo_gblk above with the gate for the count), one substep
+            against the single-device stream path (1e-4), two strict frames
+            (conservation, shell_drop 0, re-bins, migrants, finite, one K4
+            mass and one K5 launch per shard and substep), ms per frame
+            beside the single-device Session's, exchange bytes per substep,
+            a profiled frame at each s
+12. checkpoint
             a 3D reference-scene Session(stream), 2 frames, saved and loaded
             (no device argument); a Session from the loaded state and one
             from the state in memory run a frame bit-identically;
             diagnostics finite
-12. profile one 1M frame of each backend under torch.profiler: wall and
+13. profile one 1M frame of each backend under torch.profiler: wall and
             device time, the largest device entries
 
 The last lines are the kernel table as JSON (time, plain time, the least
-time the card could take, launches on the main path), the card line, and
+time the card could take, launches on the main path; K4 and K5 list their
+launch kinds, the sharded path's ghost-gated ones with on_path "shards"),
+the card line, and
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
 
@@ -84,6 +97,7 @@ import json
 import os
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -100,6 +114,7 @@ from fluid_tpu_torch.ops import pallas_transfer as tpt  # noqa: E402
 from fluid_tpu_torch.ops import stream_kernels as sk  # noqa: E402
 from fluid_tpu_torch.ops import stream_transfer as stx  # noqa: E402
 from fluid_tpu_torch.ops import tiled_transfer as tt  # noqa: E402
+from fluid_tpu_torch.parallel import stream_shard as tsh  # noqa: E402
 from fluid_tpu_torch.session import Session  # noqa: E402
 from fluid_tpu_torch.utils.platform import card_info, require_cuda  # noqa: E402
 
@@ -791,6 +806,14 @@ def phase_app(card: str, frames: int = 3) -> None:
     check(not any(sk.LAUNCHES.values()), f"app pallas: no stream kernel: {sk.LAUNCHES}")
     frame_ms = ", ".join(f"{t['frame']:.2f}" for t in app_frames(out.getvalue(), 2, ("frame",)))
     print(f"[app] main --dim 2 --backend pallas: ms/frame {frame_ms}; launches={launches}  [{card}]")
+    sk.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        app.main(["--shards", "1", "--dim", "3", "--frames", "2", "--headless"])
+    launches = dict(sk.LAUNCHES)
+    check(all(v > 0 for v in launches.values()), f"app --shards 1: every stream kernel launched: {launches}")
+    frame_ms = ", ".join(f"{t['frame']:.2f}" for t in app_frames(out.getvalue(), 2, ("frame",)))
+    print(f"[app] main --dim 3 --shards 1: ms/frame {frame_ms}; launches={launches}  [{card}]")
 
 
 def zero_tile_share(cfg, spec, dom, st, device, card: str, reps: int = 5) -> None:
@@ -910,6 +933,137 @@ def phase_batch(device, card: str, batch: int = 64, n: int = scene.REFERENCE_N, 
     profile_frame(sess, f"{batch} x {n} packed", card, top=6, tag="batch")
 
 
+def shard_kernel_check(states, sspec, cfg, card: str, reps: int = 10) -> dict:
+    """The ghost-gated K4 mass and K5 launches against their plain versions
+    at one shard's shapes after the first exchange (the shard holding the
+    most particles; windows from K1 and K2 on every shard, exchanged as
+    the sharded substep does): K4 bit-equal, K5 by check_gblk with the gate
+    in place of the count.  Returns each kind's times and bound."""
+    D = cfg.dim
+    stages = tsh._Stages(cfg, sspec, states, *step.no_mouse())
+    g = stages.g
+    dep1 = stages.dep1(states)
+    m1 = tsh._exchange_blocks([d[:, :1].contiguous() for d in dep1], states)
+    k = max(range(len(states)), key=lambda i: int(states[i].st.count.sum()))
+    ss, mk = states[k], m1[k]
+    st, gate = ss.st, ss.gate
+    hs_m = [sk.halo_axes(m, s2.st.count, s2.st.nbr, g, 0, D, gate=s2.gate) for m, s2 in zip(m1, states)]
+    d2 = tsh._exchange_blocks(
+        [sk.deposit_p2g2(s2.st.count, s2.st.tid, s2.st.stream, h, p6, d1, g)
+         for s2, h, p6, d1 in zip(states, hs_m, stages.params6, dep1)], states)
+    x2, hk = d2[k], hs_m[k]
+    check(bool((x2[gate > st.count] != 0).any()) and bool((mk[gate > st.count] != 0).any()),
+          "shards: the exchange filled ghost windows")
+    cases = {
+        "halo_mass_ghost": (lambda: sk.halo_axes(mk, st.count, st.nbr, g, 0, D, gate=gate),
+                            lambda: sk.halo_axes_plain(mk, st.count, st.nbr, g, 0, D, gate=gate)),
+        "halo_gblk_ghost": (lambda: sk.halo_gblk(x2, hk, st.count, st.nbr, stages.dtg, g, gate=gate),
+                            lambda: sk.halo_gblk_plain(x2, hk, st.count, st.nbr, stages.dtg, g,
+                                                       gate=gate)),
+    }
+    # the bounds of K4 mass and K5 with the ghost tiles read as occupied
+    bounds = stream_bounds(dataclasses.replace(st, count=gate), g, D)
+    bounds = {"halo_mass_ghost": bounds["halo_mass"], "halo_gblk_ghost": bounds["halo_gblk"]}
+    out = {}
+    for name, (kern, plain) in cases.items():
+        got, want = kern(), plain()
+        sync(got.device)
+        if name == "halo_mass_ghost":
+            check(torch.equal(got, want), "shards: ghost-gated K4 mass bit-equal to plain")
+            extra = "bit_equal=True"
+        else:
+            rel = check_gblk(got, want, gate, f"shards s={len(states)} ghost-gated")
+            extra = f"max_rel={rel:.3e} mass_row_equal=True gate_zero_tiles_equal=True"
+        err = float((got - want).abs().max())
+        ms = time_ms(kern, reps, got.device)
+        plain_ms = time_ms(plain, max(2, reps // 5), got.device)
+        bound_ms, bound_by = bound(*bounds[name])
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "on_path": "shards"}
+        print(f"[shards] s={len(states)} shard {k} (A={sspec.spec.A}, {int(st.count.sum())} particles, "
+              f"{int((gate > st.count).sum())} ghost tiles) {name}: {extra} max_abs_err={err:.3e} "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+        del got, want
+    return out
+
+
+def phase_shards(device, card: str, n: int = N_1M, counts=(1, 2, 4), frames: int = 2) -> dict:
+    """The sharded stream backend at full width: the 1M dam as s = 1, 2, 4
+    x-slabs, every shard on this one card.  For s > 1 the ghost-gated K4
+    mass and K5 against their plain versions (shard_kernel_check); for
+    each s one substep against the single-device stream path from the
+    same particles (1e-4), then a strict ShardedSession of ``frames``
+    frames with the launch counters reset just before: conservation,
+    shell_drop 0, re-bins, migrants (s > 1), finite positions, one K4 mass
+    and one K5 launch per shard and substep; ms per frame beside the
+    single-device Session's.  Returns the kinds' kernel numbers (s = 2)."""
+    cfg, p, dom = dam_1m(device, n)
+    mp, ma = step.no_mouse()
+    single = Session(cfg, dom, p, backend="stream", device=device)
+    single.frame()
+    sync(device)
+    t0 = time.perf_counter()
+    single.run(frames)
+    sync(device)
+    single_ms = (time.perf_counter() - t0) * 1e3 / frames
+    moving = single.particles()  # the dam after 1 + frames frames: a moving state
+    print(f"[shards] single-device Session(stream): {single_ms:.1f} ms/frame (frames 2-{1 + frames}), "
+          f"A={single.spec.A}  [{card}]")
+    del single
+    kinds = {}
+    for s in counts:
+        sspec = tsh.default_shard_spec(cfg, dom, s, n, pos=p.pos, vel=p.vel)
+        devices = [device] * s
+        if s > 1:
+            got = shard_kernel_check(tsh.shard_stream(moving, cfg, sspec, devices), sspec, cfg, card)
+            kinds = kinds or got
+        states, _ = tsh.sharded_frame_binned(tsh.shard_stream(moving, cfg, sspec, devices), cfg, sspec,
+                                             mp, ma, substeps=1)
+        a = tsh.gather_stream(states, cfg, sspec, n)
+        b = stx.frame(moving, cfg, dom, mp, ma, substeps=1)
+        dpos = float((a.pos - b.pos).abs().max())
+        dvel = float((a.vel - b.vel).abs().max())
+        check(dpos <= 1e-4, f"shards s={s}: one substep vs single-device max|dpos| {dpos} <= 1e-4")
+        del states, a, b
+
+        sess = tsh.ShardedSession(cfg, dom, p, devices=devices, sspec=sspec)
+        sync(device)
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        sess.run(frames)  # strict: conservation and shell_drop after every frame
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(sk.LAUNCHES)
+        steps = frames * cfg.iterations
+        check(all(v > 0 for v in launches.values()), f"shards s={s}: every stream kernel launched {launches}")
+        check(launches["halo_axis"] == s * steps and launches["halo_gblk"] == s * steps,
+              f"shards s={s}: one K4 mass and one K5 launch per shard and substep: {launches}")
+        check(sess.live_count() == n and sess.shell_drop() == 0, f"shards s={s}: conservation, shell_drop 0")
+        check(sess.rebins >= 1, f"shards s={s}: at least one re-bin ({sess.rebins})")
+        check(s == 1 or sess.migrated() > 0, f"shards s={s}: particles migrated ({sess.migrated()})")
+        q = sess.particles()
+        check(bool(torch.isfinite(q.pos).all()), f"shards s={s}: finite positions")
+        per = [(int(ss.st.count.sum()), int(ss.st.need_peak.max())) for ss in sess.shard_states()]
+        # one more timed frame and a profiled one, no more: the dam meets
+        # the floor around its fifth frame, where a strict session found
+        # tiles past the spec's 128 slots (particles lost, shell_drop 0)
+        t0 = time.perf_counter()
+        sess.frame()
+        sync(device)
+        steady = (time.perf_counter() - t0) * 1e3
+        print(f"[shards] s={s} on one card: per-shard (particles, need_peak) {per}, A={sspec.spec.A} "
+              f"per shard (nt_local {(sspec.ts + 2) * sspec.ncol}); need_peak {sess.need_peak()}; "
+              f"exchange {tsh.exchange_bytes(sspec)} bytes/substep; one substep vs single-device "
+              f"max|dpos| {dpos:.3e} max|dvel| {dvel:.3e}; {frames} frames: {wall * 1e3 / frames:.1f} "
+              f"ms/frame, frame {frames + 1}: {steady:.1f} ms (single-device {single_ms:.1f}); "
+              f"rebins={sess.rebins} migrated={sess.migrated()} launches={launches}  [{card}]")
+        profile_frame(types.SimpleNamespace(device=device, frame=sess.frame),
+                      f"s={s} on one card, frame {frames + 2}", card, top=8, tag="shards")
+        del sess, q
+        torch.cuda.empty_cache()
+    return kinds
+
+
 def phase_checkpoint(device, card: str, out_dir: str) -> None:
     """Save and resume on the card: the loaded state and the state in
     memory each start a Session (the same un-binned input bins the same
@@ -998,9 +1152,14 @@ def main() -> int:
     phase_replay(device, card)
     phase_app(card)
     phase_batch(device, card)
+    ghost = phase_shards(device, card)
     phase_checkpoint(device, card, out_dir)
     phase_profile(card)
 
+    # the sharded path's ghost-gated launches stand as kinds of K4 and K5
+    strip = ("ms", "plain_ms", "bound_ms", "bound_by", "on_path")
+    results["halo_axis"]["kinds"]["halo_mass_ghost"] = {k: ghost["halo_mass_ghost"][k] for k in strip}
+    results["halo_gblk"]["kinds"] = {"halo_gblk_ghost": {k: ghost["halo_gblk_ghost"][k] for k in strip}}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
          "launches": launches[name], **results[name]}

@@ -12,7 +12,9 @@ the terminal is restored in a ``finally`` block.
 TTY.  ``--timing`` shows phase times: the dense phases (``p2g 1``, ``p2g 2``,
 ``update``, ``g2p``) on "dense", one ``substep`` time on "pallas", and on
 "stream" the session's frame plus a probe of each substep stage on its state
-(``utils/timing.StreamPhaseTimer``).
+(``utils/timing.StreamPhaseTimer``).  ``--shards N`` runs the sharded stream
+backend (``parallel/stream_shard.ShardedSession``) over the first N cards,
+or over N CPU shards with ``--cpu``; it has no timing overlay.
 
 The state lives on the card unless ``--cpu`` (``device="cpu"``) is given;
 without a card the app exits with an error, it never falls back to the CPU.
@@ -22,6 +24,7 @@ Usage::
     python -m fluid_tpu_torch.app --dim 2            # interactive, q quits
     python -m fluid_tpu_torch.app --dim 3 --headless --frames 10
     python -m fluid_tpu_torch.app --cpu --dim 2 --frames 2 --headless
+    python -m fluid_tpu_torch.app --cpu --shards 2 --frames 2 --headless
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from . import render as render_mod
 from . import scene, step
 from .config import default_2d, default_3d
 from .session import Session, default_backend
-from .utils.platform import require_cuda, resolve_device
+from .utils.platform import cuda_devices, require_cuda, resolve_device
 from .utils.timing import PhaseTimer, StreamPhaseTimer
 
 # backends of the JAX app that the port does not have yet, and the module
@@ -111,9 +114,10 @@ def _restore_terminal(old) -> None:
 
 def run(dim: int = 2, n: int = scene.REFERENCE_N, seed: int = 0,
         frames: Optional[int] = None, headless: bool = False, backend: str = "auto",
-        timing: bool = False, out=None, device=None) -> None:
+        timing: bool = False, out=None, device=None, shards: Optional[int] = None) -> None:
     """The app's loop on a reference dam break of ``n`` particles;
-    ``device`` None means the card."""
+    ``device`` None means the card.  ``shards``: a ShardedSession over the
+    first ``shards`` cards, or ``shards`` CPU shards on a CPU ``device``."""
     out = out or sys.stdout
     device = resolve_device(device)
     cfg = default_2d() if dim == 2 else default_3d()
@@ -124,7 +128,12 @@ def run(dim: int = 2, n: int = scene.REFERENCE_N, seed: int = 0,
     viewport = render_mod.DEFAULT_VIEWPORT
     console = render_mod.DEFAULT_CONSOLE
     timer = sess = stream_timer = None
-    if timing and backend != "stream":
+    if shards:
+        from .parallel.stream_shard import ShardedSession
+
+        devices = [device] * shards if device.type == "cpu" else cuda_devices(shards)
+        sess = ShardedSession(cfg, dom, p, devices=devices)
+    elif timing and backend != "stream":
         # the timer drives the requested backend phase by phase
         timer = PhaseTimer(cfg, dom, backend=backend)
     else:
@@ -204,10 +213,10 @@ def main(argv=None) -> None:
     ap.add_argument("--timing", action="store_true", help="per-phase timing overlay")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--shards", type=int, default=None,
-                    help="the sharded stream backend (not ported yet: M9)")
+                    help="run the sharded stream backend over N cards (with --cpu: N CPU shards)")
     args = ap.parse_args(argv)
-    if args.shards:
-        raise SystemExit("--shards: the multi-device backend is not ported yet (M9)")
+    if args.timing and args.shards:
+        raise SystemExit("--timing is single-device only (drop --shards)")
     if args.backend in NOT_PORTED:
         raise SystemExit(f"--backend {args.backend}: not ported yet "
                          f"({NOT_PORTED[args.backend]})")
@@ -216,10 +225,13 @@ def main(argv=None) -> None:
     else:
         try:
             device = require_cuda()
+            if args.shards:
+                cuda_devices(args.shards)
         except RuntimeError as e:
             raise SystemExit(f"error: {e}; pass --cpu to run on the CPU") from None
     run(dim=args.dim, n=args.particles, seed=args.seed, frames=args.frames,
-        headless=args.headless, backend=args.backend, timing=args.timing, device=device)
+        headless=args.headless, backend=args.backend, timing=args.timing, device=device,
+        shards=args.shards)
 
 
 if __name__ == "__main__":

@@ -281,25 +281,29 @@ def halo_axis_plain(x, nbp, nbm, g: TileGeom, axis: int) -> torch.Tensor:
     return acc + torch.where(e_d < E - T, ys, 0.0)
 
 
-def halo_axes_plain(x, count, nbr, g: TileGeom, first: int, last: int) -> torch.Tensor:
+def halo_axes_plain(x, count, nbr, g: TileGeom, first: int, last: int,
+                    gate=None) -> torch.Tensor:
     """Passes [first, last) of the separable halo, one after the other, on
-    the occupancy-gated input ``where(count > 0, x, 0)``."""
-    x = torch.where((count > 0)[:, None, None], x, 0.0)
+    the occupancy-gated input ``where(gate > 0, x, 0)`` (``gate`` defaults
+    to ``count``)."""
+    gate = count if gate is None else gate
+    x = torch.where((gate > 0)[:, None, None], x, 0.0)
     for d in range(first, last):
         x = halo_axis_plain(x, nbr[2 * d], nbr[2 * d + 1], g, d)
     return x
 
 
-def halo_gblk_plain(x, hs_m, count, nbr, dtg, g: TileGeom) -> torch.Tensor:
+def halo_gblk_plain(x, hs_m, count, nbr, dtg, g: TileGeom, gate=None) -> torch.Tensor:
     """All D passes of the m+f halo on the gated input, then the grid
     update: v = mf/m + dt g where m > 0 else 0, then m; zeros at tiles whose
-    count is 0."""
-    mf = halo_axes_plain(x, count, nbr, g, 0, g.dim)
+    gate (default: count) is 0."""
+    gate = count if gate is None else gate
+    mf = halo_axes_plain(x, gate, nbr, g, 0, g.dim)
     dtg = torch.as_tensor(dtg, dtype=torch.float32, device=x.device)
     v = torch.where(
         hs_m > 0.0, mf / torch.where(hs_m > 0.0, hs_m, 1.0) + dtg[None, :, None], 0.0
     )
-    return torch.where((count > 0)[:, None, None], torch.cat([v, hs_m], dim=1), 0.0)
+    return torch.where((gate > 0)[:, None, None], torch.cat([v, hs_m], dim=1), 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -418,23 +422,27 @@ def collect(count, tid, params, stream, gblk, g: TileGeom, fused: bool):
     return (out, flag, dep) if fused else (out, flag)
 
 
-def halo_axes(x, count, nbr, g: TileGeom, first: int, last: int) -> torch.Tensor:
+def halo_axes(x, count, nbr, g: TileGeom, first: int, last: int, gate=None) -> torch.Tensor:
     """Halo passes [first, last) over windows [A, CH, E^D] in one launch,
-    the input read as ``where(count > 0, x, 0)``; ``nbr`` [2D, A] holds the
-    active indices of each axis's +/- face neighbours (A = none).  Returns
-    a new tensor, bit-equal to the passes chained (``halo_axes_plain``)."""
+    the input read as ``where(gate > 0, x, 0)``; ``nbr`` [2D, A] holds the
+    active indices of each axis's +/- face neighbours (A = none).  ``gate``
+    [A] int32 defaults to ``count``; the sharded backend passes count plus
+    its ghost columns, whose windows the exchange fills.  Returns a new
+    tensor, bit-equal to the passes chained (``halo_axes_plain``)."""
     A, CH = x.shape[0], x.shape[1]
     dev = x.device
+    gate = count if gate is None else gate
     _check("x", x, (A, CH, g.ncell), torch.float32, dev)
-    _check("count", count, (A,), torch.int32, dev)
+    _check("gate", gate, (A,), torch.int32, dev)
     _check("nbr", nbr, (2 * g.dim, A), torch.int32, dev)
     if not 0 <= first < last <= g.dim:
         raise ValueError(f"passes [{first}, {last}): not a non-empty range in [0, {g.dim})")
     if _on_cpu(dev):
-        return halo_axes_plain(x, count, nbr, g, first, last)
+        return halo_axes_plain(x, gate, nbr, g, first, last)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
-        _launch("halo_axis", "fluid_halo_axes", _ptr(x), _ptr(count), _ptr(nbr), _ptr(out),
+        # the kernel reads its count argument only as this gate
+        _launch("halo_axis", "fluid_halo_axes", _ptr(x), _ptr(gate), _ptr(nbr), _ptr(out),
                 A, CH, g.dim, g.E, g.tile, first, last)
     return out
 
@@ -444,23 +452,24 @@ def gravity_step(dt: float, gravity) -> np.ndarray:
     return np.float32(dt) * np.asarray(gravity, np.float32)
 
 
-def halo_gblk(x, hs_m, count, nbr, dtg: np.ndarray, g: TileGeom) -> torch.Tensor:
+def halo_gblk(x, hs_m, count, nbr, dtg: np.ndarray, g: TileGeom, gate=None) -> torch.Tensor:
     """The whole momentum+force halo (passes [0, D) over the gated m+f
     windows ``x`` [A, D, E^D]) and the grid update, in one launch: grid
     values [A, 1+D, E^D] = (mf/m + dt g where m > 0 else 0, then m), with
-    the halo'd masses ``hs_m`` [A, 1, E^D]; zeros at tiles whose count is
-    0, which read nothing."""
+    the halo'd masses ``hs_m`` [A, 1, E^D]; zeros at tiles whose gate
+    (default: count, see ``halo_axes``) is 0, which read nothing."""
     A = x.shape[0]
     dev = x.device
+    gate = count if gate is None else gate
     _check("x", x, (A, g.dim, g.ncell), torch.float32, dev)
     _check("hs_m", hs_m, (A, 1, g.ncell), torch.float32, dev)
-    _check("count", count, (A,), torch.int32, dev)
+    _check("gate", gate, (A,), torch.int32, dev)
     _check("nbr", nbr, (2 * g.dim, A), torch.int32, dev)
     if _on_cpu(dev):
-        return halo_gblk_plain(x, hs_m, count, nbr, dtg, g)
+        return halo_gblk_plain(x, hs_m, gate, nbr, dtg, g)
     out = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
     d = [float(v) for v in dtg] + [0.0] * (3 - g.dim)
     with torch.cuda.device(dev):
-        _launch("halo_gblk", "fluid_halo_gblk", _ptr(x), _ptr(hs_m), _ptr(count), _ptr(nbr),
+        _launch("halo_gblk", "fluid_halo_gblk", _ptr(x), _ptr(hs_m), _ptr(gate), _ptr(nbr),
                 _ptr(out), A, g.dim, g.E, g.tile, d[0], d[1], d[2])
     return out

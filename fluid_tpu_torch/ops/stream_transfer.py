@@ -205,14 +205,20 @@ def _keys_from_pos(pos, domain: Domain, spec: StreamSpec, tshape, vel=None, dt=0
     return _flatten_coords(torch.where(ok, ct, cell // T), tshape)
 
 
+def _active_index(tid_act, nt: int, A: int) -> torch.Tensor:
+    """[nt + 1] int64: the active index of each tile (A = not active)."""
+    tid_act = tid_act.to(torch.int64)
+    inv = torch.full((nt + 1,), A, dtype=torch.int64, device=tid_act.device)
+    a_io = torch.arange(A, device=tid_act.device)
+    inv.scatter_reduce_(0, tid_act.clamp(0, nt),
+                        torch.where(tid_act < nt, a_io, A), "amin", include_self=True)
+    return inv
+
+
 def _nbr_table(tid_act, tshape, nt: int, A: int) -> torch.Tensor:
     """[2D, A] int32 active index of every active tile's +/- face neighbour
     (A = no active neighbour)."""
-    dev = tid_act.device
-    inv = torch.full((nt + 1,), A, dtype=torch.int64, device=dev)
-    a_io = torch.arange(A, device=dev)
-    inv.scatter_reduce_(0, tid_act.clamp(0, nt),
-                        torch.where(tid_act < nt, a_io, A), "amin", include_self=True)
+    inv = _active_index(tid_act, nt, A)
     ok = tid_act < nt
     out = []
     for d in range(len(tshape)):
@@ -256,13 +262,16 @@ def _active_set(occ: torch.Tensor, tshape) -> torch.Tensor:
 
 
 def _bin_rows(rows, tid_of_particle, n: int, spec: StreamSpec, nt: int, tshape,
-              row_idx=None) -> StreamState:
+              row_idx=None, occ_force=None) -> StreamState:
     """rows [N, F] + tile ids -> slot structure, occupied tiles first.
 
     Tile ids >= nt never land in a tile.  ``row_idx`` ([n] into rows)
     composes a prior compaction: sorted row i is rows[row_idx[order[i]]].
     The sort is stable (slot order within a tile follows particle order,
-    as ``jnp.argsort`` does)."""
+    as ``jnp.argsort`` does).  ``occ_force`` ([nt] bool) marks tiles the
+    needed-relay closure treats as occupied although no local particle is
+    in them (the sharded backend's ghost columns, filled by the exchange);
+    they bin as zero-count actives."""
     cap, A = spec.cap, spec.A
     dev = rows.device
     order = torch.argsort(tid_of_particle, stable=True)
@@ -271,7 +280,7 @@ def _bin_rows(rows, tid_of_particle, n: int, spec: StreamSpec, nt: int, tshape,
     count_t = (start[1:] - start[:-1])[:nt]
 
     occ_p = count_t > 0
-    occ = _active_set(occ_p, tshape)
+    occ = _active_set(occ_p if occ_force is None else occ_p | occ_force, tshape)
     shell = occ & ~occ_p
     n_occ = occ_p.sum()
     rank_p = torch.cumsum(occ_p.to(torch.int64), 0) - 1

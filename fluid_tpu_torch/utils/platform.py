@@ -32,6 +32,17 @@ def default_device() -> torch.device:
     return require_cuda()
 
 
+def cuda_devices(n=None) -> list:
+    """The first ``n`` CUDA devices (None: all of them); raises
+    RuntimeError when there are fewer, or none."""
+    require_cuda()
+    have = torch.cuda.device_count()
+    n = have if n is None else n
+    if n > have:
+        raise RuntimeError(f"{n} CUDA devices asked for, {have} present")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; None means ``default_device()``."""
     return torch.device(device) if device is not None else default_device()

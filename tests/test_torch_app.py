@@ -196,10 +196,10 @@ def test_app_main_cpu_flag(capsys):
 
 
 @pytest.mark.parametrize("argv,module", [
-    (["--backend", "sorted"], "M8"), (["--backend", "tiled"], "M8"), (["--shards", "2"], "M9")])
+    (["--backend", "sorted"], "M8"), (["--backend", "tiled"], "M8")])
 def test_app_refuses_what_is_not_ported(argv, module):
-    """sorted, tiled and --shards exit non-zero, naming the module that
-    will port them."""
+    """sorted and tiled exit non-zero, naming the module that will port
+    them."""
     with pytest.raises(SystemExit) as e:
         app.main(["--cpu", "--frames", "1", "--headless", *argv])
     assert e.value.code not in (0, None) and module in str(e.value.code)

@@ -159,7 +159,8 @@ def test_port_imports_no_jax():
         "fluid_tpu_torch.ops.tiled_transfer, fluid_tpu_torch.ops.cuda_build, "
         "fluid_tpu_torch.utils.platform, fluid_tpu_torch.app, fluid_tpu_torch.checkpoint, "
         "fluid_tpu_torch.diagnostics, fluid_tpu_torch.native, fluid_tpu_torch.scene, "
-        "fluid_tpu_torch.utils.timing; "
+        "fluid_tpu_torch.utils.timing, fluid_tpu_torch.parallel.stream_shard, "
+        "fluid_tpu_torch.parallel.shard; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fluid_tpu.'))); "
         "assert not bad, bad"
     )
