@@ -24,7 +24,12 @@ Phases, each printing its own line; any failure raises and exits non-zero:
             and a copy of each halo output's size are timed beside them.
             Then the deposits, halo_gblk and the fused collect, checked the
             same way, at 3D specs whose blocks need more than 48 KB of
-            shared memory (cap 256; tile 8 at caps 128 and 256)
+            shared memory (cap 256; tile 8 at caps 128 and 256) and at caps
+            past 256, walked in chunks of 256 slots, on the whole 1M dam
+            (tile 8 at cap 1024, timed; tile 4 at cap 512)
+   digests  at cap 256 (one chunk) K1, K4, K2, K5 and K3 give the outputs
+            recorded from the kernels before the chunked walk, bit for bit
+            (tests/data/stream_kernels_cap256.json)
 4. pallas kernels
             the four pallas kernels (p2g1 deposit, force deposit, fused
             p2g2, collect) against their plain versions at the 3D 1M dam
@@ -46,6 +51,16 @@ Phases, each printing its own line; any failure raises and exits non-zero:
             mass conserved, finite state, the fluid falls, every on-path
             pallas kernel launched; then one substep of pallas against dense
             from the same state, max |dpos| <= 1e-4
+   big tile one strict Session(stream) frame of the 1M dam at bench.py's
+            big-tile spec (T=8, cap=1024, every kernel launched), one
+            substep from it against dense (1e-4), a T=4 frame beside it
+   backends the tiled and sorted backends (plain PyTorch, no kernel of
+            csrc/) on bench.py's tiled cells 2d-ref, 3d-ref, 2d-100k (tiled
+            under bench.py's tiled budget) and, sorted only, the 1M dam: no
+            overflow before and after, one substep against dense (1e-4,
+            grid mass n), the cell's frames through Session, finite state,
+            snapshot replay bit-identical, no stream or pallas launch; ms
+            per frame, particle-steps/s, peak memory, a profiled substep
 8. replay   3D reference scene (4096), stream and pallas: snapshot, frame,
             restore, frame -> bit-identical; then ms per frame at that scene
 9. app      the app through its entry points, no device argument: the 3D
@@ -53,7 +68,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
             frames, plain and with the timing overlay, every stream kernel
             launched, three 40x80 renders, the six stage labels; then
             ``app.main`` on the pallas backend in 2D, K6, K7 and K8 launched;
-            ``app.main --shards 1`` in 3D, K1-K5 launched
+            ``app.main --backend tiled`` and ``--backend sorted`` in 2D, 3
+            frames, no kernel launched; ``app.main --shards 1`` in 3D, K1-K5
+            launched
 10. batch   64 scenes of 4,096 particles (bench.py's batch-64), packed side
             by side into one 4608x72x72 domain (stride 72, 373,248 tiles,
             A = 110,000): a strict Session(stream) with the scene stride,
@@ -83,7 +100,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 
 The last lines are the kernel table as JSON (time, plain time, the least
 time the card could take, launches on the main path; K4 and K5 list their
-launch kinds, the sharded path's ghost-gated ones with on_path "shards"),
+launch kinds, the sharded path's ghost-gated ones with on_path "shards";
+K1-K3 their big-tile kind, T=8 at cap 1024, on_path "stream big-tile"),
 the card line, and
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -257,19 +275,24 @@ def dam_1m(device, n: int = N_1M, seed: int = 0):
     return scene.scaled_dam_break(gen, n, dim=3, device=device)
 
 
-def stream_state(device, n: int, dim: int, tile: int = 0, cap: int = 0, keep: int = 1):
+def stream_state(device, n: int, dim: int, tile: int = 0, cap: int = 0, keep: int = 1,
+                 rng_device=None):
     """A dam of ``n`` particles with random velocities and APIC matrices
     (the seeding distributions of tests/data, so every channel carries
     data), binned for the stream kernels: by the default spec, or, with
     ``tile`` and ``cap``, by a spec of that tile edge and cap over every
-    tile, keeping every ``keep``-th particle so the tiles fit the cap."""
-    gen = torch.Generator(device=device).manual_seed(0)
-    cfg, p, dom = scene.scaled_dam_break(gen, n, dim=dim, device=device)
+    tile, keeping every ``keep``-th particle so the tiles fit the cap.  The
+    random numbers come from generators on ``rng_device`` (default:
+    ``device``); "cpu" gives the same particles on any card."""
+    rng = device if rng_device is None else torch.device(rng_device)
+    gen = torch.Generator(device=rng).manual_seed(0)
+    cfg, p, dom = scene.scaled_dam_break(gen, n, dim=dim, device=rng)
     if keep > 1:
-        p = state.ParticleState.create(p.pos[::keep].contiguous(), device=device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    p.vel = 0.3 * torch.randn(p.vel.shape, generator=gen, device=device)
-    p.C = 0.05 * torch.randn(p.C.shape, generator=gen, device=device)
+        p = state.ParticleState.create(p.pos[::keep].contiguous(), device=rng)
+    gen = torch.Generator(device=rng).manual_seed(1)
+    p.vel = 0.3 * torch.randn(p.vel.shape, generator=gen, device=rng)
+    p.C = 0.05 * torch.randn(p.C.shape, generator=gen, device=rng)
+    p = p.to(device)
     spec = stx.default_spec(cfg, dom, p.n)
     if tile:
         spec = dataclasses.replace(spec, tile=tile, cap=cap,
@@ -442,20 +465,27 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
     return results
 
 
-# 3D stream specs beside the main path's (T=4, cap=128) whose deposit and
-# fused-collect blocks need more than the 48 KB of shared memory a launch
-# gets by default: (tile, cap, keep every k-th particle of the dam so the
-# tiles fit the cap); T=8 keeps halo 2, so E=12 != 2T (the general halo)
-DEPOSIT_GEOMETRIES = ((4, 256, 1), (8, 128, 8), (8, 256, 4))
+# 3D stream specs beside the main path's (T=4, cap=128), as (tile, cap, keep
+# every k-th particle of the dam so the tiles fit the cap, particles): blocks
+# past the 48 KB of shared memory a launch gets by default (cap 256; T=8
+# keeps halo 2, so E=12 != 2T, the general halo), and caps past 256, whose
+# deposit and collect blocks walk the slots in chunks of 256: the whole 1M
+# dam at bench.py's big-tile spec (T=8, cap 1024) and at T=4, cap 512
+DEPOSIT_GEOMETRIES = ((4, 256, 1, 200_000), (8, 128, 8, 200_000), (8, 256, 4, 200_000),
+                      (8, 1024, 1, N_1M), (4, 512, 1, N_1M))
+TIMED_GEOMETRY = (8, 1024)  # its K1, K2 and fused K3 times stand as kinds in the table
 
 
-def phase_deposit_geometries(device, card: str, n: int = 200_000):
+def phase_deposit_geometries(device, card: str, reps: int = 10) -> dict:
     """K1, K2, K5 and the fused K3 against their plain versions, at the
     tolerances of phase_kernels, the deposits and K3 bit-equal across two
     launches, at the specs of DEPOSIT_GEOMETRIES: the deposit and collect
-    launches opt into the larger block, and tile 8 (E = 12 != 2T) takes
-    the general halo_gblk kernel."""
-    for tile, cap, keep in DEPOSIT_GEOMETRIES:
+    launches opt into the larger block, tile 8 (E = 12 != 2T) takes the
+    general halo_gblk kernel, and a cap past 256 walks its slots in
+    chunks.  Returns K1, K2 and the fused K3 timed at TIMED_GEOMETRY, as
+    kinds of their table entries."""
+    kinds = {}
+    for tile, cap, keep, n in DEPOSIT_GEOMETRIES:
         cfg, spec, st, g = stream_state(device, n, 3, tile=tile, cap=cap, keep=keep)
         params6 = deposit_params(cfg, device)
         params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
@@ -464,15 +494,16 @@ def phase_deposit_geometries(device, card: str, n: int = 200_000):
         d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
         dtg = sk.gravity_step(cfg.dt, cfg.gravity)
         gblk = sk.halo_gblk(d2, m, st.count, st.nbr, dtg, g)
-        what = f"3D T={tile} E={g.E} cap={cap}"
+        what = f"3D n={n} T={tile} E={g.E} cap={cap}"
         rel = check_gblk(gblk, sk.halo_gblk_plain(d2, m, st.count, st.nbr, dtg, g), st.count, what)
+        errs = {}
         for name, got, want in (
                 ("deposit_p2g1", d1, sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
                 ("deposit_p2g2", d2, sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6,
                                                            d1, g))):
             scale = float(want.abs().max())
-            err = float((got - want).abs().max())
-            check(err <= 1e-4 * scale, f"{what} {name} max|err| {err} <= 1e-4 * {scale}")
+            errs[name] = float((got - want).abs().max())
+            check(errs[name] <= 1e-4 * scale, f"{what} {name} max|err| {errs[name]} <= 1e-4 * {scale}")
         check(torch.equal(sk.deposit_p2g1(st.count, st.tid, st.stream, g), d1)
               and torch.equal(sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g), d2),
               f"{what} deposits bitwise equal across two launches")
@@ -481,17 +512,93 @@ def phase_deposit_geometries(device, card: str, n: int = 200_000):
         rows = float((got[0] - want[0]).abs().max())
         scale = float(want[2].abs().max())
         dep = float((got[2] - want[2]).abs().max())
+        errs["collect"] = rows
         check(rows <= 1e-5 and torch.equal(got[1], want[1]) and dep <= 1e-4 * scale,
               f"{what} fused collect: rows {rows} <= 1e-5, flag equal, p2g1 {dep} <= 1e-4 * {scale}")
         again = sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)
         check(all(torch.equal(a, b) for a, b in zip(again, got)),
               f"{what} fused collect bitwise equal across two launches")
         print(f"[kernels] {what} A={spec.A} occupied={int((st.count > 0).sum())} "
-              f"max count={int(st.count.max())}: deposit_p2g1, deposit_p2g2 and the fused "
-              f"collect agree with plain (rows {rows:.3e}, p2g1 {dep:.3e} of {scale:.3e}) and "
-              f"repeat bit-equal; halo_gblk max_rel={rel:.3e}, mass row and zero tiles equal  [{card}]")
-        del st, d1, m, d2, gblk, got, want, again
+              f"max count={int(st.count.max())} ({-(-int(st.count.max()) // 256)} chunk(s) of "
+              f"256 slots): deposit_p2g1, deposit_p2g2 and the fused collect agree with plain "
+              f"(rows {rows:.3e}, p2g1 {dep:.3e} of {scale:.3e}) and repeat bit-equal; "
+              f"halo_gblk max_rel={rel:.3e}, mass row and zero tiles equal  [{card}]")
+        del got, want, again
+        if (tile, cap) == TIMED_GEOMETRY:
+            bounds = stream_bounds(st, g, 3)
+            cases = {
+                "deposit_p2g1": (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g),
+                                 lambda: sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
+                "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
+                                 lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6,
+                                                               d1, g)),
+                "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g, True),
+                            lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)),
+            }
+            for name, (kern, plain) in cases.items():
+                ms = time_ms(kern, reps, device)
+                plain_ms = time_ms(plain, max(2, reps // 5), device)
+                bound_ms, bound_by = bound(*bounds[name])
+                kinds[name] = {f"T{tile}_cap{cap}": {
+                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "on_path": "stream big-tile"}}
+                print(f"[kernels] {what} {name}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                      f"bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+        del st, d1, m, d2, gblk
         torch.cuda.empty_cache()
+    return kinds
+
+
+# The stream kernels' outputs at a cap of one chunk (T=4, cap=256, every
+# tile; the 200,000-particle dam of DEPOSIT_GEOMETRIES' first row, its
+# random numbers drawn on the CPU), as SHA-256 digests recorded from the
+# kernels before they walked their slots in chunks
+# (``python3 chip_smoke.py --record-digests PATH`` run on that tree).
+DIGESTS = os.path.join(ROOT, "tests", "data", "stream_kernels_cap256.json")
+
+
+def _digest(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kernel_digests(device, tile: int, cap: int, n: int) -> dict:
+    """SHA-256 of each stream kernel's output on the stream state of
+    ``stream_state(device, n, 3, tile, cap, rng_device="cpu")``: K1, the
+    mass halo K4, K2, K5, the fused and the unfused K3; "inputs" digests
+    the binned state they read."""
+    cfg, spec, st, g = stream_state(device, n, 3, tile=tile, cap=cap, rng_device="cpu")
+    params6 = deposit_params(cfg, device)
+    params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+    d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
+    m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g, 0, 3)
+    d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
+    gblk = sk.halo_gblk(d2, m, st.count, st.nbr, sk.gravity_step(cfg.dt, cfg.gravity), g)
+    return {"tile": tile, "cap": cap, "n": n,
+            "inputs": _digest(st.stream, st.count, st.tid, st.nbr),
+            "deposit_p2g1": _digest(d1), "halo_axis": _digest(m), "deposit_p2g2": _digest(d2),
+            "halo_gblk": _digest(gblk),
+            "collect": _digest(*sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)),
+            "collect_unfused": _digest(*sk.collect(st.count, st.tid, params, st.stream, gblk, g,
+                                                   False))}
+
+
+def phase_digests(device, card: str) -> None:
+    """At a cap of one chunk the chunked K1, K2 and K3 (and K4, K5 on their
+    windows) give the recorded outputs of the kernels before chunking bit
+    for bit, on the same inputs."""
+    with open(DIGESTS) as fh:
+        want = json.load(fh)
+    got = kernel_digests(device, want["tile"], want["cap"], want["n"])
+    check(got["inputs"] == want["inputs"], "digests: the inputs equal the recorded ones")
+    differ = [k for k in want if got[k] != want[k]]
+    check(not differ, f"digests: bit-equal to the recording, differ: {differ}")
+    print(f"[digests] 3D n={want['n']} T={want['tile']} cap={want['cap']}: K1, K4 mass, K2, K5, "
+          f"fused and unfused K3 bit-equal to the kernels before the chunked walk  [{card}]")
 
 
 def pallas_state(device, n: int, dim: int):
@@ -755,6 +862,168 @@ def phase_replay(device, card: str) -> None:
               f"particle-steps/s rebins={sess.rebins()}  [{card}]")
 
 
+def big_tile_spec(cfg, dom, pos):
+    """bench.py's big-tile stream spec (``_stream_spec_big``, :231-266), the
+    `3d-1m` race candidate: T=8, cap=1024, halo 2, A twice the needed-relay
+    closure of the tiles occupied at t=0 (at most nt and 110,000); None when
+    the fullest tile at t=0 holds more than 2/3 of the cap."""
+    T, cap = 8, 1024
+    tshape = tuple(s // T for s in dom.shape)
+    nt = int(np.prod(tshape))
+    if nt < 8:
+        return None
+    probe = stx.StreamSpec(tile=T, cap=128, halo=2, active=1)
+    cnt = torch.bincount(stx._keys_from_pos(pos, dom, probe, tshape), minlength=nt)
+    dil = int(stx._active_set(cnt > 0, tshape).sum())
+    if int(cnt.max()) * 3 > cap * 2:
+        return None
+    return stx.StreamSpec(tile=T, cap=cap, halo=2, active=min(dil * 2, nt, 110_000))
+
+
+def phase_big_tile(device, card: str, n: int = N_1M) -> None:
+    """One strict Session(stream) frame of the 1M dam at the big-tile spec
+    (conservation and shell_drop 0 checked by the session), every stream
+    kernel launched, then one substep from its state against dense; a
+    frame of the default spec (T=4, cap=128) from the same start beside
+    it."""
+    cfg, p, dom = dam_1m(device, n)
+    spec = big_tile_spec(cfg, dom, p.pos)
+    check(spec is not None, "big-tile spec feasible for the 1M dam")
+    ms = {}
+    for name, sp in (("T=8 cap=1024", spec), ("T=4 cap=128", None)):
+        sess = Session(cfg, dom, p, backend="stream", spec=sp, device=device)
+        sync(device)
+        sk.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        sess.frame()  # strict: sum(count) == n and shell_drop == 0
+        sync(device)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        launches = dict(sk.LAUNCHES)
+        check(all(v > 0 for v in launches.values()), f"big tile {name}: every kernel launched {launches}")
+        check(sess.live_count() == n and sess.shell_drop() == 0, f"big tile {name}: strict checks")
+        print(f"[big tile] 1M dam, stream {name}: A={sess.spec.A} one frame {ms[name]:.1f} ms "
+              f"{n * cfg.iterations / ms[name] * 1e3:.4e} particle-steps/s rebins={sess.rebins()} "
+              f"need_peak={sess.need_peak()} peak memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB launches={launches}  [{card}]")
+        if sp is spec:
+            mid = sess.particles()
+        del sess
+    mp, ma = step.no_mouse()
+    a = stx.frame(mid, cfg, dom, mp, ma, spec=spec, substeps=1)
+    b, _ = step.substep(mid, cfg, dom, mp, ma, backend="dense")
+    dpos = float((a.pos - b.pos).abs().max())
+    check(dpos <= 1e-4, f"big tile: one substep vs dense max|dpos| {dpos} <= 1e-4")
+    print(f"[big tile] one substep from frame 1 vs dense: max|dpos| {dpos:.3e}; ms/frame "
+          f"T=8 cap=1024 {ms['T=8 cap=1024']:.1f} beside T=4 cap=128 {ms['T=4 cap=128']:.1f}  [{card}]")
+    del mid, a, b
+    torch.cuda.empty_cache()
+
+
+def tiled_spec(cfg, dom, n: int):
+    """bench.py's tiled budget (``_tiled_spec``, :78-103) for one scene:
+    T=4, cap 2.5x the rest-density tile rounded up to 32, A 8x (n <= 4,096)
+    or 1.8x the rest-density tile count rounded up to 64 (at most nt),
+    strict (overflow is checked instead)."""
+    T = 4
+    per_tile = cfg.rest_density * T**cfg.dim
+    cap = max(32, -(-int(per_tile * 2.5) // 32) * 32)
+    occupied = max(64, int(n / max(per_tile, 1.0) * (8.0 if n <= 4096 else 1.8)))
+    active = min(-(-occupied // 64) * 64, int(np.prod([s // T for s in dom.shape])))
+    return tt.TileSpec(tile=T, cap=cap, active=active, strict=True)
+
+
+# bench.py's CONFIGS that race the tiled backend (name, dim, particles,
+# frames) and the 3D 1M dam, which only the sorted backend runs here
+BACKEND_CELLS = (("2d-ref", 2, 4096, 20), ("3d-ref", 3, 4096, 10), ("2d-100k", 2, 100_000, 5),
+                 ("3d-1m", 3, N_1M, 3))
+
+
+def config_scene(dim: int, n: int):
+    """bench.py's ``_make_scene`` (:44-75): the reference config with a
+    4-cell halo for n <= 4,096, the scaled dam otherwise; on the card."""
+    gen = torch.Generator().manual_seed(0)
+    if n <= scene.REFERENCE_N:
+        cfg = default_2d() if dim == 2 else default_3d()
+        p, _ = scene.dam_break(gen, cfg, n)
+        return cfg, p, make_domain(cfg, halo_cells=4)
+    return scene.scaled_dam_break(gen, n, dim=dim)
+
+
+def phase_backends(card: str) -> None:
+    """The tiled and sorted backends on the card, through the entry points
+    (no device argument), on the cells of BACKEND_CELLS (tiled on all but
+    the 1M dam, under ``tiled_spec``): no overflow at t=0; one substep
+    against dense from the same state (max|dpos| <= 1e-4, grid mass n
+    within 1e-4); a Session run of the cell's frames ending in a
+    synchronize; no overflow after it, finite fields; a snapshot replay
+    bit-identical; no stream or pallas kernel launched; ms per frame,
+    particle-steps/s, peak memory; one profiled substep."""
+    mp, ma = step.no_mouse()
+    for backend in ("tiled", "sorted"):
+        for name, dim, n, frames in BACKEND_CELLS:
+            if backend == "tiled" and name == "3d-1m":
+                continue  # as bench.py: at 1M a contraction's intermediate is ~10 GB
+            t_cell = time.perf_counter()
+            cfg, p, dom = config_scene(dim, n)
+            device = p.device
+            check(device.type == "cuda", f"{name}: the scene defaults to the card, not {device}")
+            spec = tiled_spec(cfg, dom, n) if backend == "tiled" else None
+            if spec is not None:
+                check(int(tt.overflow_count(p.pos, dom, spec)) == 0, f"tiled {name}: no overflow at t=0")
+            sk.reset_launches()
+            pk.reset_launches()
+            if spec is not None:
+                a, ga = tt.substep(p, cfg, dom, mp, ma, spec)
+            else:
+                a, ga = step.substep(p, cfg, dom, mp, ma, backend=backend)
+            b, _ = step.substep(p, cfg, dom, mp, ma, backend="dense")
+            dpos = float((a.pos - b.pos).abs().max())
+            grid_mass = float(ga.mass.double().sum())
+            check(dpos <= 1e-4, f"{backend} {name}: one substep vs dense max|dpos| {dpos} <= 1e-4")
+            check(abs(grid_mass - n) <= 1e-4 * n, f"{backend} {name}: grid mass {grid_mass} == n")
+            del a, ga, b
+            torch.cuda.reset_peak_memory_stats(device)
+            sess = Session(cfg, dom, p, backend=backend, spec=spec)
+            sync(device)
+            t0 = time.perf_counter()
+            sess.run(frames)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            q = sess.particles()
+            if spec is not None:
+                check(int(tt.overflow_count(q.pos, dom, spec)) == 0, f"tiled {name}: no overflow after the run")
+            for f in state.FIELDS:
+                check(bool(torch.isfinite(getattr(q, f)).all()), f"{backend} {name}: finite {f}")
+            snap = sess.snapshot()
+            sess.frame()
+            first = sess.particles().clone()
+            sess.restore(snap)
+            sess.frame()
+            for f in state.FIELDS:
+                check(torch.equal(getattr(sess.particles(), f), getattr(first, f)),
+                      f"{backend} {name}: replay bit-identical: {f}")
+            check(not any(sk.LAUNCHES.values()) and not any(pk.LAUNCHES.values()),
+                  f"{backend} {name}: no stream or pallas kernel launched {sk.LAUNCHES} {pk.LAUNCHES}")
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            print(f"[backends] {backend} {name} (n={n}{f', A={spec.active} cap={spec.cap}' if spec else ''}): "
+                  f"one substep vs dense max|dpos| {dpos:.3e}, grid mass {grid_mass:.3f}; {frames} frames "
+                  f"{wall * 1e3 / frames:.2f} ms/frame {n * cfg.iterations * frames / wall:.4e} "
+                  f"particle-steps/s; replay bit-identical; peak memory {peak:.2f} GiB  [{card}]")
+            # one substep under the profiler: a frame's thousands of small ops
+            # take the profiler 8-23 s to summarise
+            q = sess.particles()
+            if spec is not None:
+                one = lambda: tt.frame(q, cfg, dom, mp, ma, substeps=1, spec=spec)  # noqa: E731
+            else:
+                one = lambda: step.frame_body(q, cfg, dom, mp, ma, backend, substeps=1)  # noqa: E731
+            profile_frame(types.SimpleNamespace(device=device, frame=one), f"{backend} {name}", card,
+                          top=3, tag="backends", span="substep")
+            print(f"[time] backends {backend} {name}: {time.perf_counter() - t_cell:.1f} s")
+            del sess, q, first, snap, p
+            torch.cuda.empty_cache()
+
+
 def app_frames(text: str, frames: int, labels) -> list:
     """The headless output's frame blocks, checked: ``frames`` blocks in
     order, each a non-empty 40x80 render followed by its timing lines with
@@ -806,6 +1075,16 @@ def phase_app(card: str, frames: int = 3) -> None:
     check(not any(sk.LAUNCHES.values()), f"app pallas: no stream kernel: {sk.LAUNCHES}")
     frame_ms = ", ".join(f"{t['frame']:.2f}" for t in app_frames(out.getvalue(), 2, ("frame",)))
     print(f"[app] main --dim 2 --backend pallas: ms/frame {frame_ms}; launches={launches}  [{card}]")
+    for backend in ("tiled", "sorted"):
+        pk.reset_launches()
+        sk.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            app.main(["--dim", "2", "--frames", "3", "--headless", "--backend", backend])
+        check(not any(sk.LAUNCHES.values()) and not any(pk.LAUNCHES.values()),
+              f"app {backend}: no stream or pallas kernel {sk.LAUNCHES} {pk.LAUNCHES}")
+        frame_ms = ", ".join(f"{t['frame']:.2f}" for t in app_frames(out.getvalue(), 3, ("frame",)))
+        print(f"[app] main --dim 2 --backend {backend}: ms/frame {frame_ms}  [{card}]")
     sk.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -1100,10 +1379,16 @@ def phase_profile(card: str, n: int = N_1M, top: int = 8) -> None:
         del sess, p
 
 
-def profile_frame(sess: Session, what: str, card: str, top: int = 8, tag: str = "profile") -> None:
-    """One frame of ``sess`` under torch.profiler: host wall time, device
-    time (the sum of every kernel's and copy's time), the csrc kernels'
-    share and the largest device entries."""
+CSRC_KERNELS = tuple(f"(anonymous namespace)::{k}<" for k in
+                     ("deposit_kernel", "collect_kernel", "halo_axes_kernel", "halo_axes_any_kernel"))
+
+
+def profile_frame(sess: Session, what: str, card: str, top: int = 8, tag: str = "profile",
+                  span: str = "frame") -> None:
+    """One ``sess.frame()`` (a frame, or the ``span`` it runs) under
+    torch.profiler: host wall time, device time (the sum of every kernel's
+    and copy's time), the csrc kernels' share and the largest device
+    entries."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(sess.device)
@@ -1115,10 +1400,10 @@ def profile_frame(sess: Session, what: str, card: str, top: int = 8, tag: str = 
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda e: e.device_time_total, reverse=True)
     device_ms = sum(e.device_time_total for e in rows) / 1e3
-    own_ms = sum(e.device_time_total for e in rows  # csrc/*.cu kernels
-                 if e.key.removeprefix("void ").startswith("(anonymous namespace)::")) / 1e3
+    own_ms = sum(e.device_time_total for e in rows  # csrc/*.cu kernels (PyTorch has
+                 if e.key.removeprefix("void ").startswith(CSRC_KERNELS)) / 1e3  # anonymous ones too)
     check(device_ms > 0, f"{what}: the profiler saw device time")
-    print(f"[{tag}] {what}, one frame: wall {wall_ms:.2f} ms (profiler on), device "
+    print(f"[{tag}] {what}, one {span}: wall {wall_ms:.2f} ms (profiler on), device "
           f"{device_ms:.2f} ms, busy {device_ms / wall_ms:.1%}; csrc kernels {own_ms:.2f} ms, "
           f"PyTorch ops {device_ms - own_ms:.2f} ms  [{card}]")
     for e in rows[:top]:
@@ -1143,23 +1428,35 @@ def main() -> int:
     print(f"[build] {cuda_build.library_path().name} in {build_s:.2f} s ({steps or 'cached'}; "
           f"ptxas report: chiprun_out/chip_smoke_ptxas.txt)")
 
-    results = phase_kernels(device, card)
-    phase_deposit_geometries(device, card)
-    results.update(phase_pallas_kernels(device, card))
-    phase_goldens(device, card)
-    launches = phase_slice(device, N_1M, card)
-    launches.update(phase_pallas_slice(card))
-    phase_replay(device, card)
-    phase_app(card)
-    phase_batch(device, card)
-    ghost = phase_shards(device, card)
-    phase_checkpoint(device, card, out_dir)
-    phase_profile(card)
+    def run(phase, *args):
+        """Run one phase and print its wall seconds."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    results = run(phase_kernels, device, card)
+    big_kinds = run(phase_deposit_geometries, device, card)
+    run(phase_digests, device, card)
+    results.update(run(phase_pallas_kernels, device, card))
+    run(phase_goldens, device, card)
+    launches = run(phase_slice, device, N_1M, card)
+    launches.update(run(phase_pallas_slice, card))
+    run(phase_big_tile, device, card)
+    run(phase_backends, card)
+    run(phase_replay, device, card)
+    run(phase_app, card)
+    run(phase_batch, device, card)
+    ghost = run(phase_shards, device, card)
+    run(phase_checkpoint, device, card, out_dir)
+    run(phase_profile, card)
 
     # the sharded path's ghost-gated launches stand as kinds of K4 and K5
     strip = ("ms", "plain_ms", "bound_ms", "bound_by", "on_path")
     results["halo_axis"]["kinds"]["halo_mass_ghost"] = {k: ghost["halo_mass_ghost"][k] for k in strip}
     results["halo_gblk"]["kinds"] = {"halo_gblk_ghost": {k: ghost["halo_gblk_ghost"][k] for k in strip}}
+    for name, kinds in big_kinds.items():  # K1-K3 at T=8, cap=1024
+        results[name]["kinds"] = {kind: {k: v[k] for k in strip} for kind, v in kinds.items()}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
          "launches": launches[name], **results[name]}
@@ -1174,4 +1471,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--record-digests"]:
+        # python3 chip_smoke.py --record-digests PATH: write DIGESTS' record
+        # from the kernels of the tree this script stands in
+        cuda_build.load()
+        with open(sys.argv[2], "w") as fh:
+            json.dump(kernel_digests(require_cuda(), 4, 256, 200_000), fh, indent=1)
+        sys.exit(0)
     sys.exit(main())

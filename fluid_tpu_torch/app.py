@@ -10,9 +10,9 @@ the terminal is restored in a ``finally`` block.
 
 ``--headless --frames N`` prints each frame and its timing lines without a
 TTY.  ``--timing`` shows phase times: the dense phases (``p2g 1``, ``p2g 2``,
-``update``, ``g2p``) on "dense", one ``substep`` time on "pallas", and on
-"stream" the session's frame plus a probe of each substep stage on its state
-(``utils/timing.StreamPhaseTimer``).  ``--shards N`` runs the sharded stream
+``update``, ``g2p``) on "dense", one ``substep`` time on "sorted", "tiled"
+and "pallas", and on "stream" the session's frame plus a probe of each
+substep stage on its state (``utils/timing.StreamPhaseTimer``).  ``--shards N`` runs the sharded stream
 backend (``parallel/stream_shard.ShardedSession``) over the first N cards,
 or over N CPU shards with ``--cpu``; it has no timing overlay.
 
@@ -24,6 +24,7 @@ Usage::
     python -m fluid_tpu_torch.app --dim 2            # interactive, q quits
     python -m fluid_tpu_torch.app --dim 3 --headless --frames 10
     python -m fluid_tpu_torch.app --cpu --dim 2 --frames 2 --headless
+    python -m fluid_tpu_torch.app --cpu --backend tiled --frames 3 --headless
     python -m fluid_tpu_torch.app --cpu --shards 2 --frames 2 --headless
 """
 
@@ -45,11 +46,6 @@ from .config import default_2d, default_3d
 from .session import Session, default_backend
 from .utils.platform import cuda_devices, require_cuda, resolve_device
 from .utils.timing import PhaseTimer, StreamPhaseTimer
-
-# backends of the JAX app that the port does not have yet, and the module
-# of the port that brings them
-NOT_PORTED = {"sorted": "M8", "tiled": "M8"}
-
 
 @dataclass
 class Quit:
@@ -217,9 +213,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.timing and args.shards:
         raise SystemExit("--timing is single-device only (drop --shards)")
-    if args.backend in NOT_PORTED:
-        raise SystemExit(f"--backend {args.backend}: not ported yet "
-                         f"({NOT_PORTED[args.backend]})")
     if args.cpu:
         device = torch.device("cpu")
     else:

@@ -22,15 +22,19 @@
 // Every kernel launches one block per active tile (the halo packs several)
 // over all A tiles: a tile whose count is 0 writes zeros and returns (the
 // halo reads it as zero), so no output is ever left uninitialized and the
-// host never reads a count to size a grid.  Deposits scatter each particle's
-// 3^D taps, one lane per tap, into a tile window in shared memory, one
-// particle after the other in slot order: no float atomics, every cell sums
-// its particles in slot order (p2g2: two slot ranges, each in slot order,
-// then added in a fixed order), so every launch sums alike and a replayed
-// snapshot is bit-identical.  Build with -fmad=false: every product and sum
-// is rounded on its own, in the order of the plain PyTorch versions in
-// ops/stream_kernels.py, which the on-card check compares against (the
-// plain deposits' index_add_ sums particles in its own order).
+// host never reads a count to size a grid.  A deposit or collect block has
+// one thread per slot of a chunk of min(cap, 256) slots and walks the
+// tile's slots chunk by chunk, so any cap that is a multiple of 32 launches
+// and its shared memory holds one chunk's stage, not cap's.  Deposits
+// scatter each particle's 3^D taps, one lane per tap, into a tile window in
+// shared memory, one particle after the other in slot order: no float
+// atomics, every cell sums its particles in slot order (p2g2: two slot
+// ranges, each in slot order, then added in a fixed order), so every launch
+// sums alike and a replayed snapshot is bit-identical.  Build with
+// -fmad=false: every product and sum is rounded on its own, in the order
+// of the plain PyTorch versions in ops/stream_kernels.py, which the
+// on-card check compares against (the plain deposits' index_add_ sums
+// particles in its own order).
 //
 // The B-spline weights, the Tait pressure and the particle tail come from
 // mpm_common.cuh, shared with the pallas backend's kernels.
@@ -64,10 +68,15 @@ __device__ __forceinline__ int div_by(int n, FastDiv f) {
 
 __host__ __device__ constexpr int pow3(int n) { return n == 0 ? 1 : 3 * pow3(n - 1); }
 
+// Widest chunk of slots a deposit or collect block takes at a time (its
+// thread count, p2g2 aside).
+constexpr int CHUNK_MAX = 256;
+
 struct Geom {
   int A;          // active tiles (grid size)
   int T, h, E;    // tile edge, halo reach, window edge
-  int cap;        // slots per tile (== blockDim.x of deposit/collect)
+  int cap;        // slots per tile, a multiple of 32
+  int chunk;      // slots staged and walked at a time: min(cap, CHUNK_MAX)
   int ncell;      // E^D
   int F;          // stream rows
   int tshape[3];  // tiles per axis
@@ -298,6 +307,127 @@ __device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt, float
   }
 }
 
+// The same deposit for a tile of more than one chunk (cap > CHUNK_MAX):
+// window_clear after the first chunk's staging, window_walk for each chunk
+// in slot order, window_store after the last.  A chunk's walk takes each
+// part's slots that the chunk holds, so every (part, channel) window sums
+// its particles in slot order from 0.0f, as deposit_window's walk does.
+// deposit_window stays the one-chunk path: at the 1M shape, cap 128, K2
+// through window_walk measured 0.324-0.341 ms against 0.309-0.317 ms
+// through deposit_window (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py's
+// kernels phase, the two in turns in each call): the compiled walk
+// recomputed the window's shared-memory base before every add.
+template <int NV>
+__device__ __forceinline__ void window_clear(const Geom& g, float* win) {
+  for (int i = threadIdx.x; i < NV * g.wch; i += blockDim.x) win[i] = 0.0f;
+}
+
+// Deposits the chunk of slots [c0, c0 + cn) of the tile's cnt, staged as
+// records 0 .. cn - 1.  Every thread of the block calls it after the
+// __syncthreads that follows the chunk's staging and window_clear.
+template <int D, bool P2G2, int SPLIT>
+__device__ void window_walk(const Stage<D>& sh, const Geom& g, int cnt, int c0, int cn,
+                            float* win) {
+  constexpr int CH = P2G2 ? D : 1 + D;
+  constexpr int NV = SPLIT * CH;      // (part, channel) windows
+  constexpr int K = D == 3 ? 27 : 9;  // taps
+  constexpr int G = 32 / K;           // channels per warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
+
+  const int k = lane % K, sub = lane / K;
+  int o[D];
+  int tap = 0;
+  {
+    int r = k;
+    for (int d = 0; d < D; ++d) {  // stencil order, axis 0 fastest
+      o[d] = r % 3;
+      r /= 3;
+      tap += o[d] * g.wstride[d];
+    }
+  }
+  const int steps = (cnt + SPLIT - 1) / SPLIT;  // particles per part
+  // the walk's length, the same for every warp: the longest part's share
+  // of this chunk (one part: the chunk)
+  int walk = cn;
+  if (SPLIT > 1) {
+    walk = 0;
+    for (int p = 0; p < SPLIT; ++p) {
+      const int lo = max(p * steps, c0), hi = min(min((p + 1) * steps, cnt), c0 + cn);
+      walk = max(walk, hi - lo);
+    }
+  }
+  for (int v0 = warp * G; v0 < NV; v0 += nwarp * G) {  // uniform over the warp
+    const int vc = v0 + sub;
+    const bool on = sub < G && vc < NV;
+    const int c = vc % CH;
+    // this lane's part's slots in the chunk: records first .. first + len - 1
+    // (one part: every record of the chunk, len == walk)
+    const int lo = max(vc / CH * steps, c0);
+    const int len = min(min(vc / CH * steps + steps, cnt), c0 + cn) - lo;
+    const int first = lo - c0;
+    float* wc = win + vc * g.wch + tap;
+    const int i = P2G2 ? c : c - 1;  // the row of C (and v) this lane's channel reads
+    // this lane's value of record first + s and the cell it lands in
+    auto tap_value = [&](int s, int* cell) {
+      const float4* r = sh.q + (first + s) * Stage<D>::RQ;
+      const float* rw = reinterpret_cast<const float*>(r) + Stage<D>::W;
+      const float4 q0 = r[0];
+      float w = rw[o[0]];
+      for (int d = 1; d < D; ++d) w = w * rw[3 * d + o[d]];
+      float dpos[D];
+      for (int d = 0; d < D; ++d) dpos[d] = static_cast<float>(o[d] - 1) - comp(q0, d);
+      *cell = reinterpret_cast<const int*>(r + 1 + D)[0];
+      if (!P2G2 && c == 0) return w * comp(q0, D);
+      const float4 qi = r[1 + i];
+      float f = comp(qi, 0) * dpos[0];
+      for (int j = 1; j < D; ++j) f = f + comp(qi, j) * dpos[j];
+      return P2G2 ? w * f : (w * comp(q0, D)) * (comp(qi, D) + f);
+    };
+    // two particles' values at a time, their adds in slot order; the parts'
+    // shares differ in length, so the warp steps to the longest and a lane
+    // past its own share adds nothing
+    int s = 0;
+    for (; s + 1 < walk; s += 2) {
+      const bool on0 = on && (SPLIT == 1 || s < len);
+      const bool on1 = on && (SPLIT == 1 || s + 1 < len);
+      int cell0 = 0, cell1 = 0;
+      float val0 = 0.0f, val1 = 0.0f;
+      if (on0) val0 = tap_value(s, &cell0);
+      if (on1) val1 = tap_value(s + 1, &cell1);
+      if (on0) wc[cell0] = wc[cell0] + val0;
+      __syncwarp();
+      if (on1) wc[cell1] = wc[cell1] + val1;
+      __syncwarp();
+    }
+    if (s < walk) {
+      if (on && (SPLIT == 1 || s < len)) {
+        int cell;
+        const float val = tap_value(s, &cell);
+        wc[cell] = wc[cell] + val;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Writes the windows out after the last walk (and a __syncthreads).
+template <int D, bool P2G2, int SPLIT = 1>
+__device__ void window_store(const Geom& g, const float* win, float* __restrict__ out,
+                             const float* __restrict__ d1) {
+  constexpr int CH = P2G2 ? D : 1 + D;
+  for (int i = threadIdx.x; i < CH * g.ncell; i += blockDim.x) {
+    const int c = div_by(i, g.divN);
+    int ec[D];
+    window_coords<D>(i - c * g.ncell, g, ec);
+    int cell = c * g.wch;
+    for (int d = 0; d < D; ++d) cell += ec[d] * g.wstride[d];
+    float acc = win[cell];
+    for (int p = 1; p < SPLIT; ++p) acc = acc + win[p * CH * g.wch + cell];
+    out[i] = P2G2 ? acc + d1[g.ncell + i] : acc;
+  }
+}
+
 // deposit_kernel — replaces make_deposit_kernel (stream_transfer.py:676),
 // modes p2g1 and p2g2.
 //
@@ -328,8 +458,17 @@ __device__ void deposit_window(const Stage<D>& sh, const Geom& g, int cnt, float
 // in shared memory for the gather was slower with the split.
 // params: [dt, rest_density, eos_stiffness, eos_power, pressure_floor, mu].
 constexpr int P2G2_SPLIT = 2;
-
-template <int D, bool P2G2>
+//
+// MULTI: the instantiation for cap > CHUNK_MAX, which stages and walks one
+// chunk of slots after the other (window_walk); a launch at cap <=
+// CHUNK_MAX takes the one-chunk instantiation, which stages every slot and
+// runs deposit_window.  At bench.py's big-tile spec on the 1M dam (T=8,
+// cap 1024, A = 4,096, 2,197 occupied tiles of up to 590 particles, three
+// chunks) K1 took 0.351-0.378 ms and K2 0.526-0.548 ms (same card,
+// chip_smoke.py), 6.6x and 8.3x their byte bounds: each walking warp
+// steps through ~450 particles of its tile, and three blocks fit an SM
+// (68.7 KB of shared memory for p2g1) where seven fit at T=4, cap 128.
+template <int D, bool P2G2, bool MULTI>
 __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
                                const int* __restrict__ tidv,
                                const float* __restrict__ stream,
@@ -338,9 +477,9 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
                                const float* __restrict__ params,
                                float* __restrict__ out) {
   constexpr int CH = P2G2 ? D : 1 + D;
+  constexpr int SPLIT = P2G2 ? P2G2_SPLIT : 1;
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x;
-  const int s = threadIdx.x;
   const int cap = g.cap;
   const int cnt = count[a];
   float* tile_out = out + static_cast<int64_t>(a) * CH * g.ncell;
@@ -350,54 +489,76 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
   }
   const int tid = tidv[a];
   const Stage<D> sh(smem);
+  float* win = smem + Stage<D>::words_per_slot() * g.chunk;
   const float* blk = stream + static_cast<int64_t>(a) * g.F * cap;
-  if (s < cnt) {
-    float pos[D], C[D * D];
-    for (int d = 0; d < D; ++d) pos[d] = blk[d * cap + s];
-    for (int ij = 0; ij < D * D; ++ij) C[ij] = blk[(2 * D + ij) * cap + s];
-    const Stencil<D> st = stencil_of<D>(g, tid, pos);
-    const float mass = blk[(2 * D + D * D) * cap + s];
-    if (!P2G2) {
-      float v[D];
-      for (int i = 0; i < D; ++i) v[i] = blk[(D + i) * cap + s];
-      sh.store(s, st, mass, v, C);
-    } else {
-      // density gather from the halo'd mass window, taps in stencil order
-      const float* mw = hs_m + static_cast<int64_t>(a) * g.ncell;
-      float rho = 0.0f;
-      for_taps<D>(st, g, [&](float w, int e, const float*) { rho = rho + w * mw[e]; });
-      const float dt = params[0], rest = params[1], k_eos = params[2];
-      const float gamma = params[3], floor_p = params[4], mu = params[5];
-      const float volume = rho > 0.0f ? mass / rho : 0.0f;
-      const float pressure = mpm::tait_pressure(rho, rest, k_eos, gamma, floor_p);
-      const float scale = (-4.0f * dt) * volume;
-      float term[D * D];
-      for (int i = 0; i < D; ++i) {
-        for (int j = 0; j < D; ++j) {
-          const float visc = mu * (C[i * D + j] + C[j * D + i]);
-          term[i * D + j] = scale * (i == j ? -pressure + visc : visc);
+  // stages the chunk of slots [c0, c0 + cn) as records 0 .. cn - 1
+  auto stage = [&](int c0, int cn) {
+    const int r = threadIdx.x, s = c0 + r;  // record, slot
+    if (r < cn) {
+      float pos[D], C[D * D];
+      for (int d = 0; d < D; ++d) pos[d] = blk[d * cap + s];
+      for (int ij = 0; ij < D * D; ++ij) C[ij] = blk[(2 * D + ij) * cap + s];
+      const Stencil<D> st = stencil_of<D>(g, tid, pos);
+      const float mass = blk[(2 * D + D * D) * cap + s];
+      if (!P2G2) {
+        float v[D];
+        for (int i = 0; i < D; ++i) v[i] = blk[(D + i) * cap + s];
+        sh.store(r, st, mass, v, C);
+      } else {
+        // density gather from the halo'd mass window, taps in stencil order
+        const float* mw = hs_m + static_cast<int64_t>(a) * g.ncell;
+        float rho = 0.0f;
+        for_taps<D>(st, g, [&](float w, int e, const float*) { rho = rho + w * mw[e]; });
+        const float dt = params[0], rest = params[1], k_eos = params[2];
+        const float gamma = params[3], floor_p = params[4], mu = params[5];
+        const float volume = rho > 0.0f ? mass / rho : 0.0f;
+        const float pressure = mpm::tait_pressure(rho, rest, k_eos, gamma, floor_p);
+        const float scale = (-4.0f * dt) * volume;
+        float term[D * D];
+        for (int i = 0; i < D; ++i) {
+          for (int j = 0; j < D; ++j) {
+            const float visc = mu * (C[i * D + j] + C[j * D + i]);
+            term[i * D + j] = scale * (i == j ? -pressure + visc : visc);
+          }
         }
+        sh.store(r, st, mass, nullptr, term);
       }
-      sh.store(s, st, mass, nullptr, term);
     }
+  };
+  const float* d1a = P2G2 ? d1 + static_cast<int64_t>(a) * (1 + D) * g.ncell : nullptr;
+  if constexpr (!MULTI) {
+    stage(0, cnt);
+    __syncthreads();
+    deposit_window<D, P2G2, SPLIT>(sh, g, cnt, win, tile_out, d1a);
+  } else {
+    for (int c0 = 0; c0 < cnt; c0 += g.chunk) {
+      const int cn = min(g.chunk, cnt - c0);
+      stage(c0, cn);
+      __syncthreads();
+      if (c0 == 0) {
+        window_clear<SPLIT * CH>(g, win);
+        __syncthreads();
+      }
+      window_walk<D, P2G2, SPLIT>(sh, g, cnt, c0, cn, win);
+      __syncthreads();  // the walk has read the stage before the next chunk
+    }
+    window_store<D, P2G2, SPLIT>(g, win, tile_out, d1a);
   }
-  __syncthreads();
-  deposit_window<D, P2G2, P2G2 ? P2G2_SPLIT : 1>(
-      sh, g, cnt, smem + Stage<D>::words_per_slot() * cap, tile_out,
-      P2G2 ? d1 + static_cast<int64_t>(a) * (1 + D) * g.ncell : nullptr);
 }
 
 // collect_kernel — replaces make_collect_kernel (stream_transfer.py:1163).
 //
-// One thread per slot: g2p from the tile's grid-value window gblk
-// [1+D, E^D] (v rows, then mass): v = sum w gv, B = sum w gv (x) dpos,
-// C = 4B, rho = sum w m; pressure; then the particle tail: advect, the mouse
+// One thread per slot of a chunk, chunk after chunk: g2p from the tile's
+// grid-value window gblk [1+D, E^D] (v rows, then mass): v = sum w gv,
+// B = sum w gv (x) dpos, C = 4B, rho = sum w m; pressure; then the
+// particle tail: advect, the mouse
 // impulse after advection (quirk Q3), clamp and the un-scaled soft wall
 // (quirk Q2) with x walls shifted by the packed-scene stride, and the drift
 // flag (2.0 when the new cell leaves [1-h, T-2+h]).  Writes a NEW stream
 // buffer (out of place); invalid slots write zero rows and a zero flag.
 // FUSED also deposits the next substep's p2g1 windows from the updated
-// particles (same device function as deposit_kernel<D, false>).
+// particles (the same window walk as deposit_kernel<D, false>, one chunk
+// after the other in slot order).
 //
 // Bound: by the layout, per tile it reads the stream block (9.7 KB) and the
 // gblk window (8 KB, 27 taps per particle, within one 8 KB block so they hit
@@ -408,9 +569,11 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 // the tap-parallel deposit of deposit_kernel 0.49 ms fused and 0.21 ms
 // unfused (the g2p and tail alone), ~2.1x the fused byte bound.
 //
+// MULTI as for deposit_kernel.
+//
 // params: [dt, rest, k, gamma, floor, mouse_radius, damp, mouse_active,
 //          mouse_x, mouse_y, lo[D], hi[D], scene_stride].
-template <int D, bool FUSED>
+template <int D, bool FUSED, bool MULTI>
 __global__ void collect_kernel(Geom g, const int* __restrict__ count,
                                const int* __restrict__ tidv,
                                const float* __restrict__ params,
@@ -421,7 +584,6 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
                                float* __restrict__ dep) {
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x;
-  const int s = threadIdx.x;
   const int cap = g.cap, F = g.F;
   const int cnt = count[a];
   const float* blk = stream + static_cast<int64_t>(a) * F * cap;
@@ -436,66 +598,80 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
     return;
   }
   const int tid = tidv[a];
-  const bool valid = s < cnt;
-  float newpos[D], v[D], newC[D * D];
-  float mass = 0.0f;
-  if (valid) {
-    float pos[D];
-    for (int d = 0; d < D; ++d) pos[d] = blk[d * cap + s];
-    const Stencil<D> st = stencil_of<D>(g, tid, pos);
-    const float* gw = gblk + static_cast<int64_t>(a) * (1 + D) * g.ncell;
-    float B[D][D];
-    for (int i = 0; i < D; ++i) {
-      v[i] = 0.0f;
-      for (int j = 0; j < D; ++j) B[i][j] = 0.0f;
-    }
-    float rho = 0.0f;
-    for_taps<D>(st, g, [&](float w, int e, const float* dpos) {
+  const Stage<D> sh(smem);
+  float* win = FUSED ? smem + Stage<D>::words_per_slot() * g.chunk : nullptr;
+  for (int c0 = 0; c0 < cap; c0 += g.chunk) {  // blockDim.x == g.chunk
+    const int s = c0 + threadIdx.x;
+    const bool valid = s < cnt;
+    float newpos[D], v[D], newC[D * D];
+    float mass = 0.0f;
+    if (valid) {
+      float pos[D];
+      for (int d = 0; d < D; ++d) pos[d] = blk[d * cap + s];
+      const Stencil<D> st = stencil_of<D>(g, tid, pos);
+      const float* gw = gblk + static_cast<int64_t>(a) * (1 + D) * g.ncell;
+      float B[D][D];
       for (int i = 0; i < D; ++i) {
-        const float wv = w * gw[i * g.ncell + e];
-        v[i] = v[i] + wv;
-        for (int j = 0; j < D; ++j) B[i][j] = B[i][j] + wv * dpos[j];
+        v[i] = 0.0f;
+        for (int j = 0; j < D; ++j) B[i][j] = 0.0f;
       }
-      rho = rho + w * gw[D * g.ncell + e];
-    });
-    for (int i = 0; i < D; ++i)
-      for (int j = 0; j < D; ++j) newC[i * D + j] = 4.0f * B[i][j];
+      float rho = 0.0f;
+      for_taps<D>(st, g, [&](float w, int e, const float* dpos) {
+        for (int i = 0; i < D; ++i) {
+          const float wv = w * gw[i * g.ncell + e];
+          v[i] = v[i] + wv;
+          for (int j = 0; j < D; ++j) B[i][j] = B[i][j] + wv * dpos[j];
+        }
+        rho = rho + w * gw[D * g.ncell + e];
+      });
+      for (int i = 0; i < D; ++i)
+        for (int j = 0; j < D; ++j) newC[i * D + j] = 4.0f * B[i][j];
 
-    const float dt = params[0];
-    const float stride = params[10 + 2 * D];
-    const float pressure = mpm::tait_pressure(rho, params[1], params[2], params[3], params[4]);
-    for (int d = 0; d < D; ++d) newpos[d] = pos[d] + v[d] * dt;
-    // packed scenes shift the x walls by the owning scene's offset
-    const float sbase = stride > 0.0f ? floorf(newpos[0] / fmaxf(stride, 1.0f)) * stride : 0.0f;
-    mpm::particle_tail<D>(newpos, v, params, sbase);
+      const float dt = params[0];
+      const float stride = params[10 + 2 * D];
+      const float pressure = mpm::tait_pressure(rho, params[1], params[2], params[3], params[4]);
+      for (int d = 0; d < D; ++d) newpos[d] = pos[d] + v[d] * dt;
+      // packed scenes shift the x walls by the owning scene's offset
+      const float sbase = stride > 0.0f ? floorf(newpos[0] / fmaxf(stride, 1.0f)) * stride : 0.0f;
+      mpm::particle_tail<D>(newpos, v, params, sbase);
 
-    // drift flag: the next deposit must stay inside the tile's window
-    float fl = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const int lcn = mpm::local_cell(floorf(newpos[d]), d, D, tid, g.T, g.tshape, g.origin);
-      if (lcn < 1 - g.h || lcn > g.T - 2 + g.h) fl = 2.0f;
+      // drift flag: the next deposit must stay inside the tile's window
+      float fl = 0.0f;
+      for (int d = 0; d < D; ++d) {
+        const int lcn = mpm::local_cell(floorf(newpos[d]), d, D, tid, g.T, g.tshape, g.origin);
+        if (lcn < 1 - g.h || lcn > g.T - 2 + g.h) fl = 2.0f;
+      }
+      mass = blk[(2 * D + D * D) * cap + s];
+      const float pid = blk[(2 * D + D * D + 1) * cap + s];
+      for (int d = 0; d < D; ++d) oblk[d * cap + s] = newpos[d];
+      for (int d = 0; d < D; ++d) oblk[(D + d) * cap + s] = v[d];
+      for (int ij = 0; ij < D * D; ++ij) oblk[(2 * D + ij) * cap + s] = newC[ij];
+      oblk[(2 * D + D * D) * cap + s] = mass;
+      oblk[(2 * D + D * D + 1) * cap + s] = pid;
+      oblk[(2 * D + D * D + 2) * cap + s] = rho;
+      oblk[(2 * D + D * D + 3) * cap + s] = pressure;
+      flag[static_cast<int64_t>(a) * cap + s] = fl;
+    } else if (s < cap) {
+      for (int f = 0; f < F; ++f) oblk[f * cap + s] = 0.0f;
+      flag[static_cast<int64_t>(a) * cap + s] = 0.0f;
     }
-    mass = blk[(2 * D + D * D) * cap + s];
-    const float pid = blk[(2 * D + D * D + 1) * cap + s];
-    for (int d = 0; d < D; ++d) oblk[d * cap + s] = newpos[d];
-    for (int d = 0; d < D; ++d) oblk[(D + d) * cap + s] = v[d];
-    for (int ij = 0; ij < D * D; ++ij) oblk[(2 * D + ij) * cap + s] = newC[ij];
-    oblk[(2 * D + D * D) * cap + s] = mass;
-    oblk[(2 * D + D * D + 1) * cap + s] = pid;
-    oblk[(2 * D + D * D + 2) * cap + s] = rho;
-    oblk[(2 * D + D * D + 3) * cap + s] = pressure;
-    flag[static_cast<int64_t>(a) * cap + s] = fl;
-  } else if (s < cap) {
-    for (int f = 0; f < F; ++f) oblk[f * cap + s] = 0.0f;
-    flag[static_cast<int64_t>(a) * cap + s] = 0.0f;
+    if (FUSED && c0 < cnt) {  // stage the chunk's updated particles, then walk them
+      if (valid) sh.store(threadIdx.x, stencil_of<D>(g, tid, newpos), mass, v, newC);
+      __syncthreads();
+      if constexpr (!MULTI) {
+        deposit_window<D, false>(sh, g, cnt, win, tile_dep, nullptr);
+        return;
+      }
+      if (c0 == 0) {
+        window_clear<1 + D>(g, win);
+        __syncthreads();
+      }
+      window_walk<D, false, 1>(sh, g, cnt, c0, min(g.chunk, cnt - c0), win);
+      __syncthreads();  // the walk has read the stage before the next chunk
+    }
+    if (!MULTI) return;
   }
-  if (FUSED) {
-    const Stage<D> sh(smem);
-    if (valid) sh.store(s, stencil_of<D>(g, tid, newpos), mass, v, newC);
-    __syncthreads();
-    deposit_window<D, false>(sh, g, cnt, smem + Stage<D>::words_per_slot() * cap, tile_dep,
-                             nullptr);
-  }
+  if (FUSED) window_store<D, false>(g, win, tile_dep, nullptr);
 }
 
 // Halo windows overlap by E - T = 2h cells along each axis.  One pass along
@@ -758,6 +934,7 @@ Geom make_geom(int dim, int A, int T, int h, int cap, const int* tshape, const i
   g.h = h;
   g.E = T + 2 * h;
   g.cap = cap;
+  g.chunk = cap < CHUNK_MAX ? cap : CHUNK_MAX;
   g.ncell = 1;
   for (int d = 0; d < dim; ++d) g.ncell *= g.E;
   g.F = 2 * dim + dim * dim + 4;
@@ -778,30 +955,33 @@ Geom make_geom(int dim, int A, int T, int h, int cap, const int* tshape, const i
   return g;
 }
 
-// Dynamic shared memory of a deposit or collect block: the stage, then the
-// deposit window of `nwin` channels (p2g2: its P2G2_SPLIT partial windows).
+// Dynamic shared memory of a deposit or collect block: one chunk's stage,
+// then the deposit window of `nwin` channels (p2g2: its P2G2_SPLIT partial
+// windows).
 template <int D>
 size_t block_bytes(const Geom& g, int nwin) {
-  return (static_cast<size_t>(Stage<D>::words_per_slot()) * g.cap + nwin * g.wch) *
+  return (static_cast<size_t>(Stage<D>::words_per_slot()) * g.chunk + nwin * g.wch) *
          sizeof(float);
 }
 
-// Threads of a deposit or collect block: one per slot, and for p2g2 at
-// least one warp per (part, channel) window of its walk.
+// Threads of a deposit or collect block: one per slot of a chunk, and for
+// p2g2 at least one warp per (part, channel) window of its walk.
 template <int D>
 int block_threads(const Geom& g, bool p2g2) {
   constexpr int G = 32 / (D == 3 ? 27 : 9);  // channels per warp
   const int warps = (P2G2_SPLIT * D + G - 1) / G;
-  return p2g2 && 32 * warps > g.cap ? 32 * warps : g.cap;
+  return p2g2 && 32 * warps > g.chunk ? 32 * warps : g.chunk;
 }
 
 // Launches a deposit or collect kernel, one block per tile, with `smem`
 // bytes of dynamic shared memory.  Past the 48 KB a launch gets by default
-// (3D at cap = 256, or wider windows) the kernel is first opted into its
-// size; a size the card cannot give returns that call's error.
+// (3D at a chunk of 256 slots, or wider windows) the kernel is first opted
+// into its size; a size the card cannot give returns that call's error, as
+// does a cap that is not a positive multiple of 32.
 template <typename... P, typename... Args>
 int launch_tiles(void (*kernel)(Geom, P...), const Geom& g, int threads, size_t smem,
                  cudaStream_t st, Args... args) {
+  if (g.cap <= 0 || g.cap % 32) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -861,6 +1041,23 @@ int launch_halo(const float* x, const int* count, const int* nbr, float* out, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// A deposit launch: the one-chunk or the MULTI instantiation by cap.
+template <int D, bool P2G2, typename... Args>
+int launch_deposit(const Geom& g, cudaStream_t st, Args... args) {
+  const int threads = P2G2 ? block_threads<D>(g, true) : g.chunk;
+  const size_t smem = block_bytes<D>(g, P2G2 ? P2G2_SPLIT * D : 1 + D);
+  return g.cap > CHUNK_MAX ? launch_tiles(deposit_kernel<D, P2G2, true>, g, threads, smem, st, args...)
+                           : launch_tiles(deposit_kernel<D, P2G2, false>, g, threads, smem, st, args...);
+}
+
+// A collect launch, likewise; the unfused collect needs no shared memory.
+template <int D, bool FUSED, typename... Args>
+int launch_collect(const Geom& g, cudaStream_t st, Args... args) {
+  const size_t smem = FUSED ? block_bytes<D>(g, 1 + D) : 0;
+  return g.cap > CHUNK_MAX ? launch_tiles(collect_kernel<D, FUSED, true>, g, g.chunk, smem, st, args...)
+                           : launch_tiles(collect_kernel<D, FUSED, false>, g, g.chunk, smem, st, args...);
+}
+
 }  // namespace
 
 extern "C" {
@@ -872,14 +1069,10 @@ int fluid_deposit(int dim, int mode, const int* count, const int* tid,
                   const int* tshape, const int* origin, void* cuda_stream) {
   const Geom g = make_geom(dim, A, T, h, cap, tshape, origin);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  if (dim == 2 && mode == 1)
-    return launch_tiles(deposit_kernel<2, false>, g, g.cap, block_bytes<2>(g, 3), st, count, tid, stream, hs_m, d1, params, out);
-  if (dim == 2 && mode == 2)
-    return launch_tiles(deposit_kernel<2, true>, g, block_threads<2>(g, true), block_bytes<2>(g, P2G2_SPLIT * 2), st, count, tid, stream, hs_m, d1, params, out);
-  if (dim == 3 && mode == 1)
-    return launch_tiles(deposit_kernel<3, false>, g, g.cap, block_bytes<3>(g, 4), st, count, tid, stream, hs_m, d1, params, out);
-  if (dim == 3 && mode == 2)
-    return launch_tiles(deposit_kernel<3, true>, g, block_threads<3>(g, true), block_bytes<3>(g, P2G2_SPLIT * 3), st, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 2 && mode == 1) return launch_deposit<2, false>(g, st, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 2 && mode == 2) return launch_deposit<2, true>(g, st, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 3 && mode == 1) return launch_deposit<3, false>(g, st, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 3 && mode == 2) return launch_deposit<3, true>(g, st, count, tid, stream, hs_m, d1, params, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -889,14 +1082,10 @@ int fluid_collect(int dim, int fused, const int* count, const int* tid,
                   int cap, const int* tshape, const int* origin, void* cuda_stream) {
   const Geom g = make_geom(dim, A, T, h, cap, tshape, origin);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  if (dim == 2 && !fused)
-    return launch_tiles(collect_kernel<2, false>, g, g.cap, 0, st, count, tid, params, stream, gblk, out_stream, flag, dep);
-  if (dim == 2 && fused)
-    return launch_tiles(collect_kernel<2, true>, g, g.cap, block_bytes<2>(g, 3), st, count, tid, params, stream, gblk, out_stream, flag, dep);
-  if (dim == 3 && !fused)
-    return launch_tiles(collect_kernel<3, false>, g, g.cap, 0, st, count, tid, params, stream, gblk, out_stream, flag, dep);
-  if (dim == 3 && fused)
-    return launch_tiles(collect_kernel<3, true>, g, g.cap, block_bytes<3>(g, 4), st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 2 && !fused) return launch_collect<2, false>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 2 && fused) return launch_collect<2, true>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 3 && !fused) return launch_collect<3, false>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 3 && fused) return launch_collect<3, true>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -354,11 +354,12 @@ def _launch(name: str, fn, *args, counts: dict = LAUNCHES) -> None:
 
 
 def check_cap(cap: int) -> None:
-    """Raise unless ``cap`` suits the kernels: one thread per slot, whole
-    warps, at most 256 (``StreamSpec`` checks it when it is built)."""
-    if cap > 256 or cap % 32:
-        raise ValueError(f"cap {cap}: the kernels launch one thread per slot, "
-                         "whole warps of at most 256")
+    """Raise unless ``cap`` suits the kernels: a positive multiple of 32, as
+    a deposit or collect block walks its slots in chunks of whole warps
+    (``StreamSpec`` checks it when it is built)."""
+    if cap <= 0 or cap % 32:
+        raise ValueError(f"cap {cap}: the kernels walk a tile's slots in whole "
+                         "warps, so cap must be a positive multiple of 32")
 
 
 def _check_tiles(count, tid, stream, g: TileGeom):

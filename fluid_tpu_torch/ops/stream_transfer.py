@@ -51,7 +51,7 @@ class StreamSpec:
     """Static layout parameters."""
 
     tile: int = 4  # T: cells per tile edge
-    cap: int = 128  # particle slots per tile (one CUDA thread per slot: whole warps, <= 256)
+    cap: int = 128  # particle slots per tile (a multiple of 32: the kernels walk whole warps)
     halo: int = 2  # h: window reach beyond the tile; E = T + 2h
     active: int = 64  # A: active-tile budget
     # packed-scene stride along x: per-scene walls at

@@ -6,9 +6,10 @@ stays binned on the device between frames; the console histogram is
 reduced straight from the binned slots, and ``particles()`` un-bins on
 demand.
 
-The other backends ("dense", "pallas") hold a ``ParticleState`` and go
-through ``step.frame``, as in JAX.  The state lives on ``device``, the card
-unless the caller passes ``device="cpu"``.
+The other backends ("dense", "sorted", "tiled", "pallas") hold a
+``ParticleState`` and go through ``step.frame``, as in JAX; "tiled" runs
+``tiled_transfer.frame`` with the session's ``spec``.  The state lives on
+``device``, the card unless the caller passes ``device="cpu"``.
 
 Differences from the JAX ``Session``: PyTorch runs eagerly, so ``run(k)``
 is a loop of ``frame()`` (the JAX session fuses k frames into one program)
@@ -27,6 +28,7 @@ from . import step
 from .config import Config
 from .domain import Domain
 from .ops import stream_transfer as stx
+from .ops import tiled_transfer as tt
 from .state import ParticleState
 from .utils.platform import resolve_device
 
@@ -42,8 +44,9 @@ class Session:
     """Holds simulation state across frames.
 
     cfg, domain : static setup;  p : initial particles (moved to ``device``)
-    backend : "stream", "dense" or "pallas"; None -> ``default_backend(device)``
-    spec : StreamSpec override (stream only; "pallas" uses
+    backend : one of ``step.BACKENDS``; None -> ``default_backend(device)``
+    spec : layout override: a StreamSpec for "stream", a TileSpec for
+        "tiled"; None is the backend's default ("pallas" always uses
         ``tiled_transfer.default_spec``, as in JAX)
     strict : after every frame check particle conservation and the
         active-budget watermark (stream only; one small device read)
@@ -71,7 +74,7 @@ class Session:
                     f"fit the slot structure (raise spec.active/cap)"
                 )
             self._st = stx.bin_particles(p, domain, self.spec, dt=cfg.dt)
-        elif self.backend in ("dense", "pallas"):
+        elif self.backend in step.BACKENDS:
             self.spec = spec
             self._p = p
         else:
@@ -88,6 +91,8 @@ class Session:
             )
             if self.strict:
                 self._check(f"frame {self._frames}")
+        elif self.backend == "tiled":
+            self._p = tt.frame(self._p, self.cfg, self.domain, mp, ma, spec=self.spec)
         else:
             self._p = step.frame(self._p, self.cfg, self.domain, mp, ma, self.backend)
         self._frames += 1

@@ -2,14 +2,21 @@
 
 One substep is p2g_1 -> p2g_2 -> grid_update -> g2p (``2d_multi.rs:111-133``);
 a frame is ``cfg.iterations`` substeps.  PyTorch runs eagerly, so a frame is
-a Python loop of substeps.  Three backends:
+a Python loop of substeps.  Five backends:
 
   "dense"  — ops.transfer, the reference (CPU and GPU)
+  "sorted" — ops.sorted_transfer, one sort by cell per substep, then
+             segment sums in a fixed order (the scale path)
+  "tiled"  — ops.tiled_transfer, tile binning every substep and per-tile
+             profile contractions (batched matrix products)
   "stream" — ops.stream_transfer, the persistent tile-binned slot stream
              whose hot stages are hand-written CUDA kernels on the GPU
   "pallas" — ops.pallas_transfer, tile binning every substep over a sorted
              particle stream; deposit, p2g2 and collect are hand-written
              CUDA kernels on the GPU (the JAX package's Pallas backend)
+
+"sorted" and "tiled" run plain PyTorch on either device: their JAX
+counterparts reach no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -23,12 +30,20 @@ from .domain import Domain
 from .ops import transfer
 from .state import GridState, ParticleState
 
-BACKENDS = ("dense", "stream", "pallas")
+BACKENDS = ("dense", "sorted", "tiled", "stream", "pallas")
 
 
 def _get_backend(name: str):
     if name == "dense":
         return transfer
+    if name == "sorted":
+        from .ops import sorted_transfer
+
+        return sorted_transfer
+    if name == "tiled":
+        from .ops import tiled_transfer
+
+        return tiled_transfer
     if name == "stream":
         from .ops import stream_transfer
 
@@ -60,7 +75,8 @@ def frame_body(p: ParticleState, cfg: Config, domain: Domain,
                ) -> ParticleState:
     """``cfg.iterations`` substeps (or ``substeps``).  The stream backend
     bins once, runs every substep on the binned layout and un-bins once;
-    the pallas backend skips the dense grid its ``substep`` returns."""
+    the tiled and pallas backends skip the dense grid their ``substep``
+    returns."""
     ops = _get_backend(backend)
     if hasattr(ops, "frame"):
         return ops.frame(p, cfg, domain, mouse_pos, mouse_active, substeps=substeps)

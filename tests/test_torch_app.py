@@ -22,7 +22,7 @@ from fluid_tpu import render as jrender
 from fluid_tpu import step as jstep
 from fluid_tpu.domain import make_domain as jmake_domain
 from fluid_tpu.state import ParticleState as JParticles
-from fluid_tpu_torch import app, checkpoint, diagnostics, native, render, state
+from fluid_tpu_torch import app, checkpoint, diagnostics, native, render, state, step
 from fluid_tpu_torch.config import default_2d, default_3d
 from fluid_tpu_torch.domain import make_domain
 from fluid_tpu_torch.session import Session
@@ -197,12 +197,16 @@ def test_app_main_cpu_flag(capsys):
 
 @pytest.mark.parametrize("argv,module", [
     (["--backend", "sorted"], "M8"), (["--backend", "tiled"], "M8")])
-def test_app_refuses_what_is_not_ported(argv, module):
-    """sorted and tiled exit non-zero, naming the module that will port
-    them."""
-    with pytest.raises(SystemExit) as e:
-        app.main(["--cpu", "--frames", "1", "--headless", *argv])
-    assert e.value.code not in (0, None) and module in str(e.value.code)
+def test_app_refuses_what_is_not_ported(argv, module, capsys):
+    """The app refuses no backend of the JAX app any more: sorted and tiled,
+    refused until module M8 ported them, run their headless frames on the
+    CPU (``--cpu --headless``) through ``step.BACKENDS``."""
+    assert argv[1] in step.BACKENDS and module == "M8"
+    app.main(["--cpu", "--particles", "256", "--frames", "1", "--headless", *argv])
+    text = capsys.readouterr().out
+    assert "--- frame 0 ---" in text and text.count("frame: ") == 1
+    block = text.split("--- frame 0 ---\n")[1].splitlines()[:40]
+    assert len(block) == 40 and any(c != " " for line in block for c in line)
 
 
 def test_app_without_a_card_exits_non_zero():

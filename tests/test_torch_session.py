@@ -147,12 +147,15 @@ def test_session_block_until_ready(backend):
 
 
 def test_stream_spec_checks_cap_when_built():
-    """A cap the kernels cannot launch fails when the spec is built, with
-    the kernels' message; the plain versions on the CPU take any cap."""
-    for cap in (512, 96 + 1, 48):
-        with pytest.raises(ValueError, match=f"cap {cap}: the kernels launch one thread per slot"):
+    """A cap the kernels cannot launch (not a positive multiple of 32) fails
+    when the spec is built, with the kernels' message; any multiple of 32
+    builds, past 256 too (the kernels walk the slots in chunks), and the
+    plain versions on the CPU take any cap."""
+    for cap in (96 + 1, 48, 0):
+        with pytest.raises(ValueError, match=f"cap {cap}: the kernels walk a tile's slots in whole warps"):
             stx.StreamSpec(cap=cap)
-    assert stx.StreamSpec(cap=256).cap == 256
+    for cap in (32, 256, 288, 512, 1024):
+        assert stx.StreamSpec(cap=cap).cap == cap
     cfg, p, dom = _case()
     spec = stx.StreamSpec(active=64)
     st = stx.bin_particles(p, dom, spec)
