@@ -34,7 +34,14 @@ Phases, each printing its own line; any failure raises and exits non-zero:
             the four pallas kernels (p2g1 deposit, force deposit, fused
             p2g2, collect) against their plain versions at the 3D 1M dam
             (default TileSpec: T=4, cap=384, A = 32,768) and a 2D dam of
-            100,000 particles; compared and timed the same way
+            100,000 particles, and the three deposits at T=8, cap 1024 on
+            the 1M dam (tiles walked in several chunks); compared and timed
+            the same way, the deposits bit-equal across two launches
+   pallas digests
+            K6, K6f and K7 give the blocks recorded from the cell-owner-scan
+            kernels they replaced, bit for bit, in 3D at T=4 cap 384 and
+            T=8 cap 1024 on the 1M dam and in 2D at T=4
+            (tests/data/pallas_kernels_digests.json)
 5. goldens  Session(stream) and Session(pallas) from
             tests/data/golden_{2d,3d}.npz against the frozen trajectories at
             1e-3 (D=2 and D=3 kernels)
@@ -101,7 +108,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 The last lines are the kernel table as JSON (time, plain time, the least
 time the card could take, launches on the main path; K4 and K5 list their
 launch kinds, the sharded path's ghost-gated ones with on_path "shards";
-K1-K3 their big-tile kind, T=8 at cap 1024, on_path "stream big-tile"),
+K1-K3 their big-tile kind, T=8 at cap 1024, on_path "stream big-tile";
+K6, K6f, K7 theirs, on no path),
 the card line, and
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -553,7 +561,7 @@ def phase_deposit_geometries(device, card: str, reps: int = 10) -> dict:
 # tile; the 200,000-particle dam of DEPOSIT_GEOMETRIES' first row, its
 # random numbers drawn on the CPU), as SHA-256 digests recorded from the
 # kernels before they walked their slots in chunks
-# (``python3 chip_smoke.py --record-digests PATH`` run on that tree).
+# (``python3 chip_smoke.py --record-digests stream PATH`` run on that tree).
 DIGESTS = os.path.join(ROOT, "tests", "data", "stream_kernels_cap256.json")
 
 
@@ -601,17 +609,25 @@ def phase_digests(device, card: str) -> None:
           f"fused and unfused K3 bit-equal to the kernels before the chunked walk  [{card}]")
 
 
-def pallas_state(device, n: int, dim: int):
+def pallas_state(device, n: int, dim: int, tile: int = 0, cap: int = 0, rng_device=None):
     """A dam of ``n`` particles with random velocities and APIC matrices,
-    binned for the pallas kernels; returns what each kernel is given on the
-    main path (the glue of ``pallas_transfer._advance``) and the force
-    stream that ``p2g2`` deposits from, made by the plain path."""
-    gen = torch.Generator(device=device).manual_seed(0)
-    cfg, p, dom = scene.scaled_dam_break(gen, n, dim=dim, device=device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    p.vel = 0.3 * torch.randn(p.vel.shape, generator=gen, device=device)
-    p.C = 0.05 * torch.randn(p.C.shape, generator=gen, device=device)
+    binned for the pallas kernels by the default TileSpec or, with ``tile``
+    and ``cap``, by a spec of that tile edge and cap; returns what each
+    kernel is given on the main path (the glue of
+    ``pallas_transfer._advance``, K6's blocks halo'd into ``mblocks``) and
+    the force stream that ``p2g2`` deposits from, made by the plain path.
+    The random numbers come from generators on ``rng_device`` (default:
+    ``device``); "cpu" gives the same particles on any card."""
+    rng = device if rng_device is None else torch.device(rng_device)
+    gen = torch.Generator(device=rng).manual_seed(0)
+    cfg, p, dom = scene.scaled_dam_break(gen, n, dim=dim, device=rng)
+    gen = torch.Generator(device=rng).manual_seed(1)
+    p.vel = 0.3 * torch.randn(p.vel.shape, generator=gen, device=rng)
+    p.C = 0.05 * torch.randn(p.C.shape, generator=gen, device=rng)
+    p = p.to(device)
     spec = tt.default_spec(cfg, n)
+    if tile:
+        spec = dataclasses.replace(spec, tile=tile, cap=cap)
     check(int(tt.overflow_count(p.pos, dom, spec)) == 0, f"{dim}D scene fits the tile spec")
     plan = tpt.make_plan(cfg, dom, spec, *step.no_mouse(), device)
     st = tpt.bin_stream(p, dom, plan)
@@ -624,48 +640,68 @@ def pallas_state(device, n: int, dim: int):
     return cfg, plan, st, mblocks, vblocks, force
 
 
+def deposit_cases(plan, st, mblocks, force) -> dict:
+    """K6, K6f and K7 as (kernel, plain) calls on one pallas state."""
+    g, stream, tiles = plan.geom, st.stream, st.tiles
+    return {
+        "pallas_deposit_p2g1": (lambda: pk.deposit(stream, *tiles, g, mode="p2g1"),
+                                lambda: pk.deposit_plain(stream, *tiles, g, mode="p2g1")),
+        "pallas_deposit_force": (lambda: pk.deposit(force, *tiles, g, mode="force"),
+                                 lambda: pk.deposit_plain(force, *tiles, g, mode="force")),
+        "pallas_p2g2": (lambda: pk.p2g2(stream, mblocks, *tiles, plan.params6, g),
+                        lambda: pk.p2g2_plain(stream, mblocks, *tiles, plan.params6, g)),
+    }
+
+
+# the pallas deposits beside the main path's spec: T=8, cap 1024 on the
+# whole 1M dam (bench.py's big-tile geometry; up to ~590 particles a tile,
+# so the kernels walk a tile in several chunks); on no path of the repo
+# (pallas Sessions take the default spec), reached by
+# ``pallas_transfer.substep(spec=...)``
+PALLAS_BIG_TILE = (8, 1024)
+
+
 def phase_pallas_kernels(device, card: str, reps: int = 10):
     """The four pallas kernels against their plain versions at the 3D 1M
-    dam (the main path's shapes, whose times go into the kernel table) and
-    at a 2D dam of 100,000 (the D=2 instantiations)."""
+    dam (the main path's shapes, whose times go into the kernel table), at
+    a 2D dam of 100,000 (the D=2 instantiations), and, K6, K6f and K7, at
+    PALLAS_BIG_TILE on the 1M dam (times as the ``T8_cap1024`` kind); the
+    deposits give bit-equal blocks when launched twice on the same inputs."""
     results = {}
-    for dim, n in ((3, N_1M), (2, N_2D)):
-        cfg, plan, st, mblocks, vblocks, force = pallas_state(device, n, dim)
+    big = "T{}_cap{}".format(*PALLAS_BIG_TILE)
+    for dim, n, geometry in ((3, N_1M, (0, 0)), (2, N_2D, (0, 0)), (3, N_1M, PALLAS_BIG_TILE)):
+        cfg, plan, st, mblocks, vblocks, force = pallas_state(device, n, dim, *geometry)
         g, stream, tiles = plan.geom, st.stream, st.tiles
+        what = f"{dim}D T={g.tile} cap={g.cap}"
         centre = cfg.boundary_clip[1][0] / 2
         params_m = tpt.collect_params(cfg, *step.mouse((centre, centre)), device)
-        print(f"[pallas kernels] {dim}D n={n} A={tiles[1].shape[0]} "
+        print(f"[pallas kernels] {what} n={n} A={tiles[1].shape[0]} "
               f"occupied={int((tiles[1] > 0).sum())} max count={int(tiles[1].max())} "
-              f"cap={g.cap} stream={tuple(stream.shape)} blocks={tuple(mblocks.shape[:2])}")
-        cases = {
-            "pallas_deposit_p2g1": (lambda: pk.deposit(stream, *tiles, g, mode="p2g1"),
-                                    lambda: pk.deposit_plain(stream, *tiles, g, mode="p2g1")),
-            "pallas_deposit_force": (lambda: pk.deposit(force, *tiles, g, mode="force"),
-                                     lambda: pk.deposit_plain(force, *tiles, g, mode="force")),
-            "pallas_p2g2": (lambda: pk.p2g2(stream, mblocks, *tiles, plan.params6, g),
-                            lambda: pk.p2g2_plain(stream, mblocks, *tiles, plan.params6, g)),
-            "pallas_collect": (lambda: pk.collect(stream, vblocks, mblocks, *tiles, plan.params_c, g),
-                               lambda: pk.collect_plain(stream, vblocks, mblocks, *tiles,
-                                                        plan.params_c, g)),
-        }
+              f"stream={tuple(stream.shape)} blocks={tuple(mblocks.shape[:2])}")
+        cases = deposit_cases(plan, st, mblocks, force)
+        if not geometry[0]:
+            cases["pallas_collect"] = (
+                lambda: pk.collect(stream, vblocks, mblocks, *tiles, plan.params_c, g),
+                lambda: pk.collect_plain(stream, vblocks, mblocks, *tiles, plan.params_c, g))
         bounds = pallas_bounds(tiles[1], g, dim)
         for name, (kern, plain) in cases.items():
             got, want = kern(), plain()
             sync(device)
             err = float((got - want).abs().max())
             if name == "pallas_collect":
-                check(err <= 1e-5, f"{dim}D {name} rows max|err| {err} <= 1e-5")
+                check(err <= 1e-5, f"{what} {name} rows max|err| {err} <= 1e-5")
                 gm = pk.collect(stream, vblocks, mblocks, *tiles, params_m, g)
                 wm = pk.collect_plain(stream, vblocks, mblocks, *tiles, params_m, g)
                 mouse_err = float((gm - wm).abs().max())
-                check(mouse_err <= 1e-5, f"{dim}D collect with the mouse {mouse_err} <= 1e-5")
+                check(mouse_err <= 1e-5, f"{what} collect with the mouse {mouse_err} <= 1e-5")
                 check(bool((gm[:, dim:2 * dim] != got[:, dim:2 * dim]).any()), "the mouse pushed")
                 extra = f" mouse_err={mouse_err:.3e}"
                 del gm, wm
             else:
                 scale = float(want.abs().max())
-                check(err <= 1e-4 * scale, f"{dim}D {name} max|err| {err} <= 1e-4 * max|block| {scale}")
-                extra = f" max|block|={scale:.4e}"
+                check(err <= 1e-4 * scale, f"{what} {name} max|err| {err} <= 1e-4 * max|block| {scale}")
+                check(torch.equal(kern(), got), f"{what} {name} bitwise equal across two launches")
+                extra = f" max|block|={scale:.4e} repeat_bit_equal=True"
                 if name == "pallas_deposit_force":
                     k7 = pk.p2g2(stream, mblocks, *tiles, plan.params6, g)
                     same = float((got - k7).abs().max())
@@ -676,14 +712,56 @@ def phase_pallas_kernels(device, card: str, reps: int = 10):
             ms = time_ms(kern, reps, device)
             plain_ms = time_ms(plain, max(2, reps // 5), device)
             bound_ms, bound_by = bound(*bounds[name])
-            if dim == 3:
-                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-            print(f"[pallas kernels] {dim}D {name}: max_abs_err={err:.3e}{extra} kernel {ms:.4f} ms "
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            if geometry[0]:
+                results[name]["kinds"] = {big: {**row, "on_path": False}}
+            elif dim == 3:
+                results[name] = {**row, "library_ms": None}
+            print(f"[pallas kernels] {what} {name}: max_abs_err={err:.3e}{extra} kernel {ms:.4f} ms "
                   f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
         del plan, st, mblocks, vblocks, force
         torch.cuda.empty_cache()
     return results
+
+
+# K6, K6f and K7's outputs (and their inputs) as SHA-256 digests, recorded
+# from the cell-owner-scan kernels that the tap-parallel walk replaced
+# (``python3 chip_smoke.py --record-digests pallas PATH`` run with that
+# tree's package), on the pallas states of PALLAS_DIGEST_CASES, their
+# random numbers drawn on the CPU: (dim, n, tile, cap); tile 0 is the
+# default spec (T=4, cap 384 in 3D: one chunk).
+PALLAS_DIGESTS = os.path.join(ROOT, "tests", "data", "pallas_kernels_digests.json")
+PALLAS_DIGEST_CASES = {"3d_T4_cap384": (3, N_1M, 0, 0), "3d_T8_cap1024": (3, N_1M, *PALLAS_BIG_TILE),
+                       "2d_T4": (2, N_2D, 0, 0)}
+
+
+def pallas_digests(device, dim: int, n: int, tile: int, cap: int) -> dict:
+    """SHA-256 of K6's, K6f's and K7's blocks on ``pallas_state(device, n,
+    dim, tile, cap, rng_device="cpu")``; "inputs" digests what they read
+    (mblocks are K6's blocks halo'd, so they equal the recording's only if
+    K6 does)."""
+    _, plan, st, mblocks, _, force = pallas_state(device, n, dim, tile, cap, rng_device="cpu")
+    out = {"dim": dim, "n": n, "tile": plan.geom.tile, "cap": plan.geom.cap,
+           "inputs": _digest(st.stream, *st.tiles, mblocks, force, plan.params6)}
+    for name, (kern, _) in deposit_cases(plan, st, mblocks, force).items():
+        out[name] = _digest(kern())
+    return out
+
+
+def phase_pallas_digests(device, card: str) -> None:
+    """K6, K6f and K7 give the recorded blocks of the kernels they replaced
+    bit for bit, on the same inputs, in every case of the recording."""
+    with open(PALLAS_DIGESTS) as fh:
+        record = json.load(fh)
+    check(sorted(record) == sorted(PALLAS_DIGEST_CASES), f"digest cases {sorted(record)}")
+    for case, want in record.items():
+        got = pallas_digests(device, *PALLAS_DIGEST_CASES[case])
+        differ = [k for k in want if got[k] != want[k]]
+        check(not differ, f"pallas digests {case}: bit-equal to the recording, differ: {differ}")
+        print(f"[pallas digests] {case} (n={want['n']} T={want['tile']} cap={want['cap']}): K6, "
+              f"K6f and K7 bit-equal to the cell-owner-scan kernels, inputs equal  [{card}]")
+        torch.cuda.empty_cache()
 
 
 def phase_goldens(device, card: str) -> None:
@@ -1439,6 +1517,7 @@ def main() -> int:
     big_kinds = run(phase_deposit_geometries, device, card)
     run(phase_digests, device, card)
     results.update(run(phase_pallas_kernels, device, card))
+    run(phase_pallas_digests, device, card)
     run(phase_goldens, device, card)
     launches = run(phase_slice, device, N_1M, card)
     launches.update(run(phase_pallas_slice, card))
@@ -1472,10 +1551,19 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--record-digests"]:
-        # python3 chip_smoke.py --record-digests PATH: write DIGESTS' record
-        # from the kernels of the tree this script stands in
+        # python3 chip_smoke.py --record-digests stream|pallas PATH: write the
+        # record of DIGESTS (stream) or PALLAS_DIGESTS (pallas) from the
+        # kernels of the package beside this script
+        kind, path = sys.argv[2:4]
         cuda_build.load()
-        with open(sys.argv[2], "w") as fh:
-            json.dump(kernel_digests(require_cuda(), 4, 256, 200_000), fh, indent=1)
+        dev = require_cuda()
+        if kind == "stream":
+            record = kernel_digests(dev, 4, 256, 200_000)
+        elif kind == "pallas":
+            record = {case: pallas_digests(dev, *args) for case, args in PALLAS_DIGEST_CASES.items()}
+        else:
+            sys.exit(f"--record-digests: unknown kind {kind!r} (stream or pallas)")
+        with open(path, "w") as fh:
+            json.dump(record, fh, indent=1)
         sys.exit(0)
     sys.exit(main())

@@ -22,10 +22,11 @@
 // The TPU kernels DMA a fixed cap-row slice of a zero-padded, lane-padded
 // stream, build a one-hot window matrix W[E^D, cap] and contract it on the
 // MXU.  Here a tile reads only its min(count, cap) particles (no padding,
-// no double-buffered DMA), and the contraction is a gather: each thread
-// owns window cells and walks the tile's particles in slot order, adding a
-// particle's contribution to the cells its 3^D stencil covers.  Sums are
-// deterministic (no float atomics; a replayed snapshot is bit-identical).
+// no double-buffered DMA), and the contraction is a scatter into a tile
+// window in shared memory: lane k of a warp owns stencil tap k and the
+// warp walks the tile's particles in slot order, adding each particle's
+// value to its tap's cell.  Every cell sums its particles in slot order
+// from 0.0f (no float atomics; a replayed snapshot is bit-identical).
 // A tile whose count is 0, an unused entry included (act_start = n), reads
 // nothing and writes zeros, so no output is left uninitialized and the host
 // never reads a count to size a grid.
@@ -57,7 +58,25 @@ constexpr int MODE_P2G1 = 1;   // K6: mass + APIC momentum from the particle str
 constexpr int MODE_FORCE = 2;  // K6f: force from a precomputed force stream
 constexpr int MODE_P2G2 = 3;   // K7: density, EOS, stress, force (fused)
 
-constexpr int DEPOSIT_THREADS = 256;
+// Slots a deposit block stages and walks at a time: its thread count.
+constexpr int DEPOSIT_CHUNK = 128;
+
+// n / d for 0 <= n < 2^32 / d, as one multiply-high with m = ceil(2^32 / d)
+// (Granlund-Montgomery) in place of a runtime division; d = 1 is n itself.
+struct FastDiv {
+  unsigned int m;
+  int d;
+};
+
+FastDiv fast_div(int d) {
+  return FastDiv{d > 1 ? static_cast<unsigned int>(0xFFFFFFFFull / static_cast<unsigned int>(d) + 1)
+                       : 0u,
+                 d};
+}
+
+__device__ __forceinline__ int div_by(int n, FastDiv f) {
+  return f.d == 1 ? n : static_cast<int>(__umulhi(static_cast<unsigned int>(n), f.m));
+}
 
 struct PGeom {
   int A;          // active tiles (grid size)
@@ -67,6 +86,9 @@ struct PGeom {
   int ncell;      // E^D
   int tshape[3];  // tiles per axis
   int origin[3];  // domain origin, cells
+  FastDiv divE;   // / E
+  int wstride[3]; // shared deposit window: cell stride of each axis
+  int wch;        // shared deposit window: floats per channel
 };
 
 // Local stencil of one particle: window base (local cell), dvec and the
@@ -85,35 +107,198 @@ __device__ __forceinline__ void stencil(const PGeom& g, int tid, const float* po
   }
 }
 
-// Shared staging of a tile's particles, [field][slot] so that the staging
-// threads write distinct banks and the cell loop reads one broadcast word:
-//   base [D][cap] int, w [3][D][cap], g0 [CH][cap], gd [D][D][cap]
-// A particle's contribution to a covered cell with tap offsets o is
-//   ch c:            w * g0[c]
-//   ch CH-D+i also:  + sum_d (o_d - 1) w * gd[d][i]
+__device__ __forceinline__ float comp(const float4& q, int k) {
+  return k == 0 ? q.x : (k == 1 ? q.y : (k == 2 ? q.z : q.w));
+}
+
+// Per-slot staging record of a deposit in shared memory, RQ float4s (RQ
+// odd, so one thread per slot storing its record and a warp reading one
+// record are both free of bank conflicts):
+//   q[c]        channel c < CH: (g0[c], gd[0][i], .., gd[D-1][i]), i = c -
+//               (CH - D), for the last D channels; (g0[c], 0, 0, 0) else
+//   q[CH] ..    the tap weights, w[o][d] at word 3d + o, then the base's
+//               offset in the window, in bytes (int), at word 3D
+// A particle's value in the cell of its tap with offsets o is
+//   ch c:            w * g0[c],  w = w[o_0][0] * w[o_1][1] * ..
+//   ch CH-D+i also:  + sum_d wd_d * gd[d][i],  wd_d = -w, 0 or w for o_d = 0, 1, 2
 // p2g1: g0 = (m, m(v - C dvec)), gd[d][i] = m C[i][d]   (the APIC momentum)
 // force / p2g2: g0 = A2 = term (-dvec), gd[d][i] = term[i][d]   (eq. 16)
 template <int D, int CH>
-struct Stage {
-  int* base;
-  float* w;
-  float* g0;
-  float* gd;
-  __device__ Stage(float* smem, int cap) {
-    base = reinterpret_cast<int*>(smem);
-    w = smem + D * cap;
-    g0 = w + 3 * D * cap;
-    gd = g0 + CH * cap;
-  }
-  static constexpr int words_per_slot() { return D + 3 * D + CH + D * D; }
+struct Record {
+  static constexpr int WQ = (3 * D + 4) / 4;  // float4s of the weights and the cell
+  static constexpr int RQ = (CH + WQ) | 1;
 };
 
-template <int D, int CH>
-__device__ __forceinline__ void stage_stencil(const Stage<D, CH>& sh, int cap, int s,
-                                              const int* base, float (*w)[D]) {
+// Stages slot s of the tile (stream column start + s) as record r: its
+// stencil, and its channel values formed as the plain versions form them.
+// MODE_P2G2 first gathers the particle's density from the tile's mass block
+// mw [E^D] in shared memory (3^D taps, flat cell order), then the Tait
+// pressure with its floor, the volume m / rho, the eq-16 term
+// -4 V dt (-p I + mu (C + C^T)) and A2 = term (-dvec).
+template <int D, int MODE, int CH>
+__device__ __forceinline__ void stage_slot(const PGeom& g, int tid, const float* col, int64_t n,
+                                           const float* mw, const float* params, float4* rec) {
+  constexpr int pos_row = MODE == MODE_FORCE ? D + D * D : 0;
+  float pos[D];
+  for (int d = 0; d < D; ++d) pos[d] = col[(pos_row + d) * n];
+  int base[D];
+  float dvec[D];
+  float w[3][D];
+  stencil<D>(g, tid, pos, base, dvec, w);
+  float q[CH][4];
+  for (int c = 0; c < CH; ++c)
+    for (int j = 0; j < 4; ++j) q[c][j] = 0.0f;
+  constexpr int M = CH - D;  // the first channel with moment terms
+  if (MODE == MODE_P2G1) {
+    const float m = col[(2 * D + D * D) * n];
+    q[0][0] = m;
+    for (int i = 0; i < D; ++i) {
+      float cd = col[(2 * D + i * D) * n] * dvec[0];
+      for (int j = 1; j < D; ++j) cd = cd + col[(2 * D + i * D + j) * n] * dvec[j];
+      q[M + i][0] = m * (col[(D + i) * n] - cd);
+      for (int d = 0; d < D; ++d) q[M + i][1 + d] = m * col[(2 * D + i * D + d) * n];
+    }
+  } else if (MODE == MODE_FORCE) {
+    for (int i = 0; i < D; ++i) {
+      q[i][0] = col[i * n];
+      for (int d = 0; d < D; ++d) q[i][1 + d] = col[(D + d * D + i) * n];
+    }
+  } else {
+    float rho = 0.0f;
+    int nk = 1;
+    for (int d = 0; d < D; ++d) nk *= 3;
+    for (int k = 0; k < nk; ++k) {
+      int o[D];
+      int r = k;
+      for (int d = D - 1; d >= 0; --d) {
+        o[d] = r % 3;
+        r /= 3;
+      }
+      float wk = w[o[0]][0];
+      for (int d = 1; d < D; ++d) wk = wk * w[o[d]][d];
+      int e = 0;
+      for (int d = 0; d < D; ++d) e = e * g.E + base[d] + o[d];
+      rho = rho + wk * mw[e];
+    }
+    const float dt = params[0], rest = params[1], k_eos = params[2];
+    const float gamma = params[3], floor_p = params[4], mu = params[5];
+    const float m = col[(2 * D + D * D) * n];
+    const float volume = rho > 0.0f ? m / rho : 0.0f;
+    const float pressure = mpm::tait_pressure(rho, rest, k_eos, gamma, floor_p);
+    const float scale = (-4.0f * volume) * dt;
+    float term[D][D];
+    for (int i = 0; i < D; ++i) {
+      for (int j = 0; j < D; ++j) {
+        const float visc = mu * (col[(2 * D + i * D + j) * n] + col[(2 * D + j * D + i) * n]);
+        term[i][j] = scale * ((i == j ? -pressure : 0.0f) + visc);
+      }
+    }
+    for (int i = 0; i < D; ++i) {
+      float a2 = term[i][0] * (-dvec[0]);
+      for (int j = 1; j < D; ++j) a2 = a2 + term[i][j] * (-dvec[j]);
+      q[i][0] = a2;
+      for (int d = 0; d < D; ++d) q[i][1 + d] = term[i][d];
+    }
+  }
+  for (int c = 0; c < CH; ++c) rec[c] = make_float4(q[c][0], q[c][1], q[c][2], q[c][3]);
+  constexpr int WQ = Record<D, CH>::WQ;
+  float t[4 * WQ];
+  for (int j = 0; j < 4 * WQ; ++j) t[j] = 0.0f;
+  int cell = 0;
   for (int d = 0; d < D; ++d) {
-    sh.base[d * cap + s] = base[d];
-    for (int o = 0; o < 3; ++o) sh.w[(o * D + d) * cap + s] = w[o][d];
+    for (int o = 0; o < 3; ++o) t[3 * d + o] = w[o][d];
+    cell += base[d] * g.wstride[d];
+  }
+  t[3 * D] = __int_as_float(4 * cell);
+  for (int j = 0; j < WQ; ++j)
+    rec[CH + j] = make_float4(t[4 * j], t[4 * j + 1], t[4 * j + 2], t[4 * j + 3]);
+}
+
+// win[addr] += val for the float at 32-bit shared-memory byte address addr.
+// Through the address, so that the walk keeps one register per lane for
+// its window cell's base: the compiled walk otherwise recomputed the
+// window's shared-memory base before each add.
+__device__ __forceinline__ void shared_add(unsigned int addr, float val) {
+  asm volatile(
+      "{\n\t.reg .f32 t;\n\tld.shared.f32 t, [%0];\n\tadd.rn.f32 t, t, %1;\n\t"
+      "st.shared.f32 [%0], t;\n\t}" ::"r"(addr),
+      "f"(val)
+      : "memory");
+}
+
+// Tap-parallel deposit of the staged records [0, cn) into the tile window
+// `win` (channels g.wch floats apart, cells at the padded strides
+// g.wstride, so the 3^D taps of one particle fall in distinct banks).
+// Lane k < 3^D of a warp owns stencil tap k, and a warp owns one channel
+// (3D) or three (2D, 9 taps each); the warp walks the records in slot order
+// and each lane adds its tap's value to its cell, computing two particles'
+// values before their two adds.  One particle's taps land in distinct
+// cells and __syncwarp orders one particle's adds before the next's, so
+// every cell sums its particles in slot order, each chunk after the last,
+// with no atomics.  Every thread of the block calls it after the
+// __syncthreads that follows the chunk's staging.
+template <int D, int CH>
+__device__ __forceinline__ void window_walk(const float4* stage, const PGeom& g, int cn,
+                                            float* win) {
+  constexpr int K = D == 3 ? 27 : 9;  // taps
+  constexpr int G = 32 / K;           // channels per warp
+  constexpr int RQ = Record<D, CH>::RQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarp = blockDim.x >> 5;
+  const int k = lane % K, sub = lane / K;
+  int o[D];
+  float sgn[D];  // o_d - 1: wd_d = sgn_d w is exact (-w, +0 as w >= +0, or w)
+  int tap = 0;
+  {
+    int r = k;
+    for (int d = D - 1; d >= 0; --d) {  // flat tap order, axis D-1 fastest
+      o[d] = r % 3;
+      r /= 3;
+      sgn[d] = static_cast<float>(o[d] - 1);
+      tap += o[d] * g.wstride[d];
+    }
+  }
+  for (int v0 = warp * G; v0 < CH; v0 += nwarp * G) {  // uniform over the warp
+    const int c = v0 + sub;
+    const bool on = sub < G && c < CH;
+    const bool mom = c >= CH - D;  // this lane's channel has moment terms
+    // this lane's window cell at the particle's base, a shared byte address
+    const unsigned int wc = static_cast<unsigned int>(__cvta_generic_to_shared(win + c * g.wch + tap));
+    // this lane's value of record s and the byte offset of its cell
+    auto tap_value = [&](int s, int* cell) {
+      const float4* r = stage + s * RQ;
+      const float* rw = reinterpret_cast<const float*>(r + CH);
+      float w = rw[o[0]];
+      for (int d = 1; d < D; ++d) w = w * rw[3 * d + o[d]];
+      *cell = __float_as_int(rw[3 * D]);
+      const float4 q = r[c];
+      float val = w * q.x;
+      if (mom) {
+        for (int d = 0; d < D; ++d) val = val + (sgn[d] * w) * comp(q, 1 + d);
+      }
+      return val;
+    };
+    int s = 0;
+    for (; s + 1 < cn; s += 2) {
+      int cell0 = 0, cell1 = 0;
+      float val0 = 0.0f, val1 = 0.0f;
+      if (on) {
+        val0 = tap_value(s, &cell0);
+        val1 = tap_value(s + 1, &cell1);
+        shared_add(wc + cell0, val0);
+      }
+      __syncwarp();
+      if (on) shared_add(wc + cell1, val1);
+      __syncwarp();
+    }
+    if (s < cn) {
+      if (on) {
+        int cell;
+        const float val = tap_value(s, &cell);
+        shared_add(wc + cell, val);
+      }
+      __syncwarp();
+    }
   }
 }
 
@@ -122,30 +307,33 @@ __device__ __forceinline__ void stage_stencil(const Stage<D, CH>& sh, int cap, i
 //
 // Bound on this card: at the 1M-particle shape (32,768 tiles, about 17,500
 // occupied, ~57 particles each) the kernel reads 64 B per particle and, for
-// p2g2, a 0.9 KB mass window per tile, and writes the [E^D, CH] block of
-// every tile (3.5 KB for p2g1): ~0.2 GB, 0.06 ms at the card's bandwidth.
-// The cell-owner scan costs E^D x count stencil tests per tile (216 x 57)
-// out of shared memory, a few hundred million in all, and it is the limit:
-// on an H100 (700 W) p2g1 and p2g2 take ~0.5 ms against that 0.05 ms.  The
-// design keeps every intermediate (weights, bases, channel values) in
-// shared memory and writes each output cell once.
+// p2g2, a 0.9 KB mass block per occupied tile, and writes the [E^D, CH]
+// block of every tile (3.5 KB for p2g1): ~0.2 GB, ~0.05 ms at the card's
+// bandwidth.  A cell-owner scan (each of the E^D cells testing every
+// particle of its tile, 87.5% of the tests finding nothing) took 0.45-0.51
+// ms on an NVIDIA H100 80GB HBM3 (700 W); here every lane's step is a tap
+// that deposits, and the limit is the instructions the SM issues in the
+// walk: 28 a tap-step (p2g2, force; 33 on p2g1's momentum channels, 24 on
+// its mass channel), 0.15-0.19 ms on the same card, 3.5-3.9x the bound.
 //
-// MODE_P2G2 first gathers each particle's density from its tile's halo'd,
-// edge-masked mass block (3^D taps, flat cell order), then the Tait
-// pressure with its floor, the volume m / rho, the eq-16 term
-// -4 V dt (-p I + mu (C + C^T)) and A2 = term (-dvec).
+// A block has DEPOSIT_CHUNK threads and stages and walks its tile's slots
+// one chunk of DEPOSIT_CHUNK at a time (window_walk), so any cap launches
+// and its shared memory holds one chunk's records, the window and (p2g2)
+// the tile's mass block, whatever the cap: the window is cleared before
+// the first chunk and written out after the last, each output cell once,
+// in the [E^D, CH] layout.
 // params: [dt, rest_density, eos_stiffness, eos_power, pressure_floor, mu].
 template <int D, int MODE>
-__global__ void __launch_bounds__(DEPOSIT_THREADS)
+__global__ void __launch_bounds__(DEPOSIT_CHUNK)
 deposit_kernel(PGeom g, const int* __restrict__ act_start,
                const int* __restrict__ act_count, const int* __restrict__ tidv,
                const float* __restrict__ stream, const float* __restrict__ mblk,
                const float* __restrict__ params, float* __restrict__ out) {
   constexpr int CH = MODE == MODE_P2G1 ? 1 + D : D;
-  extern __shared__ float smem[];
+  constexpr int RQ = Record<D, CH>::RQ;
+  extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x;
-  const int cap = g.cap;
-  const int cnt = min(act_count[a], cap);
+  const int cnt = min(act_count[a], g.cap);
   float* tile_out = out + static_cast<int64_t>(a) * g.ncell * CH;
   if (cnt <= 0) {
     for (int i = threadIdx.x; i < g.ncell * CH; i += blockDim.x) tile_out[i] = 0.0f;
@@ -153,107 +341,33 @@ deposit_kernel(PGeom g, const int* __restrict__ act_start,
   }
   const int tid = tidv[a];
   const int64_t start = act_start[a];
-  const int64_t n = g.n;
-  Stage<D, CH> sh(smem, cap);
-  for (int s = threadIdx.x; s < cnt; s += blockDim.x) {
-    const float* col = stream + start + s;  // field f at col[f * n]
-    constexpr int pos_row = MODE == MODE_FORCE ? D + D * D : 0;
-    float pos[D];
-    for (int d = 0; d < D; ++d) pos[d] = col[(pos_row + d) * n];
-    int base[D];
-    float dvec[D];
-    float w[3][D];
-    stencil<D>(g, tid, pos, base, dvec, w);
-    stage_stencil<D, CH>(sh, cap, s, base, w);
-    if (MODE == MODE_P2G1) {
-      const float m = col[(2 * D + D * D) * n];
-      sh.g0[s] = m;
-      for (int i = 0; i < D; ++i) {
-        float cd = col[(2 * D + i * D) * n] * dvec[0];
-        for (int j = 1; j < D; ++j) cd = cd + col[(2 * D + i * D + j) * n] * dvec[j];
-        sh.g0[(1 + i) * cap + s] = m * (col[(D + i) * n] - cd);
-        for (int d = 0; d < D; ++d) sh.gd[(d * D + i) * cap + s] = m * col[(2 * D + i * D + d) * n];
-      }
-    } else if (MODE == MODE_FORCE) {
-      for (int i = 0; i < D; ++i) {
-        sh.g0[i * cap + s] = col[i * n];
-        for (int d = 0; d < D; ++d) sh.gd[(d * D + i) * cap + s] = col[(D + d * D + i) * n];
-      }
-    } else {
-      // density from the mass block, taps in flat cell order
-      const float* mw = mblk + static_cast<int64_t>(a) * g.ncell;
-      float rho = 0.0f;
-      int nk = 1;
-      for (int d = 0; d < D; ++d) nk *= 3;
-      for (int k = 0; k < nk; ++k) {
-        int o[D];
-        int r = k;
-        for (int d = D - 1; d >= 0; --d) {
-          o[d] = r % 3;
-          r /= 3;
-        }
-        float wk = w[o[0]][0];
-        for (int d = 1; d < D; ++d) wk = wk * w[o[d]][d];
-        int e = 0;
-        for (int d = 0; d < D; ++d) e = e * g.E + base[d] + o[d];
-        rho = rho + wk * mw[e];
-      }
-      const float dt = params[0], rest = params[1], k_eos = params[2];
-      const float gamma = params[3], floor_p = params[4], mu = params[5];
-      const float m = col[(2 * D + D * D) * n];
-      const float volume = rho > 0.0f ? m / rho : 0.0f;
-      const float pressure = mpm::tait_pressure(rho, rest, k_eos, gamma, floor_p);
-      const float scale = (-4.0f * volume) * dt;
-      float term[D][D];
-      for (int i = 0; i < D; ++i) {
-        for (int j = 0; j < D; ++j) {
-          const float visc = mu * (col[(2 * D + i * D + j) * n] + col[(2 * D + j * D + i) * n]);
-          term[i][j] = scale * ((i == j ? -pressure : 0.0f) + visc);
-        }
-      }
-      for (int i = 0; i < D; ++i) {
-        float a2 = term[i][0] * (-dvec[0]);
-        for (int j = 1; j < D; ++j) a2 = a2 + term[i][j] * (-dvec[j]);
-        sh.g0[i * cap + s] = a2;
-        for (int d = 0; d < D; ++d) sh.gd[(d * D + i) * cap + s] = term[i][d];
-      }
-    }
+  float4* stage = reinterpret_cast<float4*>(smem);
+  float* win = smem + 4 * RQ * DEPOSIT_CHUNK;
+  float* mw = win + CH * g.wch;  // p2g2: the tile's mass block
+  for (int i = threadIdx.x; i < CH * g.wch; i += blockDim.x) win[i] = 0.0f;
+  if (MODE == MODE_P2G2) {
+    const float* src = mblk + static_cast<int64_t>(a) * g.ncell;
+    for (int i = threadIdx.x; i < g.ncell; i += blockDim.x) mw[i] = src[i];
+    __syncthreads();
   }
-  __syncthreads();
-
-  const int E = g.E;
-  for (int e = threadIdx.x; e < g.ncell; e += blockDim.x) {
-    int ec[D];
-    int rem = e;
-    for (int d = D - 1; d >= 0; --d) {
-      ec[d] = rem % E;
-      rem /= E;
+  for (int c0 = 0; c0 < cnt; c0 += DEPOSIT_CHUNK) {
+    const int cn = min(DEPOSIT_CHUNK, cnt - c0);
+    if (threadIdx.x < cn)
+      stage_slot<D, MODE, CH>(g, tid, stream + start + c0 + threadIdx.x, g.n, mw, params,
+                              stage + threadIdx.x * RQ);
+    __syncthreads();
+    window_walk<D, CH>(stage, g, cn, win);
+    __syncthreads();  // the walk has read the records before the next chunk
+  }
+  for (int i = threadIdx.x; i < CH * g.ncell; i += blockDim.x) {
+    int e = i / CH;
+    int cell = (i - e * CH) * g.wch;
+    for (int d = D - 1; d > 0; --d) {
+      const int q = div_by(e, g.divE);
+      cell += (e - q * g.E) * g.wstride[d];
+      e = q;
     }
-    float acc[CH];
-    for (int c = 0; c < CH; ++c) acc[c] = 0.0f;
-    for (int s = 0; s < cnt; ++s) {
-      int o[D];
-      bool in = true;
-      for (int d = 0; d < D; ++d) {
-        o[d] = ec[d] - sh.base[d * cap + s];
-        in = in && (o[d] >= 0) && (o[d] <= 2);
-      }
-      if (!in) continue;
-      float w = sh.w[(o[0] * D + 0) * cap + s];
-      for (int d = 1; d < D; ++d) w = w * sh.w[(o[d] * D + d) * cap + s];
-      for (int c = 0; c < CH; ++c) {
-        float val = w * sh.g0[c * cap + s];
-        if (c >= CH - D) {
-          const int i = c - (CH - D);
-          for (int d = 0; d < D; ++d) {
-            const float wd = o[d] == 0 ? -w : (o[d] == 2 ? w : 0.0f);
-            val = val + wd * sh.gd[(d * D + i) * cap + s];
-          }
-        }
-        acc[c] = acc[c] + val;
-      }
-    }
-    for (int c = 0; c < CH; ++c) tile_out[e * CH + c] = acc[c];
+    tile_out[i] = win[cell + e * g.wstride[0]];
   }
 }
 
@@ -366,6 +480,33 @@ PGeom make_geom(int dim, int A, int n, int T, int cap, const int* tshape, const 
     g.tshape[d] = d < dim ? tshape[d] : 1;
     g.origin[d] = d < dim ? origin[d] : 0;
   }
+  g.divE = fast_div(g.E);
+  if (dim < 2 || dim > 3) return g;  // refused by the entry points
+  // padded window strides: the line stride a >= E and the outer stride b
+  // >= E a (3D: of planes; 2D: of the three channels a warp owns) are the
+  // first pair, a then b ascending, that put the 27 taps a warp adds at
+  // once (offsets o0 b + o1 a + o2) in distinct banks; a = 9 and b = 3
+  // modulo 32 always do, so the search ends within 32 x 32 pairs
+  auto distinct_banks = [](int b, int a) {
+    unsigned int seen = 0u;
+    for (int k = 0; k < 27; ++k) {
+      const int bank = ((k / 9) * b + (k / 3 % 3) * a + k % 3) % 32;
+      if (seen >> bank & 1u) return false;
+      seen |= 1u << bank;
+    }
+    return true;
+  };
+  int a = g.E, b = 0;
+  for (;; ++a) {
+    for (b = g.E * a; b < g.E * a + 32 && !distinct_banks(b, a); ++b) {
+    }
+    if (b < g.E * a + 32) break;
+  }
+  for (int d = 0; d < 3; ++d) g.wstride[d] = 0;
+  g.wstride[dim - 1] = 1;
+  g.wstride[dim - 2] = a;
+  if (dim == 3) g.wstride[0] = b;
+  g.wch = dim == 3 ? g.E * b : b;
   return g;
 }
 
@@ -374,14 +515,16 @@ int launch_deposit(const PGeom& g, const int* act_start, const int* act_count, c
                    const float* stream, const float* mblk, const float* params, float* out,
                    cudaStream_t st) {
   constexpr int CH = MODE == MODE_P2G1 ? 1 + D : D;
-  const size_t smem = static_cast<size_t>(Stage<D, CH>::words_per_slot()) * g.cap * sizeof(float);
+  // one chunk's records, the window and (p2g2) the tile's mass block
+  const size_t smem = (static_cast<size_t>(4 * Record<D, CH>::RQ) * DEPOSIT_CHUNK + CH * g.wch +
+                       (MODE == MODE_P2G2 ? g.ncell : 0)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         deposit_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  deposit_kernel<D, MODE><<<g.A, DEPOSIT_THREADS, smem, st>>>(g, act_start, act_count, tid, stream,
-                                                              mblk, params, out);
+  deposit_kernel<D, MODE><<<g.A, DEPOSIT_CHUNK, smem, st>>>(g, act_start, act_count, tid, stream,
+                                                            mblk, params, out);
   return static_cast<int>(cudaGetLastError());
 }
 
