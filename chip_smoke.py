@@ -3,7 +3,13 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases, each printing its own line; any failure raises and exits non-zero:
+Phases, each printing its own line; any failure raises and exits non-zero.
+A Session on the card runs each frame as one captured CUDA graph
+(``utils/graph.py``), so its replayed frames call no kernel wrapper: the
+launches of a replayed frame are counted from the graph's kernel nodes
+(those of an IF node's body times the bodies the card fired), witnessed
+by torch.profiler's kernel events, and held against the wrappers'
+counters over the same frame run eagerly (``replay_launches``).
 
 1. device   require a CUDA device; print the card's name and power limit
 2. build    compile csrc/*.cu with nvcc, one process per source started
@@ -45,48 +51,72 @@ Phases, each printing its own line; any failure raises and exits non-zero:
 5. goldens  Session(stream) and Session(pallas) from
             tests/data/golden_{2d,3d}.npz against the frozen trajectories at
             1e-3 (D=2 and D=3 kernels)
-6. slice    Session(stream, cuda) of the 1M dam, 2 frames (62 substeps,
-            re-bins included) with every launch counter reset just before:
-            conservation, shell_drop == 0, finite state, the fluid falls
-            (+y is down), every kernel launched, one halo_axis (the mass
-            halo) and one halo_gblk launch per substep; then one substep of stream
-            against dense from the same state, max |dpos| <= 1e-4
+6. slice    Session(stream, cuda) of the 1M dam, captured by compile_run,
+            2 replayed frames (62 substeps, re-bins included) calling no
+            wrapper: conservation, shell_drop == 0, finite state, the fluid
+            falls (+y is down); the launches of replayed frame 3 (graph
+            nodes, profiler witnessing) equal those of the same frame run
+            eagerly (counters): K2-K5 once per substep, K1 once plus once
+            per re-bin; a steady frame; one
+            substep of stream against dense from the same state, max |dpos|
+            <= 1e-4
 7. pallas slice
             Session(pallas) of the 1M dam built with no device argument (the
-            entry points default to the card), 1 frame (31 substeps) with the
-            launch counters reset just before: no overflow before and after,
-            mass conserved, finite state, the fluid falls, every on-path
-            pallas kernel launched; then one substep of pallas against dense
-            from the same state, max |dpos| <= 1e-4
-   big tile one strict Session(stream) frame of the 1M dam at bench.py's
-            big-tile spec (T=8, cap=1024, every kernel launched), one
-            substep from it against dense (1e-4), a T=4 frame beside it
+            entry points default to the card), captured, 1 replayed frame
+            (31 substeps) calling no wrapper: no overflow before and after,
+            mass conserved, finite state, the fluid falls; replayed frame
+            2's launches (graph nodes, profiler witnessing) equal the eager
+            frame's, K6, K7, K8 once per
+            substep; then one substep of pallas against dense from the same
+            state, max |dpos| <= 1e-4
+   graph    the frame as one CUDA graph: a graph with one IF node
+            (csrc/graph_if.cu) probed, with the CUDA runtime and NVIDIA
+            driver versions; graph against eager (compile_run changes
+            nothing; median ms per frame, peak memory, capture and
+            instantiation seconds, one profiled frame of each path) for
+            stream at the 1M dam (1 + 5 frames, bit-equal), then on the
+            same session run(5) equals 5 eager frame_binned frames with
+            re-bins fired inside the replays, two frames with the mouse
+            moved between replays and no recapture, a replayed frame
+            under set_sync_debug_mode("error") (the eager frame syncs);
+            stream and pallas (bit-equal) and dense (its first frame
+            within 1e-4) at the 3D reference scene (1 + 20 frames), and
+            pallas at the 1M dam (1 + 5); each cell's wall seconds
+   big tile a strict Session(stream) of the 1M dam at bench.py's
+            big-tile spec (T=8, cap=1024), captured: frame 1 profiled
+            (every kernel launched), frame 2 timed, one substep from it
+            against dense (1e-4), a T=4 session beside it
    backends the tiled and sorted backends (plain PyTorch, no kernel of
             csrc/) on bench.py's tiled cells 2d-ref, 3d-ref, 2d-100k (tiled
             under bench.py's tiled budget) and, sorted only, the 1M dam: no
             overflow before and after, one substep against dense (1e-4,
-            grid mass n), the cell's frames through Session, finite state,
-            snapshot replay bit-identical, no stream or pallas launch; ms
-            per frame, particle-steps/s, peak memory, a profiled substep
+            grid mass n), the cell's frames through the Session's graph
+            against the same frames run eagerly (bit-equal; 20 at 2d-ref
+            and 3d-ref, as graph_vs_eager above), finite state, snapshot
+            replay bit-identical, no stream or pallas launch; a profiled
+            eager substep
 8. replay   3D reference scene (4096), stream and pallas: snapshot, frame,
             restore, frame -> bit-identical; then ms per frame at that scene
 9. app      the app through its entry points, no device argument: the 3D
             reference scene on the default (stream) backend for 3 headless
             frames, plain and with the timing overlay, every stream kernel
-            launched, three 40x80 renders, the six stage labels; then
-            ``app.main`` on the pallas backend in 2D, K6, K7 and K8 launched;
+            launched (profiler), three 40x80 renders, the six stage
+            labels; then ``app.main`` on the pallas backend in 2D, K6, K7
+            and K8 launched (profiler);
             ``app.main --backend tiled`` and ``--backend sorted`` in 2D, 3
             frames, no kernel launched; ``app.main --shards 1`` in 3D, K1-K5
             launched
 10. batch   64 scenes of 4,096 particles (bench.py's batch-64), packed side
             by side into one 4608x72x72 domain (stride 72, 373,248 tiles,
             A = 110,000): a strict Session(stream) with the scene stride,
-            one warm frame and 3 timed frames, conservation, shell_drop 0,
+            one warm frame (the capture) and 3 timed frames, conservation,
+            shell_drop 0,
             finite state, each scene inside its own walls and falling; one
             substep of 8 scenes against dense on each scene alone; then each
             kernel timed on the packed state and on the state cut to the
             entries that hold or relay particles (the share of kernel time
-            spent on the unused, zero-count entries); a profiled frame
+            spent on the unused, zero-count entries); a profiled frame, every
+            stream kernel launched in it
 11. shards  the sharded stream backend (parallel/stream_shard.py) on the 1M
             dam as s = 1, 2, 4 x-slabs, every shard on this card: the
             ghost-gated K4 mass and K5 launches against their plain versions
@@ -106,7 +136,9 @@ Phases, each printing its own line; any failure raises and exits non-zero:
             device time, the largest device entries
 
 The last lines are the kernel table as JSON (time, plain time, the least
-time the card could take, launches on the main path; K4 and K5 list their
+time the card could take, launches in one replayed frame of the main path
+(slice, pallas slice) with how they were counted (launches_from) and the
+profiler's kernel events in that frame; K4 and K5 list their
 launch kinds, the sharded path's ghost-gated ones with on_path "shards";
 K1-K3 their big-tile kind, T=8 at cap 1024, on_path "stream big-tile";
 K6, K6f, K7 theirs, on no path),
@@ -117,10 +149,13 @@ the card line, and
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
 import os
+import re
+import subprocess
 import sys
 import time
 import types
@@ -142,6 +177,7 @@ from fluid_tpu_torch.ops import stream_transfer as stx  # noqa: E402
 from fluid_tpu_torch.ops import tiled_transfer as tt  # noqa: E402
 from fluid_tpu_torch.parallel import stream_shard as tsh  # noqa: E402
 from fluid_tpu_torch.session import Session  # noqa: E402
+from fluid_tpu_torch.utils import graph as graph_mod  # noqa: E402
 from fluid_tpu_torch.utils.platform import card_info, require_cuda  # noqa: E402
 
 N_1M = 1_000_000
@@ -814,17 +850,14 @@ def phase_slice(device, n: int, card: str, frames: int = 2):
     cfg, p, dom = dam_1m(device, n)
     y0 = float(p.pos[:, 1].mean())
     sess = Session(cfg, dom, p, backend="stream", device=device)
+    sess.compile_run(frames)
     sync(device)
     sk.reset_launches()
     t0 = time.perf_counter()
-    sess.run(frames)  # strict: conservation + shell_drop checked per frame
+    sess.run(frames)  # strict: conservation + shell_drop checked after the span
     sync(device)
     dt_run = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
-    check(all(v > 0 for v in launches.values()), f"every kernel launched: {launches}")
-    steps = frames * cfg.iterations
-    check(launches["halo_axis"] == steps and launches["halo_gblk"] == steps,
-          f"one mass halo and one halo_gblk launch per substep: {launches} vs {steps} substeps")
+    check(not any(sk.LAUNCHES.values()), f"replays call no wrapper: {sk.LAUNCHES}")
     check(sess.live_count() == n, "conservation")
     check(sess.shell_drop() == 0, "shell_drop == 0")
     q = sess.particles()
@@ -832,19 +865,43 @@ def phase_slice(device, n: int, card: str, frames: int = 2):
         check(bool(torch.isfinite(getattr(q, f)).all()), f"finite {f}")
     y1 = float(q.pos[:, 1].mean())
     check(y1 > y0, f"mean y rose ({y0:.4f} -> {y1:.4f}; +y is down)")
+    steps = frames * cfg.iterations
     print(f"[slice] n={n} frames={frames} substeps={steps} {dt_run * 1e3 / frames:.1f} ms/frame "
           f"{n * steps / dt_run:.4e} particle-steps/s rebins={sess.rebins()} "
           f"need_peak={sess.need_peak()} of A={sess.spec.A} mean_y {y0:.3f}->{y1:.3f} "
-          f"launches={launches}  [{card}]")
+          f"(graph captured in {sess.frame_graph.capture_s:.3f} s, instantiated in "
+          f"{sess.frame_graph.instantiate_s:.3f} s)  [{card}]")
 
-    # steady state: the next frames, timed alone, and the host sync share
+    # the launches of one replayed frame (its graph's kernel nodes, the
+    # profiler witnessing) against the wrapper counters of the same frame
+    # run eagerly from the same state
+    st0, rb0 = sess.stream_state().clone(), sess.rebins()
+    launches = replay_launches(sess, "slice")
+    fired = sess.rebins() - rb0
+    held = []
+    eager = counted_launches(
+        lambda: held.append(stx.frame_binned(st0, cfg, dom, sess.spec, *step.no_mouse(), n=n)))
+    check(state_err(sess.stream_state(), held[0]) == 0.0, "replayed frame 3 bit-equal to eager")
+    got = {k: v["launches"] for k, v in launches.items()}
+    check(got == eager, f"replayed frame's launches {got} == the eager frame's {eager} "
+                        f"({fired} re-bins fired in the replay)")
+    per_sub = ("deposit_p2g2", "collect", "halo_axis", "halo_gblk")
+    check(all(got[k] == cfg.iterations for k in per_sub) and got["deposit_p2g1"] == 1 + fired,
+          f"K2-K5 once per substep, K1 once plus once per re-bin ({fired}): {got}")
+    launches = {k: launches[k] for k in sk.KERNELS}
+    print(f"[slice] replayed frame {frames + 1}: launches {summary(launches)} == the eager "
+          f"frame's (wrapper counters); {fired} re-bins fired in it  [{card}]")
+    del st0
+
+    # steady state: one more frame, timed alone (the dam passes 128 slots a
+    # tile near its fifth frame), and the host sync share
     t0 = time.perf_counter()
-    sess.run(frames)
+    sess.run(1)
     sync(device)
     dt2 = time.perf_counter() - t0
-    print(f"[slice] steady frames {frames + 1}..{2 * frames}: {dt2 * 1e3 / frames:.1f} ms/frame "
-          f"{n * steps / dt2:.4e} particle-steps/s rebins={sess.rebins()}  [{card}]")
-    check(sess.live_count() == n and sess.shell_drop() == 0, "conservation after 4 frames")
+    print(f"[slice] steady frame {frames + 2}: {dt2 * 1e3:.1f} ms/frame "
+          f"{n * cfg.iterations / dt2:.4e} particle-steps/s rebins={sess.rebins()}  [{card}]")
+    check(sess.live_count() == n and sess.shell_drop() == 0, f"conservation after {frames + 2} frames")
 
     sync_ms = rebin_check_cost_ms(sess, device)
     print(f"[slice] host read of needs_rebin: {sync_ms:.3f} ms per substep "
@@ -873,6 +930,7 @@ def phase_pallas_slice(card: str, n: int = N_1M, frames: int = 1):
     y0 = float(p.pos[:, 1].mean())
     sess = Session(cfg, dom, p, backend="pallas")
     check(sess.device.type == "cuda", f"Session defaults to the card, not {sess.device}")
+    sess.compile_run(frames)
     sync(device)
     pk.reset_launches()
     sk.reset_launches()
@@ -880,9 +938,8 @@ def phase_pallas_slice(card: str, n: int = N_1M, frames: int = 1):
     sess.run(frames)
     sync(device)
     dt_run = time.perf_counter() - t0
-    launches = dict(pk.LAUNCHES)
-    check(all(launches[k] > 0 for k in PALLAS_ON_PATH), f"every on-path kernel launched: {launches}")
-    check(not any(sk.LAUNCHES.values()), f"no stream kernel on the pallas path: {sk.LAUNCHES}")
+    check(not any(pk.LAUNCHES.values()) and not any(sk.LAUNCHES.values()),
+          f"replays call no wrapper: {pk.LAUNCHES} {sk.LAUNCHES}")
     q = sess.particles()
     check(int(tt.overflow_count(q.pos, dom, spec)) == 0, "no overflow after the frame")
     check(q.n == n and float(q.mass.sum()) == float(n), "mass conserved")
@@ -893,13 +950,26 @@ def phase_pallas_slice(card: str, n: int = N_1M, frames: int = 1):
     steps = frames * cfg.iterations
     print(f"[pallas slice] n={n} frames={frames} substeps={steps} {dt_run * 1e3 / frames:.1f} ms/frame "
           f"{n * steps / dt_run:.4e} particle-steps/s A={tt.bin_particles(q.pos, dom, spec)['n_active']} "
-          f"cap={spec.cap} mean_y {y0:.3f}->{y1:.3f} launches={launches}  [{card}]")
+          f"cap={spec.cap} mean_y {y0:.3f}->{y1:.3f}  [{card}]")
+
+    # one replayed frame's launches (graph nodes, the profiler witnessing)
+    # against the eager frame's
+    launches = replay_launches(sess, "pallas slice")
+    eager = counted_launches(lambda: step.frame(q, cfg, dom, *step.no_mouse(), "pallas"))
+    got = {k: v["launches"] for k, v in launches.items()}
+    check(got == eager, f"replayed frame's launches {got} == the eager frame's {eager}")
+    check(all(got[k] == cfg.iterations for k in PALLAS_ON_PATH)
+          and got["pallas_deposit_force"] == 0 and not any(got[k] for k in sk.KERNELS),
+          f"K6, K7, K8 once per substep, no other csrc kernel: {got}")
+    launches = {k: launches[k] for k in pk.KERNELS}
+    print(f"[pallas slice] replayed frame {frames + 1}: launches {summary(launches)} == the "
+          f"eager frame's (wrapper counters)  [{card}]")
 
     t0 = time.perf_counter()
     sess.frame()
     sync(device)
     dt2 = time.perf_counter() - t0
-    print(f"[pallas slice] steady frame {frames + 1}: {dt2 * 1e3:.1f} ms/frame "
+    print(f"[pallas slice] steady frame {frames + 2}: {dt2 * 1e3:.1f} ms/frame "
           f"{n * cfg.iterations / dt2:.4e} particle-steps/s  [{card}]")
 
     # one substep from the same state: pallas vs dense, and the grid mass
@@ -915,6 +985,195 @@ def phase_pallas_slice(card: str, n: int = N_1M, frames: int = 1):
     print(f"[pallas slice] pallas vs dense, one substep: max|dpos| {dpos:.3e} max|dvel| {dvel:.3e} "
           f"grid mass {grid_mass:.2f} of {n}  [{card}]")
     return launches
+
+
+def frame_ms(run, frames: int, device) -> list:
+    """Host ms of each of ``frames`` calls of ``run()``, each ended by a
+    synchronize."""
+    out = []
+    for _ in range(frames):
+        sync(device)
+        t0 = time.perf_counter()
+        run()
+        sync(device)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def state_err(a, b) -> float:
+    """Largest |a - b| over the fields of two states of one kind."""
+    return max(float((getattr(a, f.name).double() - getattr(b, f.name).double()).abs().max())
+               for f in dataclasses.fields(a))
+
+
+def differ(a, b) -> list:
+    """The fields of two states of one kind that are not bit-equal."""
+    return [f.name for f in dataclasses.fields(a)
+            if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+
+
+def graph_vs_eager(sess, eager_step, start, frames: int, what: str, card: str, tol: float = 0.0,
+                   profile_eager: bool = True) -> dict:
+    """A strict=False ``sess``, its graph not yet captured, against
+    ``eager_step(state) -> state`` from ``start``, the session's state
+    before: ``compile_run`` leaves the state bit-equal; one frame of each,
+    the states bit-equal (tol 0) or within tol; then ``frames`` more frames
+    of each, timed one by one, and bit-equal again (tol 0 only: a backend
+    whose sums have no fixed order drifts apart over frames); the median
+    ms per frame of each path, each path's peak memory (the graph's with
+    its warm-up and capture), the capture and instantiation seconds; one
+    profiled frame of each path (of the graph's only, without
+    ``profile_eager``).  Returns the medians and the eager path's state."""
+    device = sess.device
+    held = [start]
+
+    def eager():
+        held[0] = eager_step(held[0])
+
+    def peak(run):
+        torch.cuda.reset_peak_memory_stats(device)
+        out = run()
+        return out, torch.cuda.max_memory_allocated(device) / 2**30
+
+    torch.cuda.reset_peak_memory_stats(device)
+    sess.compile_run()
+    check(not differ(sess.frame_graph.state, start),
+          f"{what}: compile_run left the state as it was, differ {differ(sess.frame_graph.state, start)}")
+    sess.frame()
+    g_peak = torch.cuda.max_memory_allocated(device) / 2**30
+    _, e_peak = peak(eager)
+    err = state_err(sess.frame_graph.state, held[0])
+    check(err <= tol, f"{what}: one frame, graph vs eager max|err| {err} <= {tol}")
+    g_ms, g_peak2 = peak(lambda: frame_ms(sess.frame, frames, device))
+    e_ms, e_peak2 = peak(lambda: frame_ms(eager, frames, device))
+    if tol == 0.0:
+        check(not differ(sess.frame_graph.state, held[0]),
+              f"{what}: {frames + 1} frames, graph bit-equal to eager")
+    g_ms, e_ms = float(np.median(g_ms)), float(np.median(e_ms))
+    fg = sess.frame_graph
+    print(f"[graph] {what}: compile_run left the state bit-equal; {frames + 1} frames "
+          f"{'bit-equal' if tol == 0.0 else f'(the first within {tol}: {err:.3e})'}; "
+          f"ms/frame median of frames 2-{frames + 1} eager {e_ms:.3f} graph {g_ms:.3f} "
+          f"({e_ms / g_ms:.2f}x); peak memory eager {max(e_peak, e_peak2):.3f} GiB, graph "
+          f"{max(g_peak, g_peak2):.3f} GiB; capture {fg.capture_s:.3f} s, instantiate "
+          f"{fg.instantiate_s:.3f} s  [{card}]")
+    profile_frame(sess, f"{what} graph", card, top=3, tag="graph")
+    if profile_eager:
+        profile_frame(types.SimpleNamespace(device=device, frame=eager), f"{what} eager", card,
+                      top=3, tag="graph")
+    return {"graph_ms": g_ms, "eager_ms": e_ms, "eager_state": held[0]}
+
+
+def graph_stream_1m(device, card: str, frames: int = 5) -> None:
+    """The stream Session of the 1M dam on its graph against eager
+    ``frame_binned`` from the same state, every field compared bit for
+    bit: ``graph_vs_eager`` (``compile_run`` changes nothing, 1 + ``frames``
+    frames timed on each path); then ``run(frames)`` equals ``frames``
+    eager frames, with re-bins fired inside the replays; two frames with
+    the mouse on, moved between the replays (a host and a device mouse)
+    with no recapture; a replayed frame that makes no synchronizing call,
+    where the eager frame makes one."""
+    cfg, p, dom = dam_1m(device)
+    n, (mp, ma) = p.n, step.no_mouse()
+    sess = Session(cfg, dom, p, backend="stream", device=device, strict=False)
+
+    def eager_step(st, mouse=(mp, ma), substeps=None):
+        return stx.frame_binned(st, cfg, dom, sess.spec, *mouse, substeps, n=n)
+
+    held = [graph_vs_eager(sess, eager_step, sess.stream_state().clone(), frames,
+                           f"stream 1M dam (n={n})", card)["eager_state"]]
+
+    def eager(*args):
+        held[0] = eager_step(held[0], *args)
+
+    def same(what):
+        check(not differ(sess.stream_state(), held[0]),
+              f"graph 1M {what}: bit-equal to eager frame_binned, differ "
+              f"{differ(sess.stream_state(), held[0])}")
+
+    rb0 = sess.rebins()
+    sync(device)
+    t0 = time.perf_counter()
+    sess.run(frames)
+    sync(device)
+    run_ms = (time.perf_counter() - t0) * 1e3 / frames
+    for _ in range(frames):
+        eager()
+    same(f"run({frames})")
+    fired = sess.rebins() - rb0
+    check(fired >= 1, f"graph 1M: re-bins fired inside the replayed frames of run({frames}) ({fired})")
+    print(f"[graph] stream 1M dam (n={n}, A={sess.spec.A}): run({frames}) {run_ms:.2f} ms/frame, "
+          f"bit-equal to {frames} eager frame_binned frames, {fired} re-bins fired inside its "
+          f"replayed frames  [{card}]")
+
+    graph = sess.frame_graph.graph
+    cx, cy = (float(v) for v in p.pos[:, :2].mean(dim=0))
+    for k, mouse in enumerate((step.mouse((cx, cy)),
+                               tuple(t.to(device) for t in step.mouse((cx + 8.0, cy - 4.0))))):
+        sess.frame(mouse)
+        eager(mouse)
+        same(f"mouse frame {k}")
+    check(sess.frame_graph.graph is graph, "graph 1M: the mouse moved with no recapture")
+
+    sync(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess.frame()  # strict=False: no check after it either
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager((mp, ma), 1)
+        eager_sync = ""
+    except RuntimeError as e:
+        eager_sync = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(eager_sync), "graph 1M: the eager frame makes a synchronizing call")
+    eager()  # that frame again, in full, without the debug mode
+    same("the frame replayed under the sync debug mode")
+    print(f"[graph] stream 1M: two mouse frames, the mouse moved between replays (host, then "
+          f"device tensors), bit-equal with no recapture; a replayed frame under "
+          f"set_sync_debug_mode('error') made no synchronizing call, the eager frame does "
+          f"({eager_sync.splitlines()[0][:60]!r}); {sess.rebins()} re-bins in "
+          f"{2 * frames + 5} replayed frames, live {sess.live_count()} of {n}  [{card}]")
+    del sess, held
+    torch.cuda.empty_cache()
+
+
+def phase_graph(device, card: str, frames: int = 20) -> None:
+    """The frame as one CUDA graph: the IF-node probe, the 1M stream dam
+    (``graph_stream_1m``), then graph against eager (``graph_vs_eager``) for
+    the stream, pallas and dense backends at the 3D reference scene (1 +
+    ``frames`` frames; dense's first frame within 1e-4, as ``index_add_``
+    sums in no fixed order on the card) and pallas at the 1M dam (1 + 5).
+    The tiled and sorted cells run in phase_backends."""
+    print(f"[graph] IF-node probe: a graph with one IF node adds only where its predicate "
+          f"holds ({probe_if_node(device)})  [{card}]")
+    t_cell = time.perf_counter()
+    graph_stream_1m(device, card)
+    print(f"[time] graph stream 1M dam: {time.perf_counter() - t_cell:.1f} s")
+    mp, ma = step.no_mouse()
+    for backend, cell, count, tol in (("stream", "3D reference scene", frames, 0.0),
+                                      ("pallas", "3D reference scene", frames, 0.0),
+                                      ("dense", "3D reference scene", frames, 1e-4),
+                                      ("pallas", "1M dam", 5, 0.0)):
+        t_cell = time.perf_counter()
+        if cell == "1M dam":
+            cfg, p, dom = dam_1m(device)
+        else:
+            cfg, p, dom = scene.reference_scene_3d(seed=0, device=device)
+        sess = Session(cfg, dom, p, backend=backend, device=device, strict=False)
+        if backend == "stream":
+            start = sess.stream_state().clone()
+            eager = lambda st: stx.frame_binned(st, cfg, dom, sess.spec, mp, ma, n=p.n)  # noqa: E731
+        else:
+            start = sess.particles()
+            eager = lambda q: step.frame(q, cfg, dom, mp, ma, backend)  # noqa: E731
+        graph_vs_eager(sess, eager, start, count, f"{backend} {cell} (n={p.n})", card, tol)
+        del sess, start, p
+        torch.cuda.empty_cache()
+        print(f"[time] graph {backend} {cell}: {time.perf_counter() - t_cell:.1f} s")
 
 
 def phase_replay(device, card: str) -> None:
@@ -970,20 +1229,22 @@ def phase_big_tile(device, card: str, n: int = N_1M) -> None:
     ms = {}
     for name, sp in (("T=8 cap=1024", spec), ("T=4 cap=128", None)):
         sess = Session(cfg, dom, p, backend="stream", spec=sp, device=device)
-        sync(device)
-        sk.reset_launches()
         torch.cuda.reset_peak_memory_stats(device)
+        sess.compile_run()
+        launches = replay_launches(sess, f"big tile {name}")
+        launches = {k: launches[k]["launches"] for k in sk.KERNELS}
+        check(all(v > 0 for v in launches.values()), f"big tile {name}: every kernel launched {launches}")
+        sync(device)
         t0 = time.perf_counter()
         sess.frame()  # strict: sum(count) == n and shell_drop == 0
         sync(device)
         ms[name] = (time.perf_counter() - t0) * 1e3
-        launches = dict(sk.LAUNCHES)
-        check(all(v > 0 for v in launches.values()), f"big tile {name}: every kernel launched {launches}")
         check(sess.live_count() == n and sess.shell_drop() == 0, f"big tile {name}: strict checks")
-        print(f"[big tile] 1M dam, stream {name}: A={sess.spec.A} one frame {ms[name]:.1f} ms "
+        print(f"[big tile] 1M dam, stream {name}: A={sess.spec.A} frame 2 {ms[name]:.1f} ms "
               f"{n * cfg.iterations / ms[name] * 1e3:.4e} particle-steps/s rebins={sess.rebins()} "
               f"need_peak={sess.need_peak()} peak memory "
-              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB launches={launches}  [{card}]")
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; frame 1 launches={launches} "
+              f"(graph nodes, profiler witnessing)  [{card}]")
         if sp is spec:
             mid = sess.particles()
         del sess
@@ -992,7 +1253,7 @@ def phase_big_tile(device, card: str, n: int = N_1M) -> None:
     b, _ = step.substep(mid, cfg, dom, mp, ma, backend="dense")
     dpos = float((a.pos - b.pos).abs().max())
     check(dpos <= 1e-4, f"big tile: one substep vs dense max|dpos| {dpos} <= 1e-4")
-    print(f"[big tile] one substep from frame 1 vs dense: max|dpos| {dpos:.3e}; ms/frame "
+    print(f"[big tile] one substep from frame 2 vs dense: max|dpos| {dpos:.3e}; ms of frame 2 "
           f"T=8 cap=1024 {ms['T=8 cap=1024']:.1f} beside T=4 cap=128 {ms['T=4 cap=128']:.1f}  [{card}]")
     del mid, a, b
     torch.cuda.empty_cache()
@@ -1012,8 +1273,9 @@ def tiled_spec(cfg, dom, n: int):
 
 
 # bench.py's CONFIGS that race the tiled backend (name, dim, particles,
-# frames) and the 3D 1M dam, which only the sorted backend runs here
-BACKEND_CELLS = (("2d-ref", 2, 4096, 20), ("3d-ref", 3, 4096, 10), ("2d-100k", 2, 100_000, 5),
+# timed frames: bench's, and at least 20 at the reference scenes)
+# and the 3D 1M dam, which only the sorted backend runs here
+BACKEND_CELLS = (("2d-ref", 2, 4096, 20), ("3d-ref", 3, 4096, 20), ("2d-100k", 2, 100_000, 5),
                  ("3d-1m", 3, N_1M, 3))
 
 
@@ -1061,13 +1323,13 @@ def phase_backends(card: str) -> None:
             check(dpos <= 1e-4, f"{backend} {name}: one substep vs dense max|dpos| {dpos} <= 1e-4")
             check(abs(grid_mass - n) <= 1e-4 * n, f"{backend} {name}: grid mass {grid_mass} == n")
             del a, ga, b
-            torch.cuda.reset_peak_memory_stats(device)
-            sess = Session(cfg, dom, p, backend=backend, spec=spec)
-            sync(device)
-            t0 = time.perf_counter()
-            sess.run(frames)
-            torch.cuda.synchronize(device)
-            wall = time.perf_counter() - t0
+            sess = Session(cfg, dom, p, backend=backend, spec=spec, strict=False)
+            if spec is not None:
+                eager = lambda q: tt.frame(q, cfg, dom, mp, ma, spec=spec)  # noqa: E731
+            else:
+                eager = lambda q: step.frame(q, cfg, dom, mp, ma, backend)  # noqa: E731
+            t = graph_vs_eager(sess, eager, sess.particles(), frames, f"{backend} {name}", card,
+                               profile_eager=False)
             q = sess.particles()
             if spec is not None:
                 check(int(tt.overflow_count(q.pos, dom, spec)) == 0, f"tiled {name}: no overflow after the run")
@@ -1075,7 +1337,7 @@ def phase_backends(card: str) -> None:
                 check(bool(torch.isfinite(getattr(q, f)).all()), f"{backend} {name}: finite {f}")
             snap = sess.snapshot()
             sess.frame()
-            first = sess.particles().clone()
+            first = sess.particles()
             sess.restore(snap)
             sess.frame()
             for f in state.FIELDS:
@@ -1083,11 +1345,10 @@ def phase_backends(card: str) -> None:
                       f"{backend} {name}: replay bit-identical: {f}")
             check(not any(sk.LAUNCHES.values()) and not any(pk.LAUNCHES.values()),
                   f"{backend} {name}: no stream or pallas kernel launched {sk.LAUNCHES} {pk.LAUNCHES}")
-            peak = torch.cuda.max_memory_allocated(device) / 2**30
             print(f"[backends] {backend} {name} (n={n}{f', A={spec.active} cap={spec.cap}' if spec else ''}): "
-                  f"one substep vs dense max|dpos| {dpos:.3e}, grid mass {grid_mass:.3f}; {frames} frames "
-                  f"{wall * 1e3 / frames:.2f} ms/frame {n * cfg.iterations * frames / wall:.4e} "
-                  f"particle-steps/s; replay bit-identical; peak memory {peak:.2f} GiB  [{card}]")
+                  f"one substep vs dense max|dpos| {dpos:.3e}, grid mass {grid_mass:.3f}; graph frames "
+                  f"{t['graph_ms']:.2f} ms (median) {n * cfg.iterations / t['graph_ms'] * 1e3:.4e} "
+                  f"particle-steps/s; replay bit-identical  [{card}]")
             # one substep under the profiler: a frame's thousands of small ops
             # take the profiler 8-23 s to summarise
             q = sess.particles()
@@ -1130,12 +1391,17 @@ def phase_app(card: str, frames: int = 3) -> None:
     overlay, which probes each stage on the session's state beside its
     frame; then ``app.main`` on the pallas backend in 2D.  Each run's launch
     counters are reset just before it and read just after."""
+    device = require_cuda()
     for timing in (False, True):
         out = io.StringIO()
-        sk.reset_launches()
-        app.run(dim=3, n=scene.REFERENCE_N, frames=frames, headless=True, timing=timing, out=out)
-        launches = dict(sk.LAUNCHES)
-        check(all(v > 0 for v in launches.values()), f"app: every stream kernel launched: {launches}")
+        launches = profiled_launches(lambda: app.run(dim=3, n=scene.REFERENCE_N, frames=frames,
+                                                     headless=True, timing=timing, out=out), device)
+        launches = {k: launches[k] for k in sk.KERNELS}
+        # the window holds the session's eager warm-up frame as well as its
+        # replays: thousands of kernels, of which the profiler can drop
+        # many (a chip run counted 96 of K2's 124), so no exact count
+        check(all(v > 0 for v in launches.values()),
+              f"app: every stream kernel launched (profiler): {launches}")
         times = app_frames(out.getvalue(), frames, (*STREAM_STAGES, "frame") if timing else ("frame",))
         frame_ms = ", ".join(f"{t['frame']:.2f}" for t in times)
         print(f"[app] 3D reference scene (n={scene.REFERENCE_N}), stream{' --timing' if timing else ''}: "
@@ -1143,14 +1409,15 @@ def phase_app(card: str, frames: int = 3) -> None:
         if timing:
             stages = ", ".join(f"{k} {v:.3f}" for k, v in times[-1].items() if k != "frame")
             print(f"[app] timing overlay, frame {frames - 1} stage ms (CUDA events): {stages}  [{card}]")
-    pk.reset_launches()
-    sk.reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        app.main(["--dim", "2", "--frames", "2", "--headless", "--backend", "pallas"])
-    launches = dict(pk.LAUNCHES)
-    check(all(launches[k] > 0 for k in PALLAS_ON_PATH), f"app pallas: K6, K7, K8 launched: {launches}")
-    check(not any(sk.LAUNCHES.values()), f"app pallas: no stream kernel: {sk.LAUNCHES}")
+        launches = profiled_launches(
+            lambda: app.main(["--dim", "2", "--frames", "2", "--headless", "--backend", "pallas"]),
+            device)
+    check(all(launches[k] > 0 for k in PALLAS_ON_PATH)
+          and not any(launches[k] for k in (*sk.KERNELS, "pallas_deposit_force")),
+          f"app pallas: K6, K7, K8 launched (profiler), no other csrc kernel: {launches}")
+    launches = {k: launches[k] for k in pk.KERNELS}
     frame_ms = ", ".join(f"{t['frame']:.2f}" for t in app_frames(out.getvalue(), 2, ("frame",)))
     print(f"[app] main --dim 2 --backend pallas: ms/frame {frame_ms}; launches={launches}  [{card}]")
     for backend in ("tiled", "sorted"):
@@ -1245,15 +1512,14 @@ def phase_batch(device, card: str, batch: int = 64, n: int = scene.REFERENCE_N, 
           f"{stride:g}, {nt} tiles), A={spec.A} cap={spec.cap}  [{card}]")
     y0 = stack.pos[..., 1].mean(dim=1)
     sess = Session(cfg, dom, packed, backend="stream", spec=spec)
-    sess.frame()  # warm: strict checks included
+    sess.frame()  # warm: the capture, and strict checks included
     sync(device)
     sk.reset_launches()
     t0 = time.perf_counter()
     sess.run(frames)
     sync(device)
     wall = time.perf_counter() - t0
-    launches = dict(sk.LAUNCHES)
-    check(all(v > 0 for v in launches.values()), f"batch: every stream kernel launched: {launches}")
+    check(not any(sk.LAUNCHES.values()), f"batch: replays call no wrapper: {sk.LAUNCHES}")
     check(sess.live_count() == packed.n and sess.shell_drop() == 0, "batch: conservation, shell_drop 0")
     q = sess.particles()
     for f in state.FIELDS:
@@ -1267,8 +1533,8 @@ def phase_batch(device, card: str, batch: int = 64, n: int = scene.REFERENCE_N, 
     steps = (frames + 1) * cfg.iterations
     print(f"[batch] {wall * 1e3 / frames:.1f} ms/frame, "
           f"{packed.n * cfg.iterations * frames / wall:.4e} particle-steps/s over {frames} frames; "
-          f"rebins={sess.rebins()} in {steps} substeps, need_peak={sess.need_peak()} of A={spec.A}, "
-          f"launches={launches}  [{card}]")
+          f"rebins={sess.rebins()} in {steps} substeps, need_peak={sess.need_peak()} of A={spec.A}  "
+          f"[{card}]")
 
     # one substep of the packed state against dense on each scene alone
     mp, ma = step.no_mouse()
@@ -1287,6 +1553,16 @@ def phase_batch(device, card: str, batch: int = 64, n: int = scene.REFERENCE_N, 
     print(f"[batch] one substep, packed stream vs dense per scene, max|dpos| x/(y,z) by scene: "
           f"{'; '.join(worst)}  [{card}]")
     zero_tile_share(cfg, spec, dom, sess.stream_state(), device, card)
+    rb0 = sess.rebins()
+    launches = replay_launches(sess, "batch")
+    launches = {k: launches[k]["launches"] for k in sk.KERNELS}
+    check(all(launches[k] == cfg.iterations for k in ("deposit_p2g2", "collect", "halo_axis",
+                                                       "halo_gblk"))
+          and launches["deposit_p2g1"] == 1 + sess.rebins() - rb0,
+          f"batch: replayed frame {frames + 2} launched K2-K5 once per substep, K1 once plus once "
+          f"per re-bin: {launches}")
+    print(f"[batch] replayed frame {frames + 2}: launches {launches} (graph nodes, profiler "
+          f"witnessing)  [{card}]")
     profile_frame(sess, f"{batch} x {n} packed", card, top=6, tag="batch")
 
 
@@ -1446,6 +1722,24 @@ def phase_checkpoint(device, card: str, out_dir: str) -> None:
           f"{diagnostics.format_metrics(m)}  [{card}]")
 
 
+def probe_if_node(device) -> str:
+    """A CUDA graph holding one IF node (``utils/graph.if_node``) that adds
+    one to x where pred holds, replayed with pred false and true in turns;
+    returns the CUDA runtime and NVIDIA driver versions it ran under."""
+    x = torch.zeros((), device=device)
+    pred = torch.zeros((), dtype=torch.bool, device=device)
+    g, bodies = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(g, stream=graph_mod.capture_streams(device)[0]):
+        graph_mod.if_node(bodies)(pred, lambda: x.add_(1.0))
+    for flag, want in ((False, 0.0), (True, 1.0), (False, 1.0), (True, 2.0)):
+        pred.fill_(flag)
+        g.replay()
+        check(float(x) == want, f"IF node on pred={flag}: x {float(x)} == {want}")
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    return f"torch {torch.__version__}, CUDA runtime {torch.version.cuda}, NVIDIA driver {driver}"
+
+
 def phase_profile(card: str, n: int = N_1M, top: int = 8) -> None:
     """One frame of the 1M dam per backend under torch.profiler, after a
     warm-up frame (``profile_frame``)."""
@@ -1459,18 +1753,181 @@ def phase_profile(card: str, n: int = N_1M, top: int = 8) -> None:
 
 CSRC_KERNELS = tuple(f"(anonymous namespace)::{k}<" for k in
                      ("deposit_kernel", "collect_kernel", "halo_axes_kernel", "halo_axes_any_kernel"))
+CSRC_KERNELS += ("(anonymous namespace)::set_condition(",)  # csrc/graph_if.cu, the IF nodes'
+
+
+def csrc_launch_name(key: str):
+    """The wrapper (a key of ``sk.LAUNCHES`` or ``pk.LAUNCHES``) whose kernel
+    a profiler kernel event ``key`` is, or None: the stream deposit is
+    ``deposit_kernel<D, P2G2, MULTI>`` over a ``Geom``, the pallas one
+    ``deposit_kernel<D, MODE>``; the stream collect has three template
+    arguments, the pallas one one; the halo kernels' last argument is
+    GBLK."""
+    m = re.search(r"\(anonymous namespace\)::(deposit_kernel|collect_kernel|halo_axes_kernel"
+                  r"|halo_axes_any_kernel)<([^>]*)>", key)
+    if m is None:
+        return None
+    kind, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+    if kind == "deposit_kernel":
+        if args[1] in ("true", "false"):
+            return "deposit_p2g2" if args[1] == "true" else "deposit_p2g1"
+        return {"1": "pallas_deposit_p2g1", "2": "pallas_deposit_force", "3": "pallas_p2g2"}[args[1]]
+    if kind == "collect_kernel":
+        return "collect" if len(args) == 3 else "pallas_collect"
+    return "halo_gblk" if args[-1] == "true" else "halo_axis"
+
+
+def profiled_launches(run, device) -> dict:
+    """Launches of each csrc kernel, by wrapper name, among the kernel events
+    of torch.profiler while ``run()`` runs: a replayed graph launches no
+    wrapper, so the profiler is the witness that its kernels ran.  Chip
+    runs saw the profiler lose the first events of a long window (the two
+    spins that lead it, most of an app's warm-up frame) with a warning
+    that it clears events at the end of each cycle, so events are kept
+    across cycles (``acc_events``); the host waits 0.1 s, the card spins
+    twice, the second spin after a synchronize, and only kernels that start
+    after the last spin the profiler saw count (every kernel, where it saw
+    none of the spins, as in some full runs of this script), each (name,
+    start) once.  Kernels inside an IF node's body are reported
+    unreliably (chip runs saw a body's K1 last 1.2 and 13.6 us where K1
+    takes ~300, and body K1 events missing or doubled in a frame):
+    ``replay_launches`` counts those from the graph's nodes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        time.sleep(0.1)
+        for _ in range(2):
+            torch.cuda._sleep(1 << 20)
+            sync(device)
+        run()
+        sync(device)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    mark = max((e.time_range.end for e in events if "spin_kernel" in e.name), default=None)
+    kept = {(csrc_launch_name(e.name), e.time_range.start) for e in events
+            if (mark is None or e.time_range.start >= mark) and csrc_launch_name(e.name) is not None}
+    counts = dict.fromkeys((*sk.KERNELS, *pk.KERNELS), 0)
+    for name, _ in kept:
+        counts[name] += 1
+    return counts
+
+
+def demangle(name: bytes) -> str:
+    """A C++ symbol's demangled name (libstdc++'s ``__cxa_demangle``); the
+    name as it is where it is not a mangled one."""
+    cxa = ctypes.CDLL("libstdc++.so.6").__cxa_demangle
+    cxa.restype = ctypes.c_void_p
+    status = ctypes.c_int()
+    out = cxa(ctypes.c_char_p(name), None, None, ctypes.byref(status))
+    if status.value != 0 or not out:
+        return name.decode()
+    text = ctypes.string_at(out).decode()
+    libc_free = ctypes.CDLL(None).free
+    libc_free.argtypes = [ctypes.c_void_p]
+    libc_free(out)
+    return text
+
+
+CU_GRAPH_NODE_TYPE_KERNEL, CU_GRAPH_NODE_TYPE_CONDITIONAL = 0, 13
+
+
+def graph_kernel_nodes(raw_graph: int) -> tuple:
+    """(csrc kernel nodes by wrapper name, conditional nodes) at the top
+    level of a CUDA graph (``CUDAGraph.raw_cuda_graph()``), read through the
+    driver API: ``cuGraphKernelNodeGetParams`` gives each kernel node's
+    function (``func``, or ``kern`` where the node holds a CUkernel, at
+    bytes 0 and 56 of ``CUDA_KERNEL_NODE_PARAMS_v2``), ``cuFuncGetName`` /
+    ``cuKernelGetName`` its mangled name."""
+    drv = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def ok(rc, what):
+        check(rc == 0, f"{what}: CUresult {rc}")
+
+    n = ctypes.c_size_t(0)
+    ok(drv.cuGraphGetNodes(vp(raw_graph), None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    ok(drv.cuGraphGetNodes(vp(raw_graph), nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kernels = dict.fromkeys((*sk.KERNELS, *pk.KERNELS), 0)
+    conditional = 0
+    for node in nodes:
+        kind = ctypes.c_int()
+        ok(drv.cuGraphNodeGetType(vp(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        conditional += kind.value == CU_GRAPH_NODE_TYPE_CONDITIONAL
+        if kind.value != CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        params = (vp * 16)()  # CUDA_KERNEL_NODE_PARAMS_v2 is 72 bytes
+        ok(drv.cuGraphKernelNodeGetParams_v2(vp(node), params), "cuGraphKernelNodeGetParams")
+        func, kern = params[0], params[7]
+        name = ctypes.c_char_p()
+        if func:
+            ok(drv.cuFuncGetName(ctypes.byref(name), vp(func)), "cuFuncGetName")
+        else:
+            ok(drv.cuKernelGetName(ctypes.byref(name), vp(kern)), "cuKernelGetName")
+        wrapper = csrc_launch_name(demangle(name.value))
+        if wrapper is not None:
+            kernels[wrapper] += 1
+    return kernels, conditional
+
+
+def replay_launches(sess: Session, what: str) -> dict:
+    """The launches of one replayed ``sess.frame()``, by wrapper name: each
+    kernel's nodes at the frame graph's top level (run at every replay),
+    plus its nodes in one IF body (each body alike) times the bodies the
+    card fired in the frame (its ``rebins`` counter), so derived from the
+    graph, not counted as they ran.  The profiler (``profiled_launches``)
+    witnesses the frame: it sees as many events as nodes for each kernel no
+    IF body holds, and at least the top-level nodes of one that a body
+    holds (K1).  Returns name -> {"launches", "launches_from",
+    "profiler_events"}."""
+    fg = sess.frame_graph
+    fg.capture()
+    rb0 = sess.rebins()
+    seen = profiled_launches(sess.frame, sess.device)
+    fired = sess.rebins() - rb0
+    top, conditional = graph_kernel_nodes(fg.graph.raw_cuda_graph())
+    bodies = [graph_kernel_nodes(b.raw_cuda_graph()) for b in fg.bodies]
+    check(conditional == len(bodies), f"{what}: {conditional} IF nodes == {len(bodies)} bodies")
+    check(all(b == bodies[0] for b in bodies), f"{what}: every IF body holds the same kernels")
+    body = bodies[0][0] if bodies else dict.fromkeys(top, 0)
+    out = {}
+    for k in top:
+        n = top[k] + fired * body[k]
+        witnessed = seen[k] == n if body[k] == 0 else seen[k] >= top[k]
+        check(witnessed, f"{what}: {k} profiler events {seen[k]} against {top[k]} nodes a frame "
+                         f"+ {body[k]} a re-bin body x {fired} fired")
+        out[k] = {"launches": n, "profiler_events": seen[k],
+                  "launches_from": f"graph nodes: {top[k]} a frame + {body[k]} a re-bin body "
+                                   f"x {fired} fired (card counter)"}
+    return out
+
+
+def summary(launches: dict) -> str:
+    """``replay_launches``' counts as "name N (profiler M)", one a kernel."""
+    return ", ".join(f"{k} {v['launches']} (profiler {v['profiler_events']})"
+                     for k, v in launches.items())
+
+
+def counted_launches(run) -> dict:
+    """The wrappers' launch counters over ``run()``, reset just before."""
+    sk.reset_launches()
+    pk.reset_launches()
+    run()
+    return {**sk.LAUNCHES, **pk.LAUNCHES}
 
 
 def profile_frame(sess: Session, what: str, card: str, top: int = 8, tag: str = "profile",
                   span: str = "frame") -> None:
     """One ``sess.frame()`` (a frame, or the ``span`` it runs) under
-    torch.profiler: host wall time, device time (the sum of every kernel's
-    and copy's time), the csrc kernels' share and the largest device
+    torch.profiler, tracing the card only (tracing the host's ops as well
+    took an eager pallas frame's profile 3.1 s where this takes 1.4, chip
+    run): host wall time, device time (the sum of every kernel's and
+    copy's time), the csrc kernels' share and the largest device
     entries."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(sess.device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
         sess.frame()
         sync(sess.device)
@@ -1521,6 +1978,7 @@ def main() -> int:
     run(phase_goldens, device, card)
     launches = run(phase_slice, device, N_1M, card)
     launches.update(run(phase_pallas_slice, card))
+    run(phase_graph, device, card)
     run(phase_big_tile, device, card)
     run(phase_backends, card)
     run(phase_replay, device, card)
@@ -1538,7 +1996,7 @@ def main() -> int:
         results[name]["kinds"] = {kind: {k: v[k] for k in strip} for kind, v in kinds.items()}
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
-         "launches": launches[name], **results[name]}
+         **launches[name], **results[name]}
         for name in (*sk.KERNELS, *pk.KERNELS)
     ]
     print(card)

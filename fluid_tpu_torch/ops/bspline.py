@@ -14,6 +14,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.graph import device_const
+
 
 def quadratic_weights(cell_diff: torch.Tensor) -> torch.Tensor:
     """[..., D] offsets in [-0.5, 0.5) -> [..., 3, D] per-axis weights."""
@@ -31,16 +33,19 @@ def _stencil_offsets_np(dim: int) -> np.ndarray:
 
 
 def stencil_offsets(dim: int, device=None) -> torch.Tensor:
-    """[3^dim, dim] int64 stencil offsets (0..2 per axis)."""
-    return torch.as_tensor(_stencil_offsets_np(dim), device=device)
+    """[3^dim, dim] int64 stencil offsets (0..2 per axis); a shared
+    ``device_const``, not to be written to."""
+    return device_const(_stencil_offsets_np(dim), device)
 
 
 def stencil_weights(ws: torch.Tensor) -> torch.Tensor:
     """[..., 3, D] per-axis weights -> [..., 3^D] tensor-product weights,
-    ordered like ``stencil_offsets``."""
+    ordered like ``stencil_offsets``: the outer product of the axes, axis 0
+    fastest, each tap's product formed in axis order.  Slices, not an index
+    table: indexing with a host table would copy it to the device."""
     dim = ws.shape[-1]
-    offs = _stencil_offsets_np(dim)
-    out = ws[..., offs[:, 0], 0]
+    lead = ws.shape[:-2]
+    out = ws[..., 0]  # [..., 3]
     for d in range(1, dim):
-        out = out * ws[..., offs[:, d], d]
+        out = (out.unsqueeze(-2) * ws[..., d].unsqueeze(-1)).reshape(*lead, 3 ** (d + 1))
     return out

@@ -38,8 +38,9 @@ FLAGS = ARCH_FLAGS + (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# argtypes of every entry point in csrc/stream_kernels.cu and csrc/pallas_kernels.cu
+# argtypes of every entry point in csrc/*.cu
 SIGNATURES = {
+    "fluid_graph_if": [_P, _P, _P],
     "fluid_deposit": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_collect": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_halo_axes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

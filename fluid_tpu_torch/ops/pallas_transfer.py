@@ -38,15 +38,11 @@ import torch
 from ..config import Config
 from ..domain import Domain
 from ..state import GridState, ParticleState
+from ..utils.graph import device_const
 from . import pallas_kernels as pk
 from . import tiled_transfer as tt
 from .stream_kernels import TileGeom, gravity_step
 from .tiling import assemble, edge_mask, halo_sum
-
-
-def _to_device(values, device) -> torch.Tensor:
-    """float32 host values on ``device``, without waiting for the device."""
-    return torch.tensor(values, dtype=torch.float32).to(device, non_blocking=True)
 
 
 def collect_params(cfg: Config, mouse_pos, mouse_active, device) -> torch.Tensor:
@@ -55,11 +51,12 @@ def collect_params(cfg: Config, mouse_pos, mouse_active, device) -> torch.Tensor
     mouse_y, clip_lo[D], clip_hi[D].  The mouse tensors are copied on the
     device, never read on the host."""
     lo, hi = cfg.boundary_clip
-    head = _to_device([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
-                       cfg.pressure_floor, cfg.mouse_radius, cfg.boundary_damp_dist], device)
+    head = device_const([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
+                         cfg.pressure_floor, cfg.mouse_radius, cfg.boundary_damp_dist],
+                        device, torch.float32)
     mouse = [torch.as_tensor(mouse_active).reshape(1), torch.as_tensor(mouse_pos).reshape(2)]
     mouse = [m.to(device, torch.float32, non_blocking=True) for m in mouse]
-    return torch.cat([head, *mouse, _to_device([*lo, *hi], device)])
+    return torch.cat([head, *mouse, device_const([*lo, *hi], device, torch.float32)])
 
 
 def make_plan(cfg: Config, domain: Domain, spec: tt.TileSpec, mouse_pos, mouse_active, device):
@@ -72,10 +69,10 @@ def make_plan(cfg: Config, domain: Domain, spec: tt.TileSpec, mouse_pos, mouse_a
         spec=spec, tshape=tshape, nt=nt,
         geom=TileGeom(dim=D, tile=spec.tile, halo=1, cap=spec.cap, tshape=tshape,
                       origin=tuple(int(o) for o in domain.origin)),
-        params6=_to_device([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
-                            cfg.pressure_floor, cfg.dynamic_viscosity], device),
+        params6=device_const([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
+                              cfg.pressure_floor, cfg.dynamic_viscosity], device, torch.float32),
         params_c=collect_params(cfg, mouse_pos, mouse_active, device),
-        dtg=torch.as_tensor(gravity_step(cfg.dt, cfg.gravity)).to(device, non_blocking=True),
+        dtg=device_const(gravity_step(cfg.dt, cfg.gravity), device),
         emask=torch.cat([emask, emask.new_zeros((1, emask.shape[1]))]),
     )
 

@@ -24,6 +24,7 @@ import torch
 from ..config import Config
 from ..domain import Domain
 from ..state import FIELDS, GridState, ParticleState
+from ..utils.graph import device_const
 from .bspline import _stencil_offsets_np, quadratic_weights, stencil_weights
 from .eos import stress_tensor, tait_pressure
 
@@ -39,9 +40,9 @@ def sort_by_cell(p: ParticleState, domain: Domain):
     ``jnp.argsort``).  Returns (sorted state, sorted flat cell id [N],
     inverse permutation [N])."""
     dev = p.device
-    strides = torch.as_tensor(_flat_strides(domain.shape), device=dev)
-    origin = torch.as_tensor(domain.origin, device=dev)
-    shape = torch.as_tensor(domain.shape, device=dev)
+    strides = device_const(_flat_strides(domain.shape), dev)
+    origin = device_const(domain.origin, dev)
+    shape = device_const(domain.shape, dev)
     # out-of-grid cells are clamped per axis; their taps are masked later
     cell = torch.minimum((torch.floor(p.pos).to(torch.int64) - origin).clamp_min(0), shape - 1)
     flat = (cell * strides).sum(dim=-1)
@@ -57,12 +58,12 @@ def _tap_ids_and_masks(p: ParticleState, flat_sorted: torch.Tensor, domain: Doma
     dev = p.device
     offs_np = _stencil_offsets_np(p.dim) - 1  # [K, D] in {-1, 0, 1}
     strides_np = _flat_strides(domain.shape)
-    shape = torch.as_tensor(domain.shape, device=dev)
-    origin = torch.as_tensor(domain.origin, device=dev)
+    shape = device_const(domain.shape, dev)
+    origin = device_const(domain.origin, dev)
 
     cell = torch.floor(p.pos).to(torch.int64)  # [N, D] world cells
     w = stencil_weights(quadratic_weights(p.pos - (cell.to(p.pos.dtype) + 0.5)))  # [N, K]
-    offs = torch.as_tensor(offs_np, device=dev)
+    offs = device_const(offs_np, dev)
     idxk = (cell - origin)[:, None, :] + offs[None]  # [N, K, D]
     valid = ((idxk >= 0) & (idxk < shape)).all(dim=-1)
     dpos = ((cell[:, None, :] + offs[None]).to(p.pos.dtype) + 0.5) - p.pos[:, None, :]
@@ -114,7 +115,7 @@ def substep(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_acti
         grid_mv = grid_mv + _seg_sum(contrib[:, k], ids[k], ncells)
 
     # ---- update_grid ----------------------------------------------------
-    g = torch.as_tensor(cfg.gravity, dtype=p.pos.dtype, device=dev)
+    g = device_const(cfg.gravity, dev, p.pos.dtype)
     m = grid_m[:, None]
     grid_v = torch.where(m > 0.0, grid_mv / torch.where(m > 0.0, m, 1.0) + cfg.dt * g, 0.0)
 
@@ -139,8 +140,8 @@ def substep(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_acti
     push = torch.cat([push2, torch.zeros_like(vel[:, 2:])], dim=1)
     vel = vel + torch.where(hit[:, None], push, 0.0)
 
-    lo = torch.as_tensor(cfg.boundary_clip[0], dtype=pos.dtype, device=dev)
-    hi = torch.as_tensor(cfg.boundary_clip[1], dtype=pos.dtype, device=dev)
+    lo = device_const(cfg.boundary_clip[0], dev, pos.dtype)
+    hi = device_const(cfg.boundary_clip[1], dev, pos.dtype)
     pos = torch.clamp(pos, lo, hi)
     nxt = pos + vel
     wall_min = lo + cfg.boundary_damp_dist

@@ -30,6 +30,7 @@ tiles and a tile with no particles writes zeros and returns.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import types
 from typing import Optional, Tuple
@@ -40,6 +41,7 @@ import torch
 from ..config import Config
 from ..domain import Domain
 from ..state import GridState, ParticleState
+from ..utils.graph import device_const, eager_branch
 from . import pallas_transfer as ptx
 from . import stream_kernels as sk
 
@@ -188,8 +190,8 @@ def _keys_from_pos(pos, domain: Domain, spec: StreamSpec, tshape, vel=None, dt=0
     ``pos + clip(6 dt vel, +-1 cell)`` when that keeps the current cell in
     the chosen tile's drift window (``fluid_tpu`` ``_keys_from_pos``)."""
     dev = pos.device
-    shape = torch.as_tensor(domain.shape, device=dev)
-    origin = torch.as_tensor(domain.origin, device=dev)
+    shape = device_const(domain.shape, dev)
+    origin = device_const(domain.origin, dev)
 
     def _cell(x):
         return torch.minimum((torch.floor(x).to(torch.int64) - origin).clamp_min(0), shape - 1)
@@ -417,7 +419,7 @@ def collect_params(cfg: Config, mouse_pos, mouse_active, stride: float = 0.0,
     parameters plus the stride.  The mouse tensors are copied on the device,
     never read on the host."""
     head = ptx.collect_params(cfg, mouse_pos, mouse_active, device)
-    return torch.cat([head, ptx._to_device([stride], device)])
+    return torch.cat([head, device_const([stride], device, torch.float32)])
 
 
 def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
@@ -433,11 +435,8 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
     """
     D = cfg.dim
     g = tile_geom(domain, spec)
-    params6 = torch.tensor(
-        [cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
-         cfg.pressure_floor, cfg.dynamic_viscosity],
-        dtype=torch.float32, device=device,
-    )
+    params6 = device_const([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
+                            cfg.pressure_floor, cfg.dynamic_viscosity], device, torch.float32)
     dtg = sk.gravity_step(cfg.dt, cfg.gravity)
 
     def dep1(st):
@@ -477,17 +476,21 @@ def needs_rebin(st: StreamState) -> torch.Tensor:
     return torch.any(st.flag >= 2.0)
 
 
-def frame_binned(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec,
-                 mouse_pos, mouse_active, substeps: Optional[int] = None,
-                 n: Optional[int] = None) -> StreamState:
-    """``cfg.iterations`` substeps with drift-triggered re-binning.
+def frame_inplace(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec,
+                  mouse_pos, mouse_active, branch=eager_branch, substeps: Optional[int] = None,
+                  n: Optional[int] = None) -> None:
+    """``cfg.iterations`` substeps with drift-triggered re-binning, updating
+    ``st`` in place: the frame body that ``frame_binned`` runs eagerly and a
+    ``Session`` on the card captures into one CUDA graph
+    (``utils/graph.py``).
 
     The collect of each substep also deposits the next substep's p2g_1.
-    After each substep the host reads ``needs_rebin`` (one device sync per
-    substep — the counterpart of the JAX frame's device-side ``lax.cond``);
-    on a re-bin the fused p2g_1 is stale and is recomputed standalone, and
-    the shell_drop / need_peak watermarks and the rebins counter carry
-    over.  ``n`` is the live particle count (default: every slot)."""
+    After each substep ``branch(needs_rebin(st), rebin)`` decides on the
+    re-bin, as the JAX frame's ``lax.cond`` does: ``eager_branch`` reads the
+    flag on the host, a capture makes the re-bin the body of an IF node that
+    the card decides.  The re-bin writes into the substep's outputs, so
+    where it does not run nothing runs and they already hold the fused
+    p2g_1.  ``n`` is the live particle count (default: every slot)."""
     tshape, nt = _tile_geometry(domain, spec)
     dev = st.stream.device
     n_sub = cfg.iterations if substeps is None else substeps
@@ -495,18 +498,36 @@ def frame_binned(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec,
     stages = substep_stages(cfg, domain, spec, dev, fused=True)
     params = collect_params(cfg, mouse_pos, mouse_active, spec.scene_stride, dev)
     dep1 = stages.dep1(st)
+    cur = st
     for _ in range(n_sub):
-        st, dep1 = _substep_core(st, dep1, stages, params)
-        if bool(needs_rebin(st)):
-            st2 = _rebin_full(st, cfg, domain, spec, tshape, nt, n_c)
-            st = dataclasses.replace(
-                st2,
-                shell_drop=torch.maximum(st.shell_drop, st2.shell_drop),
-                need_peak=torch.maximum(st.need_peak, st2.need_peak),
-                rebins=st.rebins + 1,
-            )
-            dep1 = stages.dep1(st)
-    return st
+        cur, dep1 = _substep_core(cur, dep1, stages, params)
+        branch(needs_rebin(cur), functools.partial(
+            _rebin_into, cur, dep1, cfg, domain, spec, tshape, nt, n_c, stages))
+    st.stream.copy_(cur.stream)
+    st.flag.copy_(cur.flag)
+
+
+def _rebin_into(st: StreamState, dep1, cfg, domain, spec, tshape, nt, n, stages) -> None:
+    """Re-bin ``st`` in place, carry the shell_drop / need_peak watermarks
+    and count the re-bin; the fused p2g_1 is stale after it and is
+    recomputed into ``dep1``."""
+    st2 = _rebin_full(st, cfg, domain, spec, tshape, nt, n)
+    for f in ("stream", "count", "tid", "flag", "nbr"):
+        getattr(st, f).copy_(getattr(st2, f))
+    st.shell_drop.copy_(torch.maximum(st.shell_drop, st2.shell_drop))
+    st.need_peak.copy_(torch.maximum(st.need_peak, st2.need_peak))
+    st.rebins.add_(1)
+    dep1.copy_(stages.dep1(st))
+
+
+def frame_binned(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec,
+                 mouse_pos, mouse_active, substeps: Optional[int] = None,
+                 n: Optional[int] = None) -> StreamState:
+    """``frame_inplace`` on a copy of ``st``, deciding each re-bin on the
+    host (one device read per substep); ``st`` is left as it was."""
+    out = st.clone()
+    frame_inplace(out, cfg, domain, spec, mouse_pos, mouse_active, eager_branch, substeps, n)
+    return out
 
 
 def frame(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_active,

@@ -39,6 +39,7 @@ import torch
 from ..config import Config
 from ..domain import Domain
 from ..state import GridState, ParticleState
+from ..utils.graph import device_const
 from .eos import tait_pressure
 from .tiling import assemble, edge_mask, halo_sum
 
@@ -240,8 +241,8 @@ def _advance(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_act
     tshape, nt = _tile_geometry(domain, spec)
     A = b["n_active"]
     toa = b["tile_of_active"]
-    origin = torch.as_tensor(domain.origin, device=dev)[None, :, None]
-    shape = torch.as_tensor(domain.shape, device=dev)[None, :, None]
+    origin = device_const(domain.origin, dev)[None, :, None]
+    shape = device_const(domain.shape, dev)[None, :, None]
 
     # ---- one packed gather into the slots [A, F, cap] --------------------
     packed = torch.cat([p.pos, p.vel, p.C.reshape(n, D * D), p.mass[:, None]], dim=1)
@@ -321,7 +322,7 @@ def _advance(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_act
     act2 = mask_act(to_active_blocks(halo_sum(dense_dep2, tshape, T)), D).reshape(A, E, D, -1)
 
     # ---- grid update (on the active blocks; halo replicas agree) --------
-    g = torch.as_tensor(cfg.gravity, dtype=bpos.dtype, device=dev)
+    g = device_const(cfg.gravity, dev, bpos.dtype)
     m_b = act1_r[:, :, 0:1, :]
     mom_b = act1_r[:, :, 1:, :] + act2
     v_b = torch.where(m_b > 0.0,
@@ -348,8 +349,8 @@ def _advance(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_act
     push = torch.cat([push2, bpos.new_zeros((A, D - 2, cap))], dim=1)
     newvel = v_slot + torch.where(hit[:, None, :], push, 0.0)
 
-    lo = torch.as_tensor(cfg.boundary_clip[0], dtype=bpos.dtype, device=dev)[None, :, None]
-    hi = torch.as_tensor(cfg.boundary_clip[1], dtype=bpos.dtype, device=dev)[None, :, None]
+    lo = device_const(cfg.boundary_clip[0], dev, bpos.dtype)[None, :, None]
+    hi = device_const(cfg.boundary_clip[1], dev, bpos.dtype)[None, :, None]
     newpos = torch.clamp(newpos, lo, hi)
     nxt = newpos + newvel
     wall_min = lo + cfg.boundary_damp_dist

@@ -22,6 +22,7 @@ import torch
 from ..config import Config
 from ..domain import Domain
 from ..state import GridState, ParticleState
+from ..utils.graph import device_const
 from .bspline import quadratic_weights, stencil_offsets, stencil_weights
 from .eos import stress_tensor, tait_pressure
 
@@ -37,8 +38,8 @@ def stencil_geometry(pos: torch.Tensor, domain: Domain):
     w = stencil_weights(quadratic_weights(diff))
     cell_n = cell[:, None, :] + (stencil_offsets(dim, dev) - 1)[None]
     dpos = (cell_n.to(pos.dtype) + 0.5) - pos[:, None, :]
-    shape = torch.as_tensor(domain.shape, device=dev)
-    idx = cell_n - torch.as_tensor(domain.origin, device=dev)
+    shape = device_const(domain.shape, dev)
+    idx = cell_n - device_const(domain.origin, dev)
     valid = ((idx >= 0) & (idx < shape)).all(dim=-1)
     idx = torch.minimum(idx.clamp_min(0), shape - 1)
     flat = idx[..., 0]
@@ -85,7 +86,7 @@ def p2g_2(p: ParticleState, grid: GridState, cfg: Config, domain: Domain
 def grid_update(grid: GridState, cfg: Config) -> GridState:
     """``vel = where(mass > 0, momentum / mass + dt g, 0)``
     (``2d_multi.rs:240-250``)."""
-    g = torch.as_tensor(cfg.gravity, dtype=torch.float32, device=grid.vel.device)
+    g = device_const(cfg.gravity, grid.vel.device, torch.float32)
     m = grid.mass[..., None]
     vel = torch.where(
         m > 0.0, grid.vel / torch.where(m > 0.0, m, 1.0) + cfg.dt * g, 0.0
@@ -118,8 +119,8 @@ def g2p(p: ParticleState, grid: GridState, cfg: Config, domain: Domain,
     vel = vel.clone()
     vel[:, :2] = vel[:, :2] + torch.where(hit[:, None], push, 0.0)
 
-    lo = torch.as_tensor(cfg.boundary_clip[0], dtype=torch.float32, device=dev)
-    hi = torch.as_tensor(cfg.boundary_clip[1], dtype=torch.float32, device=dev)
+    lo = device_const(cfg.boundary_clip[0], dev, torch.float32)
+    hi = device_const(cfg.boundary_clip[1], dev, torch.float32)
     pos = torch.clamp(pos, lo, hi)
     nxt = pos + vel
     wall_min = lo + cfg.boundary_damp_dist

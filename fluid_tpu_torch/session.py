@@ -11,14 +11,19 @@ The other backends ("dense", "sorted", "tiled", "pallas") hold a
 ``tiled_transfer.frame`` with the session's ``spec``.  The state lives on
 ``device``, the card unless the caller passes ``device="cpu"``.
 
-Differences from the JAX ``Session``: PyTorch runs eagerly, so ``run(k)``
-is a loop of ``frame()`` (the JAX session fuses k frames into one program)
-and there is no ``compile_run`` (ahead-of-time compilation of that fused
-program).
+The session owns its state as static buffers and advances them in place
+with one frame body (``utils/graph.FrameGraph``).  On the card a frame is
+one CUDA graph, captured at the first ``frame()`` (or by ``compile_run``)
+and replayed after that, so a frame makes no host read: the stream
+frame's re-bins are decided by the card in IF nodes, and the mouse is
+copied into a buffer of its own before each replay.  On the CPU the same
+body runs eagerly.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,7 +34,8 @@ from .config import Config
 from .domain import Domain
 from .ops import stream_transfer as stx
 from .ops import tiled_transfer as tt
-from .state import ParticleState
+from .state import FIELDS, ParticleState
+from .utils.graph import FrameGraph
 from .utils.platform import resolve_device
 
 
@@ -38,6 +44,28 @@ def default_backend(device=None) -> str:
     CPU, where the kernels' plain versions would only be slower.  ``device``
     None means ``default_device()``, the card (raises without one)."""
     return "stream" if resolve_device(device).type == "cuda" else "dense"
+
+
+def _mouse_args(mouse: torch.Tensor):
+    """(mouse_pos, mouse_active) of the session's (active, x, y) buffer."""
+    return mouse[1:], mouse[0] != 0.0
+
+
+# The frame bodies take no Session: a body that held its session (a bound
+# method) would tie the session's graph to the cyclic garbage collector.
+def _stream_body(cfg, domain, spec, mouse, n, st: stx.StreamState, branch) -> None:
+    stx.frame_inplace(st, cfg, domain, spec, *_mouse_args(mouse), branch, n=n)
+
+
+def _particle_body(cfg, domain, backend, spec, mouse, p: ParticleState, branch) -> None:
+    """A frame of the backend's functional entry, copied into ``p``."""
+    mp, ma = _mouse_args(mouse)
+    if backend == "tiled":
+        q = tt.frame(p, cfg, domain, mp, ma, spec=spec)
+    else:
+        q = step.frame(p, cfg, domain, mp, ma, backend)
+    for f in FIELDS:
+        getattr(p, f).copy_(getattr(q, f))
 
 
 class Session:
@@ -57,7 +85,7 @@ class Session:
                  backend: Optional[str] = None, spec=None, strict: bool = True,
                  device=None):
         self.device = resolve_device(device)
-        p = p.to(self.device)
+        p = p.to(self.device).clone()  # the session's own buffers
         self.cfg = cfg
         self.domain = domain
         self.backend = backend or default_backend(self.device)
@@ -65,6 +93,9 @@ class Session:
         self.dim = p.dim
         self.strict = strict
         self._frames = 0
+        # the mouse the graph reads: (active, x, y)
+        self._mouse = torch.zeros((3,), dtype=torch.float32, device=self.device)
+        self._staged = None
         if self.backend == "stream":
             self.spec = spec if spec is not None else stx.default_spec(cfg, domain, p.n)
             over = int(stx.overflow_count(p.pos, domain, self.spec, vel=p.vel, dt=cfg.dt))
@@ -74,28 +105,40 @@ class Session:
                     f"fit the slot structure (raise spec.active/cap)"
                 )
             self._st = stx.bin_particles(p, domain, self.spec, dt=cfg.dt)
+            body = functools.partial(_stream_body, cfg, domain, self.spec, self._mouse, self.n)
+            self.frame_graph = FrameGraph(body, self._st, self.device)
         elif self.backend in step.BACKENDS:
             self.spec = spec
             self._p = p
+            body = functools.partial(_particle_body, cfg, domain, self.backend, spec, self._mouse)
+            self.frame_graph = FrameGraph(body, self._p, self.device)
         else:
             raise ValueError(f"unknown backend {self.backend!r}")
 
     # -- frame loop ---------------------------------------------------------
 
-    def frame(self, mouse: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
-        """Advance one frame (``cfg.iterations`` substeps)."""
+    def _set_mouse(self, mouse) -> None:
+        """Copy (active, x, y) into the mouse buffer without a synchronizing
+        call: on the device when the caller's tensors are there, else
+        through pinned memory, kept until the next frame's copy."""
         mp, ma = mouse if mouse is not None else step.no_mouse()
-        if self.backend == "stream":
-            self._st = stx.frame_binned(
-                self._st, self.cfg, self.domain, self.spec, mp, ma, n=self.n
-            )
-            if self.strict:
-                self._check(f"frame {self._frames}")
-        elif self.backend == "tiled":
-            self._p = tt.frame(self._p, self.cfg, self.domain, mp, ma, spec=self.spec)
-        else:
-            self._p = step.frame(self._p, self.cfg, self.domain, mp, ma, self.backend)
+        if mp.device == ma.device == self.device:
+            self._mouse.copy_(torch.cat([ma.reshape(1).to(torch.float32),
+                                         mp.reshape(2).to(torch.float32)]))
+            return
+        host = torch.cat([ma.cpu().reshape(1).to(torch.float32),
+                          mp.cpu().reshape(2).to(torch.float32)])
+        self._staged = host.pin_memory()
+        self._mouse.copy_(self._staged, non_blocking=True)
+
+    def frame(self, mouse: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
+        """Advance one frame (``cfg.iterations`` substeps); with ``strict``,
+        check the stream state after it."""
+        self._set_mouse(mouse)
+        self.frame_graph.run()
         self._frames += 1
+        if self.strict and self.backend == "stream":
+            self._check(f"frame {self._frames - 1}")
 
     def _check(self, where: str) -> None:
         live = self.live_count()
@@ -111,10 +154,23 @@ class Session:
                 f"tiles dropped at a re-bin — physics invalid (raise spec.active)"
             )
 
+    def compile_run(self, frames: int = 1) -> None:
+        """Warm up and capture the frame graph now, so that a timed ``run``
+        excludes it; the state is left as it was.  JAX compiles one program
+        per ``frames``; here one frame graph serves every ``frames``, which
+        is accepted for the signature's sake.  No-op on the CPU."""
+        self.frame_graph.capture()
+
     def run(self, frames: int, mouse: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
-        """Advance ``frames`` frames with the same mouse input."""
+        """Advance ``frames`` frames with the same mouse input: on the card
+        ``frames`` replays with no host read between them; with ``strict``,
+        the stream state is checked once after the span."""
+        self._set_mouse(mouse)
         for _ in range(frames):
-            self.frame(mouse)
+            self.frame_graph.run()
+        self._frames += frames
+        if self.strict and self.backend == "stream":
+            self._check(f"the {frames}-frame run ending at frame {self._frames - 1}")
 
     def block_until_ready(self) -> None:
         """Wait for the device, then read one element: the read surfaces a
@@ -128,17 +184,16 @@ class Session:
 
     def snapshot(self):
         """Deep copy of the live state; ``restore`` replays from it."""
-        src = self._st if self.backend == "stream" else self._p
-        return self._frames, src.clone()
+        return self._frames, self.frame_graph.state.clone()
 
     def restore(self, snap) -> None:
-        """Reset to a ``snapshot()`` (copies again, so a snapshot survives
-        repeated restores)."""
+        """Reset to a ``snapshot()``: copies into the session's buffers, in
+        place (the frame graph reads them), so a snapshot survives repeated
+        restores."""
         frames, src = snap
-        if self.backend == "stream":
-            self._st = src.clone()
-        else:
-            self._p = src.clone()
+        dst = self.frame_graph.state
+        for f in dataclasses.fields(dst):
+            getattr(dst, f.name).copy_(getattr(src, f.name))
         self._frames = frames
 
     # -- state access -------------------------------------------------------
@@ -164,15 +219,18 @@ class Session:
         return int(self._st.rebins.max()) if self.backend == "stream" else 0
 
     def stream_state(self) -> stx.StreamState:
+        """The session's stream buffers themselves: the next frame writes
+        over them (clone to keep)."""
         if self.backend != "stream":
             raise ValueError("stream_state() requires the stream backend")
         return self._st
 
     def particles(self) -> ParticleState:
-        """Current particles in their original order (un-bins on demand)."""
+        """Current particles in their original order (un-bins on demand): a
+        copy, which later frames leave as it is."""
         if self.backend == "stream":
             return stx.unbin(self._st, self.domain, self.spec, self.n, self.dim)
-        return self._p
+        return self._p.clone()
 
     def histogram(self, viewport_size, console_size) -> torch.Tensor:
         """(H, W) int32 console counts, reduced on the device; the stream

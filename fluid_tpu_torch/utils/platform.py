@@ -44,8 +44,13 @@ def cuda_devices(n=None) -> list:
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; None means ``default_device()``."""
-    return torch.device(device) if device is not None else default_device()
+    """``device`` as a ``torch.device``; None means ``default_device()``.  A
+    CUDA device gets its index (``"cuda"`` is the current device), so it
+    compares equal to the ``.device`` of the tensors on it."""
+    device = torch.device(device) if device is not None else default_device()
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def card_info() -> str:
