@@ -134,6 +134,15 @@ counters over the same frame run eagerly (``replay_launches``).
             diagnostics finite
 13. profile one 1M frame of each backend under torch.profiler: wall and
             device time, the largest device entries
+14. micro   the micro-benchmark kernels M1-M4 (csrc/micro_kernels.cu) in
+            every kind at the bench/micro_*.py scripts' shapes (ng = 4096
+            groups of 8 tiles of 128): each against its plain version
+            (copies bit-equal, contractions within 1e-5 x max|plain|),
+            timed beside its plain version, the one PyTorch call of the
+            same function (a copy, or a full-fp32 einsum) and its bound;
+            then the main() of each port
+            module of fluid_tpu_torch/micro/ once, counters set to 0 just
+            before and read just after, every micro kernel launched there
 
 The last lines are the kernel table as JSON (time, plain time, the least
 time the card could take, launches in one replayed frame of the main path
@@ -141,7 +150,10 @@ time the card could take, launches in one replayed frame of the main path
 profiler's kernel events in that frame; K4 and K5 list their
 launch kinds, the sharded path's ghost-gated ones with on_path "shards";
 K1-K3 their big-tile kind, T=8 at cap 1024, on_path "stream big-tile";
-K6, K6f, K7 theirs, on no path),
+K6, K6f, K7 theirs, on no path; the micro kernels M1-M4 with on_path false,
+their launches counted over the micro entry points' run, launches_per_frame
+counted over the slice and pallas slice phases (checked 0), and every kind
+under kinds),
 the card line, and
 {"ok": true, "device": {...}}.  It imports nothing of JAX.
 """
@@ -169,7 +181,9 @@ sys.path.insert(0, ROOT)
 from fluid_tpu_torch import app, checkpoint, diagnostics, scene, state, step  # noqa: E402
 from fluid_tpu_torch.config import default_2d, default_3d  # noqa: E402
 from fluid_tpu_torch.domain import make_domain  # noqa: E402
+from fluid_tpu_torch.micro import micro_dma, micro_pb, micro_sep, micro_zfac  # noqa: E402
 from fluid_tpu_torch.ops import cuda_build  # noqa: E402
+from fluid_tpu_torch.ops import micro_kernels as mk  # noqa: E402
 from fluid_tpu_torch.ops import pallas_kernels as pk  # noqa: E402
 from fluid_tpu_torch.ops import pallas_transfer as tpt  # noqa: E402
 from fluid_tpu_torch.ops import stream_kernels as sk  # noqa: E402
@@ -798,6 +812,194 @@ def phase_pallas_digests(device, card: str) -> None:
         print(f"[pallas digests] {case} (n={want['n']} T={want['tile']} cap={want['cap']}): K6, "
               f"K6f and K7 bit-equal to the cell-owner-scan kernels, inputs equal  [{card}]")
         torch.cuda.empty_cache()
+
+
+MICRO_REPLACES = {
+    "micro_prefix_copy": "bench/micro_sep.py:64, bench/micro_pb.py:17, bench/micro_dma.py:85",
+    "micro_bulk_copy": "bench/micro_dma.py:33",
+    "micro_window_deposit": "bench/micro_zfac.py:143, bench/micro_zfac.py:157, bench/micro_sep.py:88",
+    "micro_window_gather": ("bench/micro_zfac.py:176, bench/micro_zfac.py:195, "
+                            "bench/micro_zfac.py:225, bench/micro_zfac.py:238"),
+}
+MICRO_NG = 4096
+
+
+def deposit_ops_per_tile(kind: str) -> int:
+    """fp32 operations (2 a multiply-add) of one tile of an M3 kind, counted
+    from the function's own output rows, so both forms of one function get
+    one count.  wide / zfac: R rows against the 512-row window.  onewindow
+    (4 rows out): V[c, e0, e1] = U[c] + e0 U[4+c] + e1 U[8+c] (4 x 8 rows,
+    then 4 x 64), times wx*wy (64 rows) and contracted against wz.  sep (4
+    rows out): wx * (U + e0 s part) (12 x 8 rows), V[c, e0, e1] = Ux[c, e0]
+    + e1 Ux[4+c, e0] and Ux[8+c, e0], each times wy (4 x 64 rows), two
+    contractions against wz and e2 * wz."""
+    R, E, E2, E3, CAP = mk.R, mk.E, mk.E2, mk.E3, mk.CAP
+    if kind in ("wide", "zfac"):
+        return 2 * R * E3 * CAP
+    if kind == "onewindow":
+        return (2 * 4 * E3 * CAP + 2 * 4 * E * CAP + 2 * 4 * E2 * CAP + E2 * CAP
+                + 4 * E2 * CAP)
+    return (2 * 2 * 4 * E3 * CAP + 3 * R * E * CAP + 2 * 4 * E2 * CAP + 2 * 4 * E2 * CAP
+            + E * CAP)
+
+
+def micro_library(ng: int, stream, wx, zins, device) -> dict:
+    """One PyTorch call (``torch.einsum``, full fp32) computing each M3/M4
+    function on the inputs of its kind, keyed by kind; timed only, never
+    called by the port.  Operands are taken left to right (opt_einsum off):
+    W0 = wx*wy*wz first, then one batched product over the tile's 128
+    particles."""
+    G, CAP, E = mk.G, mk.CAP, mk.E
+
+    def t(x):  # [ng, rows, GL] -> [ng, rows, G, CAP], a view
+        return x.unflatten(-1, (G, CAP))
+
+    zx, zy, zz, U, m, B = zins
+    sy, sz = t(stream[:, 0:8]), t(stream[:, 8:16])
+    e = torch.arange(E, dtype=torch.float32, device=device)
+    one = torch.ones(E, dtype=torch.float32, device=device)
+    # onewindow's fix-up [k, e0, e1]: 1, e0, e1; sep's [s, k, e0, e1, e2]:
+    # (1 or s e0 for the partner rows) x (1, e1, e2)
+    fix1 = torch.stack([torch.outer(one, one), torch.outer(e, one), torch.outer(one, e)])
+    kfac = torch.stack([one[:, None] * one, e[:, None] * one, one[:, None] * e])  # [k, e1, e2]
+    sfac = torch.stack([one, 0.5 * e])  # [s, e0]
+    fix2 = sfac[:, None, :, None, None] * kfac[None, :, None, :, :]
+    U5 = t(stream[:, 0:12]).unflatten(1, (3, 4))
+    S6 = t(stream).unflatten(1, (2, 3, 4))
+    dep = lambda: torch.einsum("gajp,gbjp,gdjp,grjp->gjrabd", t(zx), t(zy), t(zz), t(U))
+    rho = lambda: torch.einsum("gajp,gbjp,gdjp,gjabd->gjp", t(zx), t(zy), t(zz),
+                               m.view(ng, G, E, E, E))
+    g2p = lambda: torch.einsum("gajp,gbjp,gdjp,gcabd->gcjp", t(zx), t(zy), t(zz),
+                               B.view(ng, 16, E, E, E))
+    return {
+        "wide": dep, "zfac": dep,
+        "onewindow": lambda: torch.einsum("gajp,gbjp,gdjp,gkcjp,kab->gjcabd",
+                                          t(wx), sy, sz, U5, fix1),
+        "sep": lambda: torch.einsum("gajp,gbjp,gdjp,gskcjp,skabd->gjcabd",
+                                    t(wx), sy, sz, S6, fix2),
+        "rho_wide": rho, "rho_zfac": rho, "g2p_wide": g2p, "g2p_zfac": g2p,
+    }
+
+
+def micro_cases(ng: int, device) -> list:
+    """(kernel, kind, call, plain, exact, bytes, ops, library call or None)
+    of every kind of M1-M4 at the scripts' shapes.  Bytes count each input
+    read once and each output written once (a deposit from the stream reads
+    the rows it uses); operations count the multiply-adds (2 a term) the
+    function needs, the same for both forms of one function."""
+    stream, wx = micro_sep.synth(ng, device=device)
+    zins = micro_zfac.make_inputs(0, ng, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.rand((ng, 24, micro_sep.GL), generator=gen, device=device)
+    GL, tiles = micro_sep.GL, ng * micro_sep.G
+    library = micro_library(ng, stream, wx, zins, device)
+    cases = []
+
+    def copy_case(kind, f, src, rows, lanes):
+        k = rows * lanes // GL
+        out = torch.empty((ng, k, GL), device=device)
+        cases.append(("micro_prefix_copy", kind, lambda: f(src), lambda: f.plain(src), True,
+                      2 * ng * rows * lanes * F32, 0, lambda: out.copy_(src[:, :k])))
+
+    for rows, lanes in ((64, 128), (32, 256), (16, 512), (8, 1024)):
+        copy_case(f"sep_{rows}x{lanes}", micro_sep.make_copy(ng, rows, lanes), stream, rows, lanes)
+    for pb in (2, 4, 8, 16):
+        copy_case(f"pb{pb}", micro_pb.make_copy(ng, pb), stream, 64, 128)
+    for pb in (4, 16):
+        copy_case(f"pipelined_pb{pb}", micro_dma.make_pipelined(ng, 24, GL, pb), x, 24, GL)
+    xout = torch.empty_like(x)
+    for chunk in (8, 32):
+        f = micro_dma.make_manual(ng, 24, GL, chunk)
+        cases.append(("micro_bulk_copy", f"chunk{chunk}", lambda f=f: f(x), lambda f=f: f.plain(x),
+                      True, 2 * x.numel() * F32, 0, lambda: xout.copy_(x)))
+
+    plain_dep = lambda: micro_zfac.PLAIN["deposit"](*zins)
+    for kind, f in (("wide", micro_zfac.dep_cur), ("zfac", micro_zfac.dep_z)):
+        cases.append(("micro_window_deposit", kind, lambda f=f: f(*zins), plain_dep, False,
+                      (3 * mk.E + mk.R) * ng * GL * F32 + ng * 384 * 128 * F32,
+                      deposit_ops_per_tile(kind) * tiles, library[kind]))
+    for kind, mode, rows in (("onewindow", "onewindow", 16), ("sep", "sep3", 24)):
+        f = micro_sep.make_dep(ng, mode)
+        cases.append(("micro_window_deposit", kind, lambda f=f: f(stream, wx),
+                      lambda f=f: f.plain(stream, wx), False,
+                      (rows + mk.E) * ng * GL * F32 + ng * 128 * 128 * F32,
+                      deposit_ops_per_tile(kind) * tiles, library[kind]))
+    for kind, f, x_floats, out_rows, ch in (
+            ("rho_wide", micro_zfac.rho_cur, 32 * 128, 8, 1),
+            ("rho_zfac", micro_zfac.rho_z, 32 * 128, 8, 1),
+            ("g2p_wide", micro_zfac.g2p_cur, 16 * mk.E3, 16, 16),
+            ("g2p_zfac", micro_zfac.g2p_z, 16 * mk.E3, 16, 16)):
+        plain = micro_zfac.PLAIN[kind[:3]]
+        cases.append(("micro_window_gather", kind, lambda f=f: f(*zins),
+                      lambda plain=plain: plain(*zins), False,
+                      (3 * mk.E * GL + x_floats + out_rows * GL) * ng * F32,
+                      2 * ch * mk.E3 * mk.CAP * tiles, library[kind]))
+    return cases
+
+
+@contextlib.contextmanager
+def full_fp32_einsum():
+    """Matrix products in full fp32 (no TF32) and einsum's operands taken
+    left to right (opt_einsum off), restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.opt_einsum.enabled
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.opt_einsum.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.opt_einsum.enabled = saved
+
+
+def phase_micro(device, card: str, reps: int = 10) -> dict:
+    """M1-M4 in every kind against their plain versions and timed (CUDA
+    events, mean of ``reps`` launches; the plain version over 2) beside the
+    one PyTorch call of the same function (held to the same tolerance),
+    then the four micro entry points' main() with the launch counters read
+    around them."""
+    results = {name: {"kinds": {}} for name in mk.KERNELS}
+    with full_fp32_einsum():
+        for name, kind, call, plain, exact, nbytes, ops, library in micro_cases(MICRO_NG, device):
+            got, want = call(), plain()
+            sync(device)
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            if exact:
+                check(torch.equal(got, want), f"{name} {kind} bit-equal to its plain version")
+            else:
+                check(err <= 1e-5 * scale, f"{name} {kind} max|err| {err} <= 1e-5 * {scale}")
+            del got
+            lib = library()  # the same values (rho's one row against 8 equal ones)
+            lib_err = float((lib.reshape(MICRO_NG, -1, micro_sep.GL)
+                             - want.reshape(MICRO_NG, -1, micro_sep.GL)).abs().max())
+            check(lib_err <= (0.0 if exact else 1e-5 * scale),
+                  f"{name} {kind}: the library call agrees, max|err| {lib_err}")
+            del want, lib
+            ms = time_ms(call, reps, device)
+            plain_ms = time_ms(plain, 2, device)
+            library_ms = time_ms(library, reps, device)
+            bound_ms, bound_by = bound(nbytes, ops)
+            results[name]["kinds"][kind] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                            "bound_ms": bound_ms, "bound_by": bound_by,
+                                            "library_ms": library_ms}
+            print(f"[micro] {name} {kind}: max_abs_err={err:.3e} kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+                  f"({bound_by})  [{card}]")
+            torch.cuda.empty_cache()
+
+    mk.reset_launches()
+    for module in (micro_sep, micro_pb, micro_dma, micro_zfac):
+        print(f"[micro] python3 -m {module.__name__}:", flush=True)
+        check(module.main([]) == 0, f"{module.__name__}.main() exits 0")
+        torch.cuda.empty_cache()
+    launches = dict(mk.LAUNCHES)
+    check(all(n > 0 for n in launches.values()),
+          f"every micro kernel launched by the micro entry points: {launches}")
+    print(f"[micro] launches over the four entry points: {launches}")
+    for name, r in results.items():
+        first = next(iter(r["kinds"].values()))
+        r.update({**first, "launches": launches[name], "launches_from": "micro entry points",
+                  "on_path": False})
+    return results
 
 
 def phase_goldens(device, card: str) -> None:
@@ -1975,9 +2177,15 @@ def main() -> int:
     run(phase_digests, device, card)
     results.update(run(phase_pallas_kernels, device, card))
     run(phase_pallas_digests, device, card)
+    micro = run(phase_micro, device, card)
     run(phase_goldens, device, card)
+    mk.reset_launches()
     launches = run(phase_slice, device, N_1M, card)
     launches.update(run(phase_pallas_slice, card))
+    per_frame = dict(mk.LAUNCHES)  # the stream and pallas frames, eager and replayed
+    check(not any(per_frame.values()), f"the frames launch no micro kernel: {per_frame}")
+    for name in mk.KERNELS:
+        micro[name]["launches_per_frame"] = per_frame[name]
     run(phase_graph, device, card)
     run(phase_big_tile, device, card)
     run(phase_backends, card)
@@ -1999,6 +2207,8 @@ def main() -> int:
          **launches[name], **results[name]}
         for name in (*sk.KERNELS, *pk.KERNELS)
     ]
+    kernels += [{"name": name, "route": "cuda", "source": "fluid_tpu_torch/csrc/micro_kernels.cu",
+                 "replaces": MICRO_REPLACES[name], **micro[name]} for name in mk.KERNELS]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

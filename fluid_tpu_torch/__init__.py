@@ -23,7 +23,9 @@ import torch
 from .config import Config, default_2d, default_3d
 from .domain import Domain, make_domain
 from .state import GridState, ParticleState
-from . import render, scene, step
+from . import checkpoint, diagnostics, ops, render, scene, step
+
+__version__ = "0.1.0"
 
 # Float32 everywhere; a TF32 product fails the golden trajectories at ~1e-3.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -31,5 +33,6 @@ torch.backends.cudnn.allow_tf32 = False
 
 __all__ = [
     "Config", "default_2d", "default_3d", "Domain", "make_domain",
-    "GridState", "ParticleState", "render", "scene", "step",
+    "GridState", "ParticleState", "checkpoint", "diagnostics", "ops", "render", "scene",
+    "step",
 ]

@@ -38,6 +38,7 @@ FLAGS = ARCH_FLAGS + (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every entry point in csrc/*.cu
 SIGNATURES = {
     "fluid_graph_if": [_P, _P, _P],
@@ -47,6 +48,10 @@ SIGNATURES = {
     "fluid_halo_gblk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "fluid_pallas_deposit": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_pallas_collect": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "fluid_micro_prefix_copy": [_I, _P, _L, _P, _I, _I, _P],
+    "fluid_micro_bulk_copy": [_P, _P, _L, _I, _I, _P],
+    "fluid_micro_deposit": [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _F, _P, _I, _P],
+    "fluid_micro_gather": [_I, _I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _I, _P],
 }
 
 _lock = threading.Lock()

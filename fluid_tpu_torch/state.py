@@ -47,6 +47,20 @@ class ParticleState:
         return self.pos.device
 
     @staticmethod
+    def zeros(n: int, dim: int, dtype=torch.float32, device=None) -> "ParticleState":
+        """All-zero state of ``n`` particles; ``device`` None means
+        ``default_device()``, the card."""
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        return ParticleState(
+            pos=torch.zeros((n, dim), **kw),
+            vel=torch.zeros((n, dim), **kw),
+            C=torch.zeros((n, dim, dim), **kw),
+            mass=torch.zeros((n,), **kw),
+            density=torch.zeros((n,), **kw),
+            pressure=torch.zeros((n,), **kw),
+        )
+
+    @staticmethod
     def create(pos, vel=None, C=None, mass=None, device=None) -> "ParticleState":
         """Build from positions [N, D], or a stack [B, N, D] of scenes (what
         JAX gets by vmapping ``create``); the other fields take the

@@ -160,8 +160,41 @@ def test_port_imports_no_jax():
         "fluid_tpu_torch.utils.platform, fluid_tpu_torch.app, fluid_tpu_torch.checkpoint, "
         "fluid_tpu_torch.diagnostics, fluid_tpu_torch.native, fluid_tpu_torch.scene, "
         "fluid_tpu_torch.utils.timing, fluid_tpu_torch.parallel.stream_shard, "
-        "fluid_tpu_torch.parallel.shard; "
+        "fluid_tpu_torch.parallel.shard, fluid_tpu_torch.ops.micro_kernels, "
+        "fluid_tpu_torch.micro.micro_sep, fluid_tpu_torch.micro.micro_pb, "
+        "fluid_tpu_torch.micro.micro_dma, fluid_tpu_torch.micro.micro_zfac; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fluid_tpu.'))); "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("module", ["", ".ops"])
+def test_package_surface_holds_jax_surface(module):
+    """The port's package and ``ops`` export every name ``fluid_tpu``'s do."""
+    import importlib
+
+    jmod = importlib.import_module("fluid_tpu" + module)
+    tmod = importlib.import_module("fluid_tpu_torch" + module)
+    assert set(jmod.__all__) <= set(tmod.__all__)
+    for name in jmod.__all__:
+        assert hasattr(tmod, name), name
+
+
+def test_package_version_matches_jax():
+    import fluid_tpu
+    import fluid_tpu_torch
+
+    assert fluid_tpu_torch.__version__ == fluid_tpu.__version__
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_particle_state_zeros_matches_jax(dim):
+    want = JParticles.zeros(5, dim)
+    got = tstate.ParticleState.zeros(5, dim, device="cpu")
+    for f in tstate.FIELDS:
+        w, g = np.asarray(getattr(want, f)), getattr(got, f)
+        assert g.device.type == "cpu"
+        assert tuple(g.shape) == w.shape, f
+        assert str(g.dtype).removeprefix("torch.") == str(w.dtype), f
+        assert not g.any(), f
