@@ -143,6 +143,16 @@ counters over the same frame run eagerly (``replay_launches``).
             then the main() of each port
             module of fluid_tpu_torch/micro/ once, counters set to 0 just
             before and read just after, every micro kernel launched there
+   micro b1 the stream-probe kernels M5-M8 (csrc/micro_stream.cu) in every
+            case of bench/micro_kernels.py's CASES and run_tb2/3/4 at its
+            n = 1,000,000 (A = 15,625 tiles; row-major, slot-major, block
+            and grouped streams): each against its plain version (fills
+            bit-equal, contractions within 1e-5 x max|plain|), timed beside
+            its plain version, one PyTorch call of the same function (a
+            copy_ of the first values over the output, or a full-fp32
+            einsum) and its bound; then micro_kernels.main() over every
+            group, counters set to 0 just before and read just after, each
+            of M5-M8 launched there
 
 The last lines are the kernel table as JSON (time, plain time, the least
 time the card could take, launches in one replayed frame of the main path
@@ -150,7 +160,7 @@ time the card could take, launches in one replayed frame of the main path
 profiler's kernel events in that frame; K4 and K5 list their
 launch kinds, the sharded path's ghost-gated ones with on_path "shards";
 K1-K3 their big-tile kind, T=8 at cap 1024, on_path "stream big-tile";
-K6, K6f, K7 theirs, on no path; the micro kernels M1-M4 with on_path false,
+K6, K6f, K7 theirs, on no path; the micro kernels M1-M8 with on_path false,
 their launches counted over the micro entry points' run, launches_per_frame
 counted over the slice and pallas slice phases (checked 0), and every kind
 under kinds),
@@ -182,8 +192,10 @@ from fluid_tpu_torch import app, checkpoint, diagnostics, scene, state, step  # 
 from fluid_tpu_torch.config import default_2d, default_3d  # noqa: E402
 from fluid_tpu_torch.domain import make_domain  # noqa: E402
 from fluid_tpu_torch.micro import micro_dma, micro_pb, micro_sep, micro_zfac  # noqa: E402
+from fluid_tpu_torch.micro import micro_kernels as mkb  # noqa: E402
 from fluid_tpu_torch.ops import cuda_build  # noqa: E402
 from fluid_tpu_torch.ops import micro_kernels as mk  # noqa: E402
+from fluid_tpu_torch.ops import micro_stream as mst  # noqa: E402
 from fluid_tpu_torch.ops import pallas_kernels as pk  # noqa: E402
 from fluid_tpu_torch.ops import pallas_transfer as tpt  # noqa: E402
 from fluid_tpu_torch.ops import stream_kernels as sk  # noqa: E402
@@ -226,10 +238,11 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def particle_ops(kind: str, D: int, valid: int) -> int:
+def particle_ops(kind: str, D: int, valid: int, taps: int | None = None) -> int:
     """fp32 adds and multiplies of the direct tap form for ``valid``
-    particles (3^D taps each), the same count for the stream and the pallas
-    kernel of one function: stencil 10 per axis; a tap weight D-1; p2g1
+    particles and ``taps`` window taps (3^D a particle unless given), the
+    same count for the stream and the pallas kernel of one function:
+    stencil 10 per axis; a tap weight D-1; p2g1
     mass and APIC momentum 2(1+D) + 2D^2; the eq-16 force 2D + 2D^2;
     density gather 2 + (D-1); EOS 10, stress 6D^2; g2p 2 + 2D + 2D^2 and
     the particle tail 8D + 20."""
@@ -240,7 +253,7 @@ def particle_ops(kind: str, D: int, valid: int) -> int:
         "p2g2": (2 * w + 2 + 2 * D + 2 * D * D, stencil + 10 + 6 * D * D),
         "collect": (w + 2 + 2 * D + 2 * D * D, stencil + 10 + 2 * D * D + 8 * D + 20),
     }[kind]
-    return valid * (3**D * per[0] + per[1])
+    return (valid * 3**D if taps is None else taps) * per[0] + valid * per[1]
 
 
 def stream_bounds(st, g, D: int) -> dict:
@@ -820,7 +833,22 @@ MICRO_REPLACES = {
     "micro_window_deposit": "bench/micro_zfac.py:143, bench/micro_zfac.py:157, bench/micro_sep.py:88",
     "micro_window_gather": ("bench/micro_zfac.py:176, bench/micro_zfac.py:195, "
                             "bench/micro_zfac.py:225, bench/micro_zfac.py:238"),
+    "micro_stage_fill": ("bench/micro_kernels.py:120 (case_dma_only :195), "
+                         "bench/micro_kernels.py:349, bench/micro_kernels.py:376 (case_dma_tb :430), "
+                         "bench/micro_kernels.py:528 (case_tb2_dma :564), bench/micro_kernels.py:825, "
+                         "bench/micro_kernels.py:1198"),
+    "micro_window_contract": ("bench/micro_kernels.py:120 (case_window_build :204, "
+                              "case_matmul :223)"),
+    "micro_p2g1_deposit": ("bench/micro_kernels.py:120 (case_deposit_current :239, "
+                           "case_deposit_onewindow :301), bench/micro_kernels.py:376 "
+                           "(case_deposit_onewindow_tb :497), bench/micro_kernels.py:528 "
+                           "(case_tb2_deposit :571), bench/micro_kernels.py:794, "
+                           "bench/micro_kernels.py:1062"),
+    "micro_window_collect": ("bench/micro_kernels.py:649, bench/micro_kernels.py:854, "
+                             "bench/micro_kernels.py:1127"),
 }
+MICRO_SOURCE = {**{name: "fluid_tpu_torch/csrc/micro_kernels.cu" for name in mk.KERNELS},
+                **{name: "fluid_tpu_torch/csrc/micro_stream.cu" for name in mst.KERNELS}}
 MICRO_NG = 4096
 
 
@@ -998,6 +1026,199 @@ def phase_micro(device, card: str, reps: int = 10) -> dict:
     for name, r in results.items():
         first = next(iter(r["kinds"].values()))
         r.update({**first, "launches": launches[name], "launches_from": "micro entry points",
+                  "on_path": False})
+    return results
+
+
+B1_GROUPS = "dma,window,matmul,tb,deposit,tb2,tb3,tb4,glue"
+
+
+def b1_cases(device):
+    """(name, callable, tensors) of every case ``micro_kernels.main`` runs
+    with ``--cases`` B1_GROUPS at its n = 1,000,000, one layout at a time."""
+    rows = mkb.synth(N_1M, device=device)
+    tensors = (rows["act_start"], rows["act_count"], rows["tid"], rows["stream"])
+    for group in ("dma", "window", "matmul", "tb", "deposit"):
+        for name, fn in mkb.CASES[group](rows):
+            yield name, fn, tensors
+    del rows, tensors
+    yield from mkb.tb2_all(mkb.synth_slotmajor(N_1M, device=device))
+    yield from mkb.tb3_all(mkb.synth_blocks(N_1M, device=device))
+    for G in (8, 16):
+        yield from mkb.tb4_all(mkb.synth_grouped(N_1M, G=G, device=device))
+
+
+def b1_taps(base, E: int, valid=None) -> int:
+    """Window taps of the slots (of the ``valid`` ones where given) from
+    their profiles' first window rows ``base`` [t, 3, cap]: 3 an axis, less
+    those that fall outside [0, E)."""
+    o = torch.arange(3, device=base.device)[:, None, None, None]
+    per_axis = ((base[None] + o >= 0) & (base[None] + o < E)).sum(0)
+    taps = per_axis.prod(1)
+    return int((taps if valid is None else taps * valid).sum())
+
+
+def b1_contract_ops(slots: int, taps: int, rows: int) -> int:
+    """fp32 operations of ``rows`` rows contracted against W0 in tap form
+    (2 a multiply-add), as ``particle_ops`` counts p2g1: the stencil 30 a
+    slot, then a tap's weight (2) and its 2 ``rows``."""
+    return 30 * slots + taps * (2 + 2 * rows)
+
+
+def rows_read(view, tiles, length: int) -> int:
+    """Rows of the row-major stream in the union of [first, first + length)
+    over ``tiles``' first rows: neighbouring tiles and programs share half
+    their rows, and each input is read once."""
+    first = np.sort((view.bases(tiles) // view.sb).cpu().numpy())
+    return int(np.minimum(np.diff(first), length).sum() + length) if first.size else 0
+
+
+def b1_profiles(src, view, tid, w, tiles, shifted=True):
+    """The case's stream fields [t, 16, cap] (``w.cap`` slots) and its
+    profiles, base rows and dv, as the plain versions make them."""
+    pm = mst.gather_tiles(src, view, tiles, 16, w.cap)
+    prof, base, dv = mst.profiles(pm[:, :3], mst.tile_coords(tiles, tid, w.tshape), w, shifted)
+    return pm, prof, base, dv
+
+
+def b1_measure(fn, tensors, want, device):
+    """(bytes, ops, library call, library check) of one B1 case from its
+    kernel's arguments: bytes count each input the function reads once
+    (a fill: the programs' whole blocks, as the TPU programs DMA them; the
+    others: the fields and slots they use; on the row-major stream the
+    union of the rows, ``rows_read``) and each output once;
+    operations are the function's own in tap form, over the window taps
+    each slot's profiles hold (``b1_taps``): ``b1_contract_ops`` (the
+    window build one row: its 8 columns are equal and its V ones, 1 add a
+    tap), ``particle_ops`` p2g1 for the deposit (no e_d fix-up: a tap adds
+    its own cell's moment), the raw form's 16 rows (57 a slot), the
+    collect's 13 rows and its tail (59 a slot).
+    The library call is one PyTorch call of the same function on inputs
+    made beforehand (a fill: ``copy_`` of the first values over the output;
+    a contraction: a full-fp32 ``torch.einsum`` from the profiles),
+    checked against the plain version's output ``want``."""
+    pos, kw = fn.args(*tensors)
+    kernel = fn.kernel
+    if kernel == "micro_stage_fill":
+        src, view = pos
+        nprog, tb, nval, shape = kw["nprog"], kw["tb"], kw["nval"], kw["out_shape"]
+        tiles = (torch.arange(nprog, device=device)[:, None] * tb
+                 + torch.arange(nval, device=device)).reshape(-1)
+        vals = torch.zeros(shape[0], device=device)
+        vals[: tiles.numel()] = tiles.float() if kw.get("nodma") else src.reshape(-1)[view.bases(tiles)]
+        out = torch.empty(shape, device=device)
+        first = vals.view(-1, *(1,) * (len(shape) - 1)).expand(shape)
+        if kw.get("nodma"):
+            nbytes = 0
+        elif view.starts is not None:  # the union of the programs' blocks of tb * cap rows
+            nbytes = rows_read(view, tiles[::nval], kw["seg_len"] // view.sb) * view.sb * F32
+        else:  # disjoint blocks
+            nbytes = nprog * kw.get("nseg", 1) * kw["seg_len"] * F32
+        return (nbytes + out.numel() * F32, 0, lambda: out.copy_(first),
+                lambda lib: torch.equal(lib, want))
+    if kernel == "micro_window_contract":
+        src, view, w, A, N = pos
+        tiles = torch.arange(A, device=device)
+        _, prof, base, _ = b1_profiles(src, view, None, w, tiles)
+        V = (torch.ones((8, w.cap), device=device) if N == 0
+             else mst.gather_tiles(src, view, tiles, N, w.cap))
+        spec = "tap,tbp,tdp,np->tabdn" if N == 0 else "tap,tbp,tdp,tnp->tabdn"
+        lib = lambda: torch.einsum(spec, prof[:, 0], prof[:, 1], prof[:, 2], V)  # noqa: E731
+        taps = b1_taps(base, w.E)
+        ops = b1_contract_ops(A * w.cap, taps, N) if N else 30 * A * w.cap + 3 * taps
+        nbytes = rows_read(view, tiles, w.cap) * max(3, N) * F32 + want.numel() * F32
+        scale = float(want.abs().max())
+        return (nbytes, ops, lib, lambda out: float(
+            (out.reshape(want.shape) - want).abs().max()) <= 1e-5 * scale)
+    if kernel == "micro_p2g1_deposit":
+        src, view, count, tid, w = pos
+        form, written = kw["form"], kw["written"]
+        tiles = torch.arange(written, device=device)
+        pm, prof, base, dv = b1_profiles(src, view, tid, w, tiles, shifted=form != "current")
+        valid = torch.arange(w.cap, device=device) < count[:written].long()[:, None]
+        U = mst.p2g1_rows(pm, valid, base, dv)
+        nvalid, taps = int(valid.sum()), b1_taps(base, w.E, valid)
+        E = w.E
+        if form == "raw":
+            lib = lambda: torch.einsum("tap,tbp,tdp,trp->tabdr",  # noqa: E731
+                                       prof[:, 0], prof[:, 1], prof[:, 2], U)
+            ops, ch = 57 * nvalid + b1_contract_ops(nvalid, taps, 16), 16
+        else:
+            e = torch.arange(E, dtype=torch.float32, device=device)
+            one = torch.ones(E, device=device)
+            fix = torch.stack([torch.einsum("a,b,d->abd", *f) for f in
+                               ((one, one, one), (e, one, one), (one, e, one), (one, one, e))])
+            Uk = U.view(written, 4, 4, w.cap)
+            lib = lambda: torch.einsum("tap,tbp,tdp,tkcp,kabd->tabdc",  # noqa: E731
+                                       prof[:, 0], prof[:, 1], prof[:, 2], Uk, fix)
+            ops, ch = particle_ops("p2g1", 3, nvalid, taps), 4
+        written_out = mst.gather_tiles(want, kw["out_view"], tiles, w.E3, ch)
+        nbytes = (nvalid * 16 + written * (1 if tid is None else 2)) * F32 + want.numel() * F32
+        scale = float(written_out.abs().max())
+        return (nbytes, ops, lib, lambda out: float(
+            (out.reshape(written_out.shape) - written_out).abs().max()) <= 1e-5 * scale)
+    src, view, v, v_view, m, m_view, w = pos  # micro_window_collect
+    written, E, E3 = kw["written"], w.E, w.E3
+    tiles = torch.arange(written, device=device)
+    pm, prof, base, _ = b1_profiles(src, view, None, w, tiles)
+    vb, mb = mst.gather_tiles(v, v_view, tiles, E3, 3), mst.gather_tiles(m, m_view, tiles, E3, 1)
+    X, _, _ = mst.collect_x(pm, vb, mb, mst.tile_coords(tiles, None, w.tshape), w)
+    Bcat = mst.bcat(vb, mb, E).view(written, E, E, E, 13)
+    lib = lambda: torch.einsum("tap,tbp,tdp,tabdc->tcp",  # noqa: E731
+                               prof[:, 0], prof[:, 1], prof[:, 2], Bcat)
+    ops = b1_contract_ops(written * w.cap, b1_taps(base, E), 13) + 59 * written * w.cap
+    nbytes = written * (w.cap * 4 + E3 * 4) * F32 + want.numel() * F32
+    scale = float(X.abs().max())
+    return nbytes, ops, lib, lambda out: float((out - X).abs().max()) <= 1e-5 * scale
+
+
+def phase_micro_b1(device, card: str, reps: int = 10) -> dict:
+    """M5-M8 in every case of ``micro_kernels.main`` (bench/micro_kernels.py's
+    CASES and run_tb2/3/4) at n = 1,000,000 against their plain versions
+    (fills bit-equal, contractions within 1e-5 x max|plain|), timed (CUDA
+    events, mean of ``reps`` launches; the plain version over 2) beside the
+    one PyTorch call of the same function and the bound; then
+    ``micro_kernels.main`` over every group with the launch counters set to
+    0 just before and read just after."""
+    results = {name: {"kinds": {}} for name in mst.KERNELS}
+    with full_fp32_einsum():
+        for name, fn, tensors in b1_cases(device):
+            got, want = fn(*tensors), fn.plain(*tensors)
+            sync(device)
+            err = float((got - want).abs().max())
+            if fn.exact:
+                check(torch.equal(got, want), f"{name}: bit-equal to its plain version")
+            else:
+                scale = float(want.abs().max())
+                check(err <= 1e-5 * scale, f"{name}: max|err| {err} <= 1e-5 * {scale}")
+            del got
+            nbytes, ops, library, lib_ok = b1_measure(fn, tensors, want, device)
+            check(lib_ok(library()), f"{name}: the library call agrees with the plain version")
+            del want
+            ms = time_ms(lambda: fn(*tensors), reps, device)
+            plain_ms = time_ms(lambda: fn.plain(*tensors), 2, device)
+            library_ms = time_ms(library, reps, device)
+            bound_ms, bound_by = bound(nbytes, ops)
+            results[fn.kernel]["kinds"][name] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+            print(f"[micro b1] {fn.kernel} {name}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
+                  f"plain {plain_ms:.4f} ms library {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+                  f"({bound_by})  [{card}]", flush=True)
+            del library, lib_ok
+            torch.cuda.empty_cache()
+
+    mst.reset_launches()
+    print(f"[micro b1] python3 -m {mkb.__name__} --cases {B1_GROUPS}:", flush=True)
+    check(mkb.main(["--cases", B1_GROUPS]) == 0, f"{mkb.__name__}.main() exits 0")
+    launches = dict(mst.LAUNCHES)
+    check(all(n > 0 for n in launches.values()),
+          f"every stream-probe kernel launched by the entry point: {launches}")
+    print(f"[micro b1] launches over the entry point: {launches}")
+    torch.cuda.empty_cache()
+    for name, r in results.items():
+        first = next(iter(r["kinds"].values()))
+        r.update({**first, "launches": launches[name], "launches_from": "micro_kernels entry point",
                   "on_path": False})
     return results
 
@@ -2178,13 +2399,15 @@ def main() -> int:
     results.update(run(phase_pallas_kernels, device, card))
     run(phase_pallas_digests, device, card)
     micro = run(phase_micro, device, card)
+    micro.update(run(phase_micro_b1, device, card))
     run(phase_goldens, device, card)
     mk.reset_launches()
+    mst.reset_launches()
     launches = run(phase_slice, device, N_1M, card)
     launches.update(run(phase_pallas_slice, card))
-    per_frame = dict(mk.LAUNCHES)  # the stream and pallas frames, eager and replayed
+    per_frame = {**mk.LAUNCHES, **mst.LAUNCHES}  # the stream and pallas frames, eager and replayed
     check(not any(per_frame.values()), f"the frames launch no micro kernel: {per_frame}")
-    for name in mk.KERNELS:
+    for name in micro:
         micro[name]["launches_per_frame"] = per_frame[name]
     run(phase_graph, device, card)
     run(phase_big_tile, device, card)
@@ -2207,8 +2430,8 @@ def main() -> int:
          **launches[name], **results[name]}
         for name in (*sk.KERNELS, *pk.KERNELS)
     ]
-    kernels += [{"name": name, "route": "cuda", "source": "fluid_tpu_torch/csrc/micro_kernels.cu",
-                 "replaces": MICRO_REPLACES[name], **micro[name]} for name in mk.KERNELS]
+    kernels += [{"name": name, "route": "cuda", "source": MICRO_SOURCE[name],
+                 "replaces": MICRO_REPLACES[name], **micro[name]} for name in micro]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,10 @@ SIGNATURES = {
     "fluid_micro_bulk_copy": [_P, _P, _L, _I, _I, _P],
     "fluid_micro_deposit": [_I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _F, _P, _I, _P],
     "fluid_micro_gather": [_I, _I, _P, _L, _P, _L, _P, _L, _P, _L, _P, _I, _P],
+    "fluid_micro_stage_fill": [_I, _P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L, _P, _P],
+    "fluid_micro_window_contract": [_I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "fluid_micro_p2g1": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "fluid_micro_collect": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -340,16 +340,18 @@ def _ints(vals):
     return ctypes.cast(arr, ctypes.c_void_p)
 
 
-def _launch(name: str, fn, *args, counts: dict = LAUNCHES) -> None:
-    """Call a C entry point on the current stream; raise on its error code,
-    else add one to ``counts[name]`` (this module's ``LAUNCHES`` unless
-    another module's wrapper passes its own)."""
+def _launch(name: str, fn, *args, counts: dict = LAUNCHES, what: str = "") -> None:
+    """Call a C entry point on the current stream; raise on its error code
+    (naming ``what``, the instantiation asked for, where given), else add
+    one to ``counts[name]`` (this module's ``LAUNCHES`` unless another
+    module's wrapper passes its own)."""
     from . import cuda_build
 
     lib = cuda_build.load()
     rc = getattr(lib, fn)(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}"
+                           + (f" ({what})" if what else ""))
     counts[name] += 1
 
 

@@ -162,7 +162,8 @@ def test_port_imports_no_jax():
         "fluid_tpu_torch.utils.timing, fluid_tpu_torch.parallel.stream_shard, "
         "fluid_tpu_torch.parallel.shard, fluid_tpu_torch.ops.micro_kernels, "
         "fluid_tpu_torch.micro.micro_sep, fluid_tpu_torch.micro.micro_pb, "
-        "fluid_tpu_torch.micro.micro_dma, fluid_tpu_torch.micro.micro_zfac; "
+        "fluid_tpu_torch.micro.micro_dma, fluid_tpu_torch.micro.micro_zfac, "
+        "fluid_tpu_torch.ops.micro_stream, fluid_tpu_torch.micro.micro_kernels; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'fluid_tpu.'))); "
         "assert not bad, bad"
     )
