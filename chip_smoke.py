@@ -153,6 +153,16 @@ counters over the same frame run eagerly (``replay_launches``).
             einsum) and its bound; then micro_kernels.main() over every
             group, counters set to 0 just before and read just after, each
             of M5-M8 launched there
+   micro b6 the construct-probe kernels M9-M11 (csrc/micro_probe.cu) on each
+            probe p1-p13 of bench/micro_zfac_probe.py (one-block [1, ...]
+            operands, seeded normal): each against its plain version (M9
+            and p13 bit-equal, p10 within 1e-6 x max|plain|, p2, p5, p6
+            and p7 within 1e-5: ops/micro_probe.py Probe.tol), timed beside
+            its plain version, one PyTorch call of the same function where
+            there is one, its bound and the launch of an empty one-thread
+            kernel; then micro_zfac_probe.main(), counters set to 0 just
+            before and read just after: exit 0, the script's thirteen
+            lines with its sums, each of M9-M11 launched there
 
 The last lines are the kernel table as JSON (time, plain time, the least
 time the card could take, launches in one replayed frame of the main path
@@ -160,7 +170,7 @@ time the card could take, launches in one replayed frame of the main path
 profiler's kernel events in that frame; K4 and K5 list their
 launch kinds, the sharded path's ghost-gated ones with on_path "shards";
 K1-K3 their big-tile kind, T=8 at cap 1024, on_path "stream big-tile";
-K6, K6f, K7 theirs, on no path; the micro kernels M1-M8 with on_path false,
+K6, K6f, K7 theirs, on no path; the micro kernels M1-M11 with on_path false,
 their launches counted over the micro entry points' run, launches_per_frame
 counted over the slice and pallas slice phases (checked 0), and every kind
 under kinds),
@@ -193,8 +203,10 @@ from fluid_tpu_torch.config import default_2d, default_3d  # noqa: E402
 from fluid_tpu_torch.domain import make_domain  # noqa: E402
 from fluid_tpu_torch.micro import micro_dma, micro_pb, micro_sep, micro_zfac  # noqa: E402
 from fluid_tpu_torch.micro import micro_kernels as mkb  # noqa: E402
+from fluid_tpu_torch.micro import micro_zfac_probe as zfp  # noqa: E402
 from fluid_tpu_torch.ops import cuda_build  # noqa: E402
 from fluid_tpu_torch.ops import micro_kernels as mk  # noqa: E402
+from fluid_tpu_torch.ops import micro_probe as mp  # noqa: E402
 from fluid_tpu_torch.ops import micro_stream as mst  # noqa: E402
 from fluid_tpu_torch.ops import pallas_kernels as pk  # noqa: E402
 from fluid_tpu_torch.ops import pallas_transfer as tpt  # noqa: E402
@@ -339,6 +351,31 @@ def time_ms(fn, reps: int, device) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, device, launches: int = 20, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` (ms): ``launches`` calls captured in
+    one CUDA graph (after a warm-up call on a side stream), the graph
+    replayed ``reps`` times after one untimed replay, by CUDA events; no
+    host work between the kernels, unlike ``time_ms``'s eager calls."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    sync(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / (reps * launches)
 
 
 def dam_1m(device, n: int = N_1M, seed: int = 0):
@@ -846,9 +883,15 @@ MICRO_REPLACES = {
                            "bench/micro_kernels.py:1062"),
     "micro_window_collect": ("bench/micro_kernels.py:649, bench/micro_kernels.py:854, "
                              "bench/micro_kernels.py:1127"),
+    "micro_probe_map": ("bench/micro_zfac_probe.py:31 (pallas_call :37) over p1 :62, p3 :85, "
+                        "p4 :93, p8 :147, p9 :160, p11 :187, p12 :200"),
+    "micro_probe_contract": ("bench/micro_zfac_probe.py:31 (pallas_call :37) over p2 :73, "
+                             "p5 :101, p6 :113, p10 :174, p13 :210"),
+    "micro_probe_roll_merge": "bench/micro_zfac_probe.py:31 (pallas_call :37) over p7 :126",
 }
 MICRO_SOURCE = {**{name: "fluid_tpu_torch/csrc/micro_kernels.cu" for name in mk.KERNELS},
-                **{name: "fluid_tpu_torch/csrc/micro_stream.cu" for name in mst.KERNELS}}
+                **{name: "fluid_tpu_torch/csrc/micro_stream.cu" for name in mst.KERNELS},
+                **{name: "fluid_tpu_torch/csrc/micro_probe.cu" for name in mp.KERNELS}}
 MICRO_NG = 4096
 
 
@@ -1220,6 +1263,126 @@ def phase_micro_b1(device, card: str, reps: int = 10) -> dict:
         first = next(iter(r["kinds"].values()))
         r.update({**first, "launches": launches[name], "launches_from": "micro_kernels entry point",
                   "on_path": False})
+    return results
+
+
+# fp32 operations each probe's function needs (2 a multiply-add; a selection,
+# a copy or a pad none; p7: the 11 adds of each of its 8 x 128 row sums,
+# then one add a lane to merge the two rolled parts that reach it; p11's
+# coefficient is integer arithmetic)
+B6_OPS = {"p1": 96 * 1024, "p2": 2 * 96 * 64 * 128, "p5": 2 * 96 * 64 * 128,
+          "p6": 2 * 96 * 64 * 128, "p7": 8 * 11 * 128 + 512, "p8": 2 * 48 * 128,
+          "p10": 7 * 16 * 128, "p11": 16 * 128}
+B6_READ = {"p10": (64 * 128, 4 * 128)}  # floats read of each input where not all (wz rows 0-3)
+
+
+def b6_library(name: str, xs):
+    """One PyTorch call computing probe ``name``'s function on its inputs (views,
+    p11's coefficient and p5's and p6's padded B made beforehand), or None
+    where no one call does (p7)."""
+    x = [t[0] for t in xs]
+    if name == "p1":
+        return lambda: torch.mul(x[0][:, None], x[1][None])
+    if name == "p2":
+        return lambda: torch.matmul(x[0], x[1].mT)
+    if name in ("p5", "p6"):  # p6's construct: A [B; 0]^T, 64 zero rows of B read too
+        Bp = torch.cat((x[1], torch.zeros_like(x[1])))
+        return lambda: torch.matmul(x[0], Bp.mT)
+    if name in ("p3", "p4"):
+        view = x[0].reshape(mp.PROBES[name].out)
+        return lambda: view.clone()
+    if name in ("p8", "p9"):
+        Y4 = x[0].view(12, 2, 4, 128)
+        if name == "p8":
+            return lambda: torch.add(Y4[:, 0], Y4[:, 1], alpha=2.0)
+        return lambda: torch.cat((Y4[:, 0, :, :64], Y4[:, 1, :, :64]), -1)
+    if name == "p10":
+        X, w = x[0].view(16, 4, 128), x[1][:4]
+        return lambda: torch.einsum("iql,ql->il", X, w)
+    if name == "p11":
+        r = torch.arange(16, device=x[0].device)[:, None]
+        coeff = (2 * (r % 4) + (torch.arange(128, device=x[0].device) >= 64)).float()
+        return lambda: torch.mul(x[0], coeff)
+    if name == "p12":
+        return lambda: x[0].repeat(16, 1)
+    if name == "p13":
+        return lambda: x[0].repeat(4, 1)
+    return None
+
+
+def phase_micro_b6(device, card: str, reps: int = 20) -> dict:
+    """M9-M11 on each construct probe p1-p13 of bench/micro_zfac_probe.py
+    against their plain versions on seeded normal inputs, as closely as
+    ``Probe.tol`` says (M9 and p13 bit-equal, p10 within 1e-6 x max|plain|,
+    the other contractions within 1e-5), timed (CUDA events, mean of ``reps``
+    launches) beside the plain version, the one PyTorch call of the same
+    function where there is one, the bound and the empty kernel's launch;
+    then ``micro_zfac_probe.main`` with the launch counters set to 0 just
+    before and read just after: it returns 0, prints the script's thirteen
+    lines with the plain versions' sums on ones, and launches M9-M11."""
+    results = {name: {"kinds": {}} for name in mp.KERNELS}
+    empty = lambda: mp.empty_launch(device)  # noqa: E731
+    floor_ms, graph_floor_ms = time_ms(empty, reps, device), graph_ms(empty, device)
+    print(f"[micro b6] empty one-thread kernel: {floor_ms * 1e3:.2f} us a launch, "
+          f"{graph_floor_ms * 1e3:.2f} us in a graph  [{card}]")
+    with full_fp32_einsum():
+        for seed, (name, f) in enumerate(zfp.PROBES.items()):
+            xs = zfp.make_inputs(name, seed, device)
+            got, want = f(*xs), f.plain(*xs)
+            sync(device)
+            spec = mp.PROBES[name]
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            if spec.tol == 0:
+                check(torch.equal(got, want), f"{name}: bit-equal to its plain version")
+            else:
+                check(err <= spec.tol * scale, f"{name}: max|err| {err} <= {spec.tol} * {scale}")
+            library = b6_library(name, xs)
+            if library is not None:  # it sums in its own order: 1e-5 where the kernel is not exact
+                lib = library().reshape(want.shape)
+                lib_ok = (torch.equal(lib, want) if spec.tol == 0
+                          else float((lib - want).abs().max()) <= 1e-5 * scale)
+                check(lib_ok, f"{name}: the library call agrees with the plain version")
+            reads = B6_READ.get(name, [t.numel() for t in xs])
+            bound_ms, bound_by = bound((sum(reads) + got.numel()) * F32, B6_OPS.get(name, 0))
+            call = lambda: f(*xs)  # noqa: E731
+            ms, in_graph_ms = time_ms(call, reps, device), graph_ms(call, device)
+            plain_ms = time_ms(lambda: f.plain(*xs), reps, device)
+            library_ms = library_graph_ms = None
+            if library is not None:
+                library_ms, library_graph_ms = time_ms(library, reps, device), graph_ms(library, device)
+            results[spec.kernel]["kinds"][name] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "launch_floor_ms": floor_ms,
+                "graph_ms": in_graph_ms, "library_graph_ms": library_graph_ms,
+                "graph_floor_ms": graph_floor_ms}
+            lib_text = ("none" if library is None else
+                        f"{library_ms * 1e3:.2f} us (graph {library_graph_ms * 1e3:.2f})")
+            print(f"[micro b6] {spec.kernel} {name}: max_abs_err={err:.3e} kernel "
+                  f"{ms * 1e3:.2f} us ({ms / floor_ms:.2f}x the empty launch), graph "
+                  f"{in_graph_ms * 1e3:.2f} us ({in_graph_ms / graph_floor_ms:.2f}x) plain "
+                  f"{plain_ms * 1e3:.2f} us library {lib_text} bound {bound_ms * 1e3:.4f} us "
+                  f"({bound_by})  [{card}]", flush=True)
+
+    sums = {name: float(f.plain(*zfp.ones(name, device)).sum()) for name, f in zfp.PROBES.items()}
+    mp.reset_launches()
+    print(f"[micro b6] python3 -m {zfp.__name__}:", flush=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = zfp.main()
+    launches = dict(mp.LAUNCHES)
+    print(out.getvalue(), end="", flush=True)
+    check(rc == 0, f"{zfp.__name__}.main() exits 0")
+    lines = out.getvalue().splitlines()
+    missing = [name for name, label in zfp.NAMES.items()
+               if f"{label}: OK   sum={sums[name]:.1f}" not in lines]
+    check(not missing, f"the script's lines with its sums, missing: {missing}")
+    check(all(n > 0 for n in launches.values()),
+          f"every probe kernel launched by the entry point: {launches}")
+    print(f"[micro b6] launches over the entry point: {launches}")
+    for name, r in results.items():
+        first = next(iter(r["kinds"].values()))
+        r.update({**first, "launches": launches[name],
+                  "launches_from": "micro_zfac_probe entry point", "on_path": False})
     return results
 
 
@@ -2400,12 +2563,15 @@ def main() -> int:
     run(phase_pallas_digests, device, card)
     micro = run(phase_micro, device, card)
     micro.update(run(phase_micro_b1, device, card))
+    micro.update(run(phase_micro_b6, device, card))
     run(phase_goldens, device, card)
     mk.reset_launches()
     mst.reset_launches()
+    mp.reset_launches()
     launches = run(phase_slice, device, N_1M, card)
     launches.update(run(phase_pallas_slice, card))
-    per_frame = {**mk.LAUNCHES, **mst.LAUNCHES}  # the stream and pallas frames, eager and replayed
+    # the stream and pallas frames, eager and replayed
+    per_frame = {**mk.LAUNCHES, **mst.LAUNCHES, **mp.LAUNCHES}
     check(not any(per_frame.values()), f"the frames launch no micro kernel: {per_frame}")
     for name in micro:
         micro[name]["launches_per_frame"] = per_frame[name]

@@ -46,14 +46,15 @@ def timeit(fn, *args, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters / 1e3
 
 
-def expect(got: torch.Tensor, want: torch.Tensor, what: str, exact: bool) -> float:
-    """Raise unless ``got`` equals ``want`` (``exact``) or is within 1e-5 x
+def expect(got: torch.Tensor, want: torch.Tensor, what: str, exact: bool,
+           tol: float = 1e-5) -> float:
+    """Raise unless ``got`` equals ``want`` (``exact``) or is within ``tol`` x
     max|want| (a contraction summed in another order); returns max |d|."""
     err = float((got - want).abs().max())
     if exact:
         ok = torch.equal(got, want)
     else:
-        ok = err <= 1e-5 * float(want.abs().max())
+        ok = err <= tol * float(want.abs().max())
     if not ok:
         raise RuntimeError(f"{what}: max|d| {err} against its plain version")
     return err

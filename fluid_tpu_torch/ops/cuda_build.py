@@ -56,6 +56,10 @@ SIGNATURES = {
     "fluid_micro_window_contract": [_I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "fluid_micro_p2g1": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "fluid_micro_collect": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "fluid_micro_probe_map": [_I, _P, _P, _P, _P],
+    "fluid_micro_probe_contract": [_I, _P, _P, _P, _P],
+    "fluid_micro_probe_roll_merge": [_P, _P, _P],
+    "fluid_micro_probe_empty": [_P],
 }
 
 _lock = threading.Lock()

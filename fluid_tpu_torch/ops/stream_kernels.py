@@ -340,11 +340,11 @@ def _ints(vals):
     return ctypes.cast(arr, ctypes.c_void_p)
 
 
-def _launch(name: str, fn, *args, counts: dict = LAUNCHES, what: str = "") -> None:
+def _launch(name: str, fn, *args, counts: Optional[dict] = LAUNCHES, what: str = "") -> None:
     """Call a C entry point on the current stream; raise on its error code
     (naming ``what``, the instantiation asked for, where given), else add
     one to ``counts[name]`` (this module's ``LAUNCHES`` unless another
-    module's wrapper passes its own)."""
+    module's wrapper passes its own; ``None`` counts nothing)."""
     from . import cuda_build
 
     lib = cuda_build.load()
@@ -352,7 +352,8 @@ def _launch(name: str, fn, *args, counts: dict = LAUNCHES, what: str = "") -> No
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}"
                            + (f" ({what})" if what else ""))
-    counts[name] += 1
+    if counts is not None:
+        counts[name] += 1
 
 
 def check_cap(cap: int) -> None:
