@@ -100,12 +100,22 @@ counters over the same frame run eagerly (``replay_launches``).
 9. app      the app through its entry points, no device argument: the 3D
             reference scene on the default (stream) backend for 3 headless
             frames, plain and with the timing overlay, every stream kernel
-            launched (profiler), three 40x80 renders, the six stage
-            labels; then ``app.main`` on the pallas backend in 2D, K6, K7
+            launched (profiler), three 40x80 renders, the overlay's labels
+            (the frame's device time, its re-bins' device time and count,
+            the idle time under render, check and sync, from the
+            recorder); then ``app.main`` on the pallas backend in 2D, K6, K7
             and K8 launched (profiler);
             ``app.main --backend tiled`` and ``--backend sorted`` in 2D, 3
             frames, no kernel launched; ``app.main --shards 1`` in 3D, K1-K5
             launched
+   trace    the recorder's device stamps (utils/timing.py): on the strict
+            1M dam (cap 256) and the 3D reference scene, 2 + 2 x (re-bins
+            fired) stamps in every replayed frame and run, against the
+            card's rebins counter; in a process of its own, a profiled run
+            of the 1M dam: each stamp within 20 us of its kernel's start by
+            the profiler (the tightest of a few spins ties the clocks),
+            frame and re-bin lengths within 1% or 5 us, the clock fit's
+            residual; whether an IF body takes an event record node
 10. batch   64 scenes of 4,096 particles (bench.py's batch-64), packed side
             by side into one 4608x72x72 domain (stride 72, 373,248 tiles,
             A = 110,000): a strict Session(stream) with the scene stride,
@@ -216,6 +226,7 @@ from fluid_tpu_torch.ops import tiled_transfer as tt  # noqa: E402
 from fluid_tpu_torch.parallel import stream_shard as tsh  # noqa: E402
 from fluid_tpu_torch.session import Session  # noqa: E402
 from fluid_tpu_torch.utils import graph as graph_mod  # noqa: E402
+from fluid_tpu_torch.utils.timing import recorder  # noqa: E402
 from fluid_tpu_torch.utils.platform import card_info, require_cuda  # noqa: E402
 
 N_1M = 1_000_000
@@ -1952,7 +1963,8 @@ def phase_backends(card: str) -> None:
 def app_frames(text: str, frames: int, labels) -> list:
     """The headless output's frame blocks, checked: ``frames`` blocks in
     order, each a non-empty 40x80 render followed by its timing lines with
-    ``labels``; returns each block's {label: ms}."""
+    ``labels`` (each a regular expression of one label); returns each
+    block's {label: ms}."""
     blocks = text.split("--- frame ")[1:]
     check(len(blocks) == frames, f"{frames} frame blocks, got {len(blocks)}")
     times = []
@@ -1963,19 +1975,21 @@ def app_frames(text: str, frames: int, labels) -> list:
         check(len(view) == 40 and all(len(line) == 80 for line in view)
               and any(c != " " for line in view for c in line), f"frame {k}: a non-empty 40x80 render")
         ms = {line.split(": ")[0]: float(line.split(": ")[1][:-2]) for line in lines[41:]}
-        check(tuple(ms) == tuple(labels), f"frame {k} timing labels {tuple(ms)} == {tuple(labels)}")
+        check(len(ms) == len(labels) and all(re.fullmatch(want, got) for want, got in zip(labels, ms)),
+              f"frame {k} timing labels {tuple(ms)} match {tuple(labels)}")
         times.append(ms)
     return times
 
 
-STREAM_STAGES = ("dep1", "halo m", "dep2 m+f", "halo+gblk", "collect", "rebin")
+# the stream overlay's labels on the card (utils/timing.frame_overlay)
+STREAM_OVERLAY = ("frame device", r"rebin device \(\d+\)", "render idle", "check idle", "sync idle")
 
 
 def phase_app(card: str, frames: int = 3) -> None:
     """The app as a user runs it, with no device argument: the 3D reference
     scene on the default backend (stream on the card), then with the timing
-    overlay, which probes each stage on the session's state beside its
-    frame; then ``app.main`` on the pallas backend in 2D.  Each run's launch
+    overlay, which reads the replayed frame's own stamps from the recorder;
+    then ``app.main`` on the pallas backend in 2D.  Each run's launch
     counters are reset just before it and read just after."""
     device = require_cuda()
     for timing in (False, True):
@@ -1988,13 +2002,13 @@ def phase_app(card: str, frames: int = 3) -> None:
         # many (a chip run counted 96 of K2's 124), so no exact count
         check(all(v > 0 for v in launches.values()),
               f"app: every stream kernel launched (profiler): {launches}")
-        times = app_frames(out.getvalue(), frames, (*STREAM_STAGES, "frame") if timing else ("frame",))
+        times = app_frames(out.getvalue(), frames, (*STREAM_OVERLAY, "frame") if timing else ("frame",))
         frame_ms = ", ".join(f"{t['frame']:.2f}" for t in times)
         print(f"[app] 3D reference scene (n={scene.REFERENCE_N}), stream{' --timing' if timing else ''}: "
               f"ms/frame (render + frame + sync) {frame_ms}; launches={launches}  [{card}]")
         if timing:
             stages = ", ".join(f"{k} {v:.3f}" for k, v in times[-1].items() if k != "frame")
-            print(f"[app] timing overlay, frame {frames - 1} stage ms (CUDA events): {stages}  [{card}]")
+            print(f"[app] timing overlay, frame {frames - 1} ms (recorder): {stages}  [{card}]")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         launches = profiled_launches(
@@ -2326,6 +2340,153 @@ def probe_if_node(device) -> str:
     return f"torch {torch.__version__}, CUDA runtime {torch.version.cuda}, NVIDIA driver {driver}"
 
 
+# a conditional body with an event record node in it (run in a process of
+# its own: a capture that fails can leave its stream unusable); prints
+# "taken", or "refused" with the error and the call that raised it
+EVENT_IN_IF_BODY = """
+import sys, traceback, torch
+sys.path.insert(0, sys.argv[1])
+from fluid_tpu_torch.utils import graph as g
+dev = torch.device("cuda", 0)
+ev = torch.cuda.Event(enable_timing=True, external=True)
+x = torch.zeros((), device=dev)
+pred = torch.ones((), dtype=torch.bool, device=dev)
+graph, bodies = torch.cuda.CUDAGraph(), []
+try:
+    with torch.cuda.graph(graph, stream=g.capture_streams(dev)[0]):
+        g.if_node(bodies)(pred, lambda: (x.add_(1.0), ev.record()))
+    graph.replay()
+    torch.cuda.synchronize()
+    print("taken, x =", float(x))
+except RuntimeError as e:
+    where = [f.name + ":" + f.line for f in traceback.extract_tb(e.__traceback__)][-2:]
+    print("refused: " + str(e).splitlines()[0][:160] + " at " + " / ".join(where))
+"""
+
+
+def stamp_profile(sess: Session, frames: int, device, tries: int = 8) -> tuple:
+    """``sess.run(frames)`` under torch.profiler (the card only), after
+    ``tries`` short spins, each launched between two synchronizes, which tie
+    the profiler's clock to the host's as ``bench_torch/trace.Stretch``'s
+    spin does; the spin that leaves its start the least room (its host
+    interval less its length by the profiler) is the anchor.  Returns (the
+    stamp kernels' starts by the profiler in host ns, the anchor's start at
+    its launch; the same with its start at the middle of its room; the
+    room in ns; the recorder's records of the stretch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        host = []
+        for _ in range(tries):
+            sync(device)
+            h0 = time.perf_counter_ns()
+            torch.cuda._sleep(10_000)
+            sync(device)
+            host.append((h0, time.perf_counter_ns()))
+        t0 = host[-1][1]
+        sess.run(frames)
+        sync(device)
+        t1 = time.perf_counter_ns()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spins = sorted((e.time_range.start, e.time_range.end) for e in events if "spin_kernel" in e.name)
+    check(len(spins) == tries, f"the profiler saw {tries} spins ({len(spins)})")
+    room = [h1 - h0 - (e - s) * 1e3 for (h0, h1), (s, e) in zip(host, spins)]
+    k = int(np.argmin(room))
+    (h0, h1), (s, _) = host[k], spins[k]
+    starts = np.array(sorted(x.time_range.start for x in events if "trace_stamp" in x.name))
+    return (h0 + (starts - s) * 1e3, h0 + room[k] / 2 + (starts - s) * 1e3, room[k],
+            recorder().records(t0, t1))
+
+
+TRACE_SPEC = stx.StreamSpec(tile=4, cap=256, halo=2, active=32_768)  # the benchmark's 1M layout
+
+
+def trace_witness(frames: int = 3) -> None:
+    """The profiler as the witness of the recorder's clock: ``frames``
+    replays of the strict 1M dam (``TRACE_SPEC``) profiled with the stamps
+    (``stamp_profile``); each stamp the recorder mapped onto the host clock
+    within 20 us of the nearest stamp kernel's start by the profiler, each
+    frame's and re-bin's length within 1% or 5 us of the profiler's.  Run
+    as the process's first profiled stretch (``phase_trace`` starts it in
+    a process of its own): a chip run saw a process's third profiled
+    stretch place the kernels of IF bodies milliseconds from where they ran
+    and its frame stamps drift 14 us a frame from the recorder's."""
+    device, card = require_cuda(), card_info()
+    cuda_build.load()
+    cfg, p, dom = dam_1m(device)
+    sess = Session(cfg, dom, p, spec=TRACE_SPEC, device=device)
+    sess.run(2)
+    by_launch, by_middle, room, recs = stamp_profile(sess, frames, device)
+    check(len(by_middle) > 0, "the profiler saw stamp kernels")
+
+    def near(t):
+        return by_middle[np.argmin(np.abs(by_middle - t))]
+
+    gap = {n: np.array([near(t) - t for m, a, b in recs.device if m == n for t in (a, b)])
+           for n in ("frame", "rebin")}
+    at_launch = np.array([by_launch[np.argmin(np.abs(by_launch - t))] - t
+                          for m, a, b in recs.device if m == "frame" for t in (a, b)])
+    spare = {n: -max(abs((b - a) - (near(b) - near(a))) - max(0.01 * (b - a), 5e3)
+                     for m, a, b in recs.device if m == n) for n in ("frame", "rebin")}
+    stats = ", ".join(f"{n} {v.min() / 1e3:.2f} / {np.median(v) / 1e3:.2f} / {v.max() / 1e3:.2f} us"
+                      for n, v in gap.items())
+    print(f"[trace] 1M dam, profiled run({frames}): recorder {len(gap['frame']) // 2} frames, "
+          f"{len(gap['rebin']) // 2} re-bins, {2 * len(recs.device)} stamps; profiler "
+          f"{len(by_middle)} stamp kernels; profiler minus recorder (least / median / most): "
+          f"{stats} (the spin's start at the middle of its {room / 1e3:.2f} us of room; at its "
+          f"launch, as trace.Stretch puts it, frame stamps {at_launch.min() / 1e3:.2f} / "
+          f"{at_launch.max() / 1e3:.2f} us); lengths within 1% or 5 us with {spare['frame'] / 1e3:.2f}"
+          f" (frames), {spare['rebin'] / 1e3:.2f} us (re-bins) to spare; clock fit residual "
+          f"{recs.residual_ns / 1e3:.3f} us over {recs.anchors} anchors, each within "
+          f"{recs.anchor_ns / 1e3:.2f} us  [{card}]")
+    check(len(gap["frame"]) == 2 * frames, f"{frames} frames stamped")
+    check(all(np.abs(v).max() <= 20e3 for v in gap.values()), "stamps within 20 us of the profiler's")
+    check(min(spare.values()) >= 0, "lengths within 1% or 5 us of the profiler's")
+
+
+def phase_trace(device, card: str, frames: int = 8) -> None:
+    """The recorder's device stamps (``utils/timing.py``) on the strict
+    stream Session of the 1M dam (``TRACE_SPEC``) and of the 3D reference
+    scene: every replayed frame writes 2 + 2 x (re-bins fired) stamps,
+    against the card's ``rebins`` counter, frame by frame, mouse on every
+    other frame, and over a ``run``; then ``trace_witness`` in a process of
+    its own, and whether a conditional body takes an event record node."""
+    rec = recorder()
+    cases = (("1M dam", dam_1m(device), TRACE_SPEC, frames),
+             ("3D reference scene", scene.reference_scene_3d(seed=0, device=device), None,
+              8 * frames))
+    for what, (cfg, p, dom), spec, n_frames in cases:
+        sess = Session(cfg, dom, p, spec=spec, device=device)
+        sess.compile_run()
+        fired, stamped = [], []
+        hi = cfg.boundary_clip[1]
+        mouse = step.mouse((hi[0] / 2, hi[1] / 3))
+        for k in range(n_frames):
+            s0, r0 = rec.stamps(), sess.rebins()
+            sess.frame(mouse if k % 2 else None)
+            fired.append(sess.rebins() - r0)
+            stamped.append(rec.stamps() - s0)
+        s0, r0 = rec.stamps(), sess.rebins()
+        sess.run(n_frames)
+        fired.append(sess.rebins() - r0)
+        stamped.append(rec.stamps() - s0)
+        print(f"[trace] {what}: stamps a frame {stamped[:-1]}, re-bins fired {fired[:-1]}; "
+              f"run({n_frames}) {stamped[-1]} stamps, {fired[-1]} re-bins  [{card}]")
+        check(all(s == 2 + 2 * f for s, f in zip(stamped[:-1], fired[:-1])),
+              f"{what}: 2 + 2 x re-bins stamps a frame")
+        check(stamped[-1] == 2 * n_frames + 2 * fired[-1], f"{what}: run({n_frames}) stamps")
+        del sess, p
+        torch.cuda.empty_cache()
+    for what, code in (("the profiler's witness", "import chip_smoke as c; c.trace_witness()"),
+                       ("an event record node in an IF body", EVENT_IN_IF_BODY)):
+        out = subprocess.run([sys.executable, "-c", code, ROOT], capture_output=True, text=True,
+                             timeout=600, cwd=ROOT)
+        print(out.stdout.strip() if out.returncode == 0 and code != EVENT_IN_IF_BODY else
+              f"[trace] {what}: {out.stdout.strip()} {out.stderr[-600:]}  [{card}]")
+        check(out.returncode == 0, f"{what}: exit 0")
+
+
 def phase_profile(card: str, n: int = N_1M, top: int = 8) -> None:
     """One frame of the 1M dam per backend under torch.profiler, after a
     warm-up frame (``profile_frame``)."""
@@ -2580,6 +2741,7 @@ def main() -> int:
     run(phase_backends, card)
     run(phase_replay, device, card)
     run(phase_app, card)
+    run(phase_trace, device, card)
     run(phase_batch, device, card)
     ghost = run(phase_shards, device, card)
     run(phase_checkpoint, device, card, out_dir)

@@ -11,8 +11,11 @@ the terminal is restored in a ``finally`` block.
 ``--headless --frames N`` prints each frame and its timing lines without a
 TTY.  ``--timing`` shows phase times: the dense phases (``p2g 1``, ``p2g 2``,
 ``update``, ``g2p``) on "dense", one ``substep`` time on "sorted", "tiled"
-and "pallas", and on "stream" the session's frame plus a probe of each
-substep stage on its state (``utils/timing.StreamPhaseTimer``).  ``--shards N`` runs the sharded stream
+and "pallas"; on "stream" the frame the session ran, from the recorder
+(``utils/timing.frame_overlay``): on the card the frame graph's device
+time, the re-bins' device time and count, and the device's idle time
+under the render, the strict check and the sync; on the CPU, where the
+frame runs eagerly, the host spans.  ``--shards N`` runs the sharded stream
 backend (``parallel/stream_shard.ShardedSession``) over the first N cards,
 or over N CPU shards with ``--cpu``; it has no timing overlay.
 
@@ -45,7 +48,7 @@ from . import scene, step
 from .config import default_2d, default_3d
 from .session import Session, default_backend
 from .utils.platform import cuda_devices, require_cuda, resolve_device
-from .utils.timing import PhaseTimer, StreamPhaseTimer
+from .utils.timing import PhaseTimer, frame_overlay
 
 @dataclass
 class Quit:
@@ -123,7 +126,7 @@ def run(dim: int = 2, n: int = scene.REFERENCE_N, seed: int = 0,
 
     viewport = render_mod.DEFAULT_VIEWPORT
     console = render_mod.DEFAULT_CONSOLE
-    timer = sess = stream_timer = None
+    timer = sess = None
     if shards:
         from .parallel.stream_shard import ShardedSession
 
@@ -133,11 +136,8 @@ def run(dim: int = 2, n: int = scene.REFERENCE_N, seed: int = 0,
         # the timer drives the requested backend phase by phase
         timer = PhaseTimer(cfg, dom, backend=backend)
     else:
-        # the session keeps the stream state binned across frames; with
-        # --timing the stage probe runs beside its frame, never instead
+        # the session keeps the stream state binned across frames
         sess = Session(cfg, dom, p, backend=backend, device=device)
-        if timing:
-            stream_timer = StreamPhaseTimer(cfg, dom, sess.spec, p.n, device)
 
     ev_q: "queue.Queue" = queue.Queue(maxsize=1)
     stop = threading.Event()
@@ -160,7 +160,7 @@ def run(dim: int = 2, n: int = scene.REFERENCE_N, seed: int = 0,
             except queue.Empty:
                 pass
 
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             if timer is not None:
                 lines = render_mod.render(p, viewport, console)
                 p, phase_times = timer.frame(p, *mouse)
@@ -168,9 +168,10 @@ def run(dim: int = 2, n: int = scene.REFERENCE_N, seed: int = 0,
                 lines = sess.render(viewport, console)
                 sess.frame(mouse)
                 sess.block_until_ready()
-                phase_times = [("frame", time.perf_counter() - t0)]
-                if stream_timer is not None:
-                    phase_times = stream_timer.probe(sess.stream_state(), *mouse) + phase_times
+                t1 = time.perf_counter_ns()
+                phase_times = [("frame", (t1 - t0) * 1e-9)]
+                if timing:
+                    phase_times = frame_overlay(t0, t1) + phase_times
 
             if headless:
                 out.write(f"--- frame {frame_i} ---\n")

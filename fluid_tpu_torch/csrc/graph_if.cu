@@ -7,8 +7,15 @@
 // a conditional node, so the node is added here through the CUDA runtime:
 // the body is captured by PyTorch as a graph of its own, and this entry
 // point puts a copy of it into an IF node of the graph being captured.
-// Plumbing, not a port of a TPU kernel: its one kernel sets the node's
+// Plumbing, not a port of a TPU kernel: one kernel sets the node's
 // condition from a bool on the card.
+//
+// Also the recorder's device stamp (fluid_tpu_torch/utils/timing.py): the
+// frame graph captures one as its first and last node and one each side of
+// every IF body, and the recorder launches it eagerly for its clock
+// anchors.  A kernel and not an event record: a conditional body with an
+// event record node in it fails the graph's capture (chip_smoke.py's trace
+// phase checks this).
 
 #include <cuda_runtime.h>
 
@@ -16,6 +23,17 @@ namespace {
 
 __global__ void set_condition(cudaGraphConditionalHandle handle, const bool* pred) {
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+// (tag, %globaltimer in ns) into the next slot of a ring of mask + 1 slots,
+// taken by an atomic add on its head counter, which never wraps.
+__global__ void trace_stamp(unsigned long long* times, int* tags, unsigned long long* head,
+                            unsigned long long mask, int tag) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  unsigned long long i = atomicAdd(head, 1ull) & mask;
+  times[i] = t;
+  tags[i] = tag;
 }
 
 cudaError_t capture_info(cudaStream_t st, cudaStreamCaptureStatus* status, cudaGraph_t* graph,
@@ -73,6 +91,15 @@ int fluid_graph_if(const bool* pred, void* body, void* cuda_stream) {
   err = cudaStreamUpdateCaptureDependencies(st, &node, 1, cudaStreamSetCaptureDependencies);
 #endif
   return static_cast<int>(err);
+}
+
+// One stamp `tag` on `cuda_stream` into the ring (times, tags, head) of
+// mask + 1 slots, a power of two.  Returns a cudaError_t.
+int fluid_trace_stamp(unsigned long long* times, int* tags, unsigned long long* head, long long mask,
+                      int tag, void* cuda_stream) {
+  trace_stamp<<<1, 1, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
+      times, tags, head, static_cast<unsigned long long>(mask), tag);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -42,6 +42,7 @@ _L = ctypes.c_longlong
 # argtypes of every entry point in csrc/*.cu
 SIGNATURES = {
     "fluid_graph_if": [_P, _P, _P],
+    "fluid_trace_stamp": [_P, _P, _P, _L, _I, _P],
     "fluid_deposit": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_collect": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_halo_axes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -620,4 +620,4 @@ class ShardedSession:
         return total
 
     def render(self, viewport_size, console_size) -> list:
-        return render_mod.ascii_frame(self.histogram(viewport_size, console_size))
+        return render_mod.ascii_frame(self.histogram(viewport_size, console_size).cpu())

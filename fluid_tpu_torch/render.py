@@ -41,8 +41,9 @@ def histogram(pos: torch.Tensor, viewport_size=DEFAULT_VIEWPORT,
 
 
 def ascii_frame(counts) -> list[str]:
-    """Map an (H, W) count grid to console lines via the reference ramp."""
-    counts = counts.cpu().numpy() if isinstance(counts, torch.Tensor) else np.asarray(counts)
+    """Map an (H, W) count grid on the host (an array or a CPU tensor) to
+    console lines via the reference ramp."""
+    counts = np.asarray(counts)
     lut = np.array(list(RAMP))
     return ["".join(row) for row in lut[np.clip(counts, 0, len(RAMP) - 1)]]
 
@@ -51,4 +52,4 @@ def render(p, viewport_size=DEFAULT_VIEWPORT,
            console_size: Tuple[int, int] = DEFAULT_CONSOLE) -> list[str]:
     """Console lines of a ``ParticleState``: histogram on its device, then
     the ramp on the host."""
-    return ascii_frame(histogram(p.pos, viewport_size, tuple(console_size)))
+    return ascii_frame(histogram(p.pos, viewport_size, tuple(console_size)).cpu())

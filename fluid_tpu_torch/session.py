@@ -18,6 +18,12 @@ and replayed after that, so a frame makes no host read: the stream
 frame's re-bins are decided by the card in IF nodes, and the mouse is
 copied into a buffer of its own before each replay.  On the CPU the same
 body runs eagerly.
+
+Each call records host spans in the process's recorder
+(``utils/timing.py``): ``frame`` and ``run`` (their parts ``mouse``,
+``replay`` and ``check``), ``render`` (``histogram``, ``read``,
+``ascii``), ``sync`` (``block_until_ready``), ``restore``, ``particles``
+and ``snapshot``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from .ops import tiled_transfer as tt
 from .state import FIELDS, ParticleState
 from .utils.graph import FrameGraph
 from .utils.platform import resolve_device
+from .utils.timing import span
 
 
 def default_backend(device=None) -> str:
@@ -134,11 +141,15 @@ class Session:
     def frame(self, mouse: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
         """Advance one frame (``cfg.iterations`` substeps); with ``strict``,
         check the stream state after it."""
-        self._set_mouse(mouse)
-        self.frame_graph.run()
-        self._frames += 1
-        if self.strict and self.backend == "stream":
-            self._check(f"frame {self._frames - 1}")
+        with span("frame"):
+            with span("mouse"):
+                self._set_mouse(mouse)
+            with span("replay"):
+                self.frame_graph.run()
+            self._frames += 1
+            if self.strict and self.backend == "stream":
+                with span("check"):
+                    self._check(f"frame {self._frames - 1}")
 
     def _check(self, where: str) -> None:
         live = self.live_count()
@@ -165,36 +176,43 @@ class Session:
         """Advance ``frames`` frames with the same mouse input: on the card
         ``frames`` replays with no host read between them; with ``strict``,
         the stream state is checked once after the span."""
-        self._set_mouse(mouse)
-        for _ in range(frames):
-            self.frame_graph.run()
-        self._frames += frames
-        if self.strict and self.backend == "stream":
-            self._check(f"the {frames}-frame run ending at frame {self._frames - 1}")
+        with span("run"):
+            with span("mouse"):
+                self._set_mouse(mouse)
+            for _ in range(frames):
+                with span("replay"):
+                    self.frame_graph.run()
+            self._frames += frames
+            if self.strict and self.backend == "stream":
+                with span("check"):
+                    self._check(f"the {frames}-frame run ending at frame {self._frames - 1}")
 
     def block_until_ready(self) -> None:
         """Wait for the device, then read one element: the read surfaces a
         device fault here rather than at some later call."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        src = self._st.stream if self.backend == "stream" else self._p.pos
-        float(src.reshape(-1)[0])
+        with span("sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            src = self._st.stream if self.backend == "stream" else self._p.pos
+            float(src.reshape(-1)[0])
 
     # -- state snapshot -----------------------------------------------------
 
     def snapshot(self):
         """Deep copy of the live state; ``restore`` replays from it."""
-        return self._frames, self.frame_graph.state.clone()
+        with span("snapshot"):
+            return self._frames, self.frame_graph.state.clone()
 
     def restore(self, snap) -> None:
         """Reset to a ``snapshot()``: copies into the session's buffers, in
         place (the frame graph reads them), so a snapshot survives repeated
         restores."""
-        frames, src = snap
-        dst = self.frame_graph.state
-        for f in dataclasses.fields(dst):
-            getattr(dst, f.name).copy_(getattr(src, f.name))
-        self._frames = frames
+        with span("restore"):
+            frames, src = snap
+            dst = self.frame_graph.state
+            for f in dataclasses.fields(dst):
+                getattr(dst, f.name).copy_(getattr(src, f.name))
+            self._frames = frames
 
     # -- state access -------------------------------------------------------
 
@@ -228,9 +246,10 @@ class Session:
     def particles(self) -> ParticleState:
         """Current particles in their original order (un-bins on demand): a
         copy, which later frames leave as it is."""
-        if self.backend == "stream":
-            return stx.unbin(self._st, self.domain, self.spec, self.n, self.dim)
-        return self._p.clone()
+        with span("particles"):
+            if self.backend == "stream":
+                return stx.unbin(self._st, self.domain, self.spec, self.n, self.dim)
+            return self._p.clone()
 
     def histogram(self, viewport_size, console_size) -> torch.Tensor:
         """(H, W) int32 console counts, reduced on the device; the stream
@@ -246,4 +265,12 @@ class Session:
         return render_mod.histogram(self._p.pos, viewport_size, tuple(console_size))
 
     def render(self, viewport_size, console_size) -> list:
-        return render_mod.ascii_frame(self.histogram(viewport_size, console_size))
+        """Console lines of the state: the histogram on the device, the
+        count grid read to the host, then the ramp."""
+        with span("render"):
+            with span("histogram"):
+                counts = self.histogram(viewport_size, console_size)
+            with span("read"):
+                counts = counts.cpu()
+            with span("ascii"):
+                return render_mod.ascii_frame(counts)

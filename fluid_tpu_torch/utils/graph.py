@@ -39,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from . import timing
 from .platform import resolve_device
 
 _CONSTS: dict = {}
@@ -86,13 +87,15 @@ def capture_streams(device) -> tuple:
     return _STREAMS[device]
 
 
-def if_node(bodies: list):
+def if_node(bodies: list, ring=None):
     """The branch while the current stream captures a graph: ``fn`` is
     captured as a graph of its own (appended to ``bodies``, which must
     outlive the captured graph: their memory pool holds ``fn``'s
     intermediates), then put into an IF node on ``pred``, which runs at a
     replay only where ``pred`` is then true.  The bodies share one pool: a
-    frame runs them one after another."""
+    frame runs them one after another.  With ``ring`` (the recorder's,
+    ``timing.Recorder.ring``) a body's first and last nodes are the
+    ``rebin_begin`` and ``rebin_end`` stamps."""
     from ..ops import cuda_build
 
     side = capture_streams(torch.cuda.current_device())[1]
@@ -104,7 +107,11 @@ def if_node(bodies: list):
             body.capture_begin(pool=bodies[0].pool() if bodies else None,
                                capture_error_mode="thread_local")
             try:
+                if ring is not None:
+                    ring.stamp(timing.REBIN_BEGIN)
                 fn()
+                if ring is not None:
+                    ring.stamp(timing.REBIN_END)
             finally:
                 body.capture_end()
         bodies.append(body)
@@ -125,7 +132,10 @@ class FrameGraph:
     by running ``body(state, eager_branch)``; ``state.clone()`` is the
     warm-up's scratch copy.  ``bodies`` are the graphs of the IF nodes'
     bodies, in capture order (``if_node``).  ``capture_s`` and
-    ``instantiate_s`` are the host seconds the capture took."""
+    ``instantiate_s`` are the host seconds the capture took: the recorder's
+    ``capture`` and ``instantiate`` spans (``utils/timing.py``), after
+    ``warm``.  With the recorder on, the graph's first and last nodes are
+    the ``frame_begin`` and ``frame_end`` stamps."""
 
     def __init__(self, body, state, device: torch.device):
         self.body, self.state = body, state
@@ -150,7 +160,10 @@ class FrameGraph:
             gc.enable()
 
     def _capture(self) -> None:
+        rec = timing.recorder()
         with torch.cuda.device(self.device):
+            ring = rec.ring(self.device)
+            t0 = time.perf_counter_ns()
             main, side = torch.cuda.current_stream(), torch.cuda.Stream()
             side.wait_stream(main)
             with torch.cuda.stream(side):
@@ -159,13 +172,20 @@ class FrameGraph:
                 del scratch
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            t0 = time.perf_counter()
+            t1 = time.perf_counter_ns()
             with torch.cuda.graph(graph, stream=capture_streams(self.device)[0],
                                   capture_error_mode="thread_local"):
-                self.body(self.state, if_node(self.bodies))
-            t1 = time.perf_counter()
+                if ring is not None:
+                    ring.stamp(timing.FRAME_BEGIN)
+                self.body(self.state, if_node(self.bodies, ring))
+                if ring is not None:
+                    ring.stamp(timing.FRAME_END)
+            t2 = time.perf_counter_ns()
             graph.instantiate()
-            self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
+            t3 = time.perf_counter_ns()
+        for name, a, b in (("warm", t0, t1), ("capture", t1, t2), ("instantiate", t2, t3)):
+            rec.record(name, a, b)
+        self.capture_s, self.instantiate_s = (t2 - t1) * 1e-9, (t3 - t2) * 1e-9
         self.graph = graph
 
     def run(self) -> None:

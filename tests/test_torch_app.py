@@ -159,11 +159,12 @@ def test_native_sim_matches_jax_dense(dim, mouse):
 
 
 # the overlay's labels: JAX's dense phases (tests/test_render_app.py), one
-# substep time on a fused backend, the stream stages plus the frame
+# substep time on a fused backend; on the stream Session the recorder's host
+# spans of the frame (no device stamps on the CPU), then the frame
 LABELS = {
     "dense": ("p2g 1", "p2g 2", "update", "g2p"),
     "pallas": ("substep",),
-    "stream": ("dep1", "halo m", "dep2 m+f", "halo+gblk", "collect", "rebin", "frame"),
+    "stream": ("render", "mouse", "replay", "check", "sync", "frame"),
 }
 
 
