@@ -33,6 +33,19 @@ counters over the same frame run eagerly (``replay_launches``).
             shared memory (cap 256; tile 8 at caps 128 and 256) and at caps
             past 256, walked in chunks of 256 slots, on the whole 1M dam
             (tile 8 at cap 1024, timed; tile 4 at cap 512)
+   rebin    the re-bin's kernels (csrc/rebin_kernels.cu) on the 1M dam at
+            the benchmark's layout (T=4, cap 256, A = every tile) after 40
+            frames and on the 3D reference scene after 10, each a strict
+            captured Session, then eager substeps to one whose drift flags
+            ask for a re-bin: rebin_gather's rows and keys bit-equal to its
+            plain version's; one re-bin in place through the kernels
+            bit-equal to the same re-bin through the plain versions
+            (stream, count, tid, flag, nbr, watermarks, counter, and K1's
+            p2g_1 written into the frame's windows); every IF body of the
+            captured frame one node each of K1, rebin_gather and
+            rebin_fill; the next replayed frame bit-equal to the eager
+            frame; each kernel, its plain version and the whole body
+            (eager, and 20 bodies in one graph) timed beside the byte bounds
    digests  at cap 256 (one chunk) K1, K4, K2, K5 and K3 give the outputs
             recorded from the kernels before the chunked walk, bit for bit
             (tests/data/stream_kernels_cap256.json)
@@ -56,8 +69,8 @@ counters over the same frame run eagerly (``replay_launches``).
             wrapper: conservation, shell_drop == 0, finite state, the fluid
             falls (+y is down); the launches of replayed frame 3 (graph
             nodes, profiler witnessing) equal those of the same frame run
-            eagerly (counters): K2-K5 once per substep, K1 once plus once
-            per re-bin; a steady frame; one
+            eagerly (counters): K2-K5 once per substep, K1, rebin_gather
+            and rebin_fill once per re-bin (K1 once more); a steady frame; one
             substep of stream against dense from the same state, max |dpos|
             <= 1e-4
 7. pallas slice
@@ -174,7 +187,9 @@ counters over the same frame run eagerly (``replay_launches``).
             before and read just after: exit 0, the script's thirteen
             lines with its sums, each of M9-M11 launched there
 
-The last lines are the kernel table as JSON (time, plain time, the least
+The last lines are the kernel table as JSON (the five stream kernels, the
+re-bin's two and the four pallas kernels, then the micro kernels: time,
+plain time, the least
 time the card could take, launches in one replayed frame of the main path
 (slice, pallas slice) with how they were counted (launches_from) and the
 profiler's kernel events in that frame; K4 and K5 list their
@@ -231,7 +246,9 @@ from fluid_tpu_torch.utils.platform import card_info, require_cuda  # noqa: E402
 
 N_1M = 1_000_000
 N_2D = 100_000
+REBIN_KERNELS = ("rebin_gather", "rebin_fill")
 SOURCE = {name: "fluid_tpu_torch/csrc/stream_kernels.cu" for name in sk.KERNELS}
+SOURCE.update({name: "fluid_tpu_torch/csrc/rebin_kernels.cu" for name in REBIN_KERNELS})
 SOURCE.update({name: "fluid_tpu_torch/csrc/pallas_kernels.cu" for name in pk.KERNELS})
 REPLACES = {
     "deposit_p2g1": "fluid_tpu/ops/stream_transfer.py:676",
@@ -239,6 +256,8 @@ REPLACES = {
     "collect": "fluid_tpu/ops/stream_transfer.py:1163",
     "halo_axis": "fluid_tpu/ops/stream_transfer.py:2006",
     "halo_gblk": "fluid_tpu/ops/stream_transfer.py:1882",
+    **{name: "none: XLA glue (fluid_tpu/ops/stream_transfer.py:2346 _bin_rows, :2956 _rebin_full)"
+       for name in REBIN_KERNELS},
     "pallas_deposit_p2g1": "fluid_tpu/ops/pallas_transfer.py:160",
     "pallas_deposit_force": "fluid_tpu/ops/pallas_transfer.py:160",
     "pallas_p2g2": "fluid_tpu/ops/pallas_transfer.py:428",
@@ -581,6 +600,164 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                          "on_path": HALO_ON_PATH[kind]}
                   for kind, k in kinds.items()},
     }
+    return results
+
+
+def rebin_bounds(count, n: int, g) -> dict:
+    """(bytes, ops) of the re-bin's kernels on a state with ``count`` [A] and
+    ``n`` live particles: rebin_gather reads the counts, their prefix sum
+    and the live slots and writes n rows and keys; rebin_fill reads the
+    rows, the sort's n indices and each tile's first rank and count, and
+    writes every slot of the stream and the flag.  A few integer
+    operations per float moved: bound by bytes (ops counted as 0)."""
+    A, F = count.shape[0], g.F
+    return {"rebin_gather": ((2 * A + 2 * n * F + n) * F32, 0),
+            "rebin_fill": ((n * F + 2 * n + 3 * A + A * (F + 1) * g.cap) * F32, 0)}
+
+
+@contextlib.contextmanager
+def plain_rebin():
+    """The re-bin's two wrappers swapped for their plain versions, which
+    then run on the card's tensors."""
+    saved = sk.rebin_gather, sk.rebin_fill
+    sk.rebin_gather, sk.rebin_fill = sk.rebin_gather_plain, sk.rebin_fill_plain
+    try:
+        yield
+    finally:
+        sk.rebin_gather, sk.rebin_fill = saved
+
+
+def phase_rebin(device, card: str, reps: int = 10) -> dict:
+    """The re-bin's kernels on the benchmark's two scenes: the 1M dam at
+    its layout (T=4, cap 256, A = every tile) after 40 frames, and the 3D
+    reference scene (default spec) after 10, each a strict captured
+    Session.  From the session's state, eager substeps until a drift flag
+    asks for a re-bin; there rebin_gather's rows and keys equal its plain
+    version's, and one re-bin in place through the kernels leaves stream,
+    count, tid, flag, nbr, the watermarks, the counter and the
+    redeposited p2g_1 windows bit-equal to the same re-bin through the
+    plain versions (K1 on the plain re-bin's state).  Every IF body of the
+    captured frame holds one node of each re-bin kernel and of K1, and
+    nothing else of csrc; the next replayed frame equals the same frame
+    run eagerly, bit for bit.  Then each kernel, its plain version and the
+    whole body (eagerly and as 20 bodies in one graph) timed beside the
+    kernels' byte bounds.  Returns the 1M dam's kernel numbers."""
+    results = {}
+    gen = torch.Generator(device=device).manual_seed(0)
+    cfg1, p1, dom1 = scene.scaled_dam_break(gen, N_1M, dim=3, device=device)
+    nt1 = int(np.prod([s // 4 for s in dom1.shape]))
+    cfg_r, p_r, dom_r = scene.reference_scene_3d(device=device)
+    cases = (("1M dam", cfg1, dom1, p1, stx.StreamSpec(tile=4, cap=256, halo=2, active=nt1), 40),
+             ("reference scene", cfg_r, dom_r, p_r, stx.default_spec(cfg_r, dom_r, p_r.n), 10))
+    for what, cfg, dom, p, spec, frames in cases:
+        n, D = p.n, cfg.dim
+        sess = Session(cfg, dom, p, backend="stream", spec=spec, device=device)
+        sess.run(frames)
+        sync(device)
+        check(sess.live_count() == n and sess.shell_drop() == 0, f"rebin {what}: conservation")
+        fg = sess.frame_graph
+        bodies = [graph_kernel_nodes(b.raw_cuda_graph())[0] for b in fg.bodies]
+        one = dict.fromkeys((*sk.KERNELS, *pk.KERNELS), 0)
+        one.update({"deposit_p2g1": 1, "rebin_gather": 1, "rebin_fill": 1})
+        check(len(bodies) == cfg.iterations and all(b == one for b in bodies),
+              f"rebin {what}: each of the {len(bodies)} IF bodies holds one node of K1, "
+              f"rebin_gather and rebin_fill: {bodies[0] if bodies else None}")
+        st0, rb0 = sess.stream_state().clone(), sess.rebins()
+        sess.frame()
+        sync(device)
+        fired = sess.rebins() - rb0
+        eager = stx.frame_binned(st0, cfg, dom, spec, *step.no_mouse(), n=n)
+        check(differ(sess.stream_state(), eager) == [],
+              f"rebin {what}: replayed frame {frames + 1} ({fired} re-bins) bit-equal to the eager "
+              f"frame: {differ(sess.stream_state(), eager)}")
+        del st0, eager
+
+        tshape, nt = stx._tile_geometry(dom, spec)
+        g = stx.tile_geom(dom, spec)
+        stages = stx.substep_stages(cfg, dom, spec, device, fused=True)
+        params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+        st = sess.stream_state().clone()
+        dep1 = stages.dep1(st)
+        subs = 0
+        while not bool(stx.needs_rebin(st)):
+            check(subs < 4 * cfg.iterations, f"rebin {what}: a drift flag within "
+                                             f"{4 * cfg.iterations} substeps")
+            st, dep1 = stx._substep_core(st, dep1, stages, params)
+            subs += 1
+        st.shell_drop.fill_(0)
+        st.need_peak.fill_(1)
+        step_t = stx._LOOKAHEAD * cfg.dt
+        rows, keys = sk.rebin_gather(st.stream, st.count, n, g, step_t)
+        rows_p, keys_p = sk.rebin_gather_plain(st.stream, st.count, n, g, step_t)
+        check(torch.equal(rows, rows_p) and torch.equal(keys, keys_p),
+              f"rebin {what}: rebin_gather rows and keys bit-equal to its plain version")
+        moved = int((keys.long() != stx._keys_from_pos(rows[:, :D], dom, spec, tshape)).sum())
+        got, got_d1 = st.clone(), torch.full_like(dep1, float("nan"))
+        stx._rebin_into(got, got_d1, cfg, dom, spec, tshape, nt, n, stages)
+        want = st.clone()
+        with plain_rebin():
+            stx._rebin_into(want, torch.empty_like(dep1), cfg, dom, spec, tshape, nt, n, stages)
+        want_d1 = sk.deposit_p2g1(want.count, want.tid, want.stream, g)
+        sync(device)
+        check(differ(got, want) == [] and torch.equal(got_d1, want_d1),
+              f"rebin {what}: the re-bin through the kernels bit-equal to the plain versions' "
+              f"(fields that differ: {differ(got, want)}, p2g_1 equal: {torch.equal(got_d1, want_d1)})")
+        check(int(got.count.sum()) == n and int(got.rebins[0]) == int(st.rebins[0]) + 1,
+              f"rebin {what}: every particle binned, the re-bin counted")
+        flagged = int((st.flag >= 2.0).sum())
+        del got, want, want_d1, rows_p, keys_p
+
+        order = torch.argsort(keys, stable=True)
+        sid = keys[order]
+        first = torch.searchsorted(sid, torch.arange(nt + 2, dtype=sid.dtype, device=device))
+        nxt = st.clone()
+        stx._rebin_into(nxt, got_d1, cfg, dom, spec, tshape, nt, n, stages)
+        start = first[:-1][nxt.tid.long().clamp(0, nt)].contiguous()
+        out_s, out_f = torch.empty_like(st.stream), torch.empty_like(st.flag)
+        kernels = {
+            "rebin_gather": (lambda: sk.rebin_gather(st.stream, st.count, n, g, step_t),
+                             lambda: sk.rebin_gather_plain(st.stream, st.count, n, g, step_t)),
+            "rebin_fill": (lambda: sk.rebin_fill(rows, order, start, nxt.count, out_s, out_f),
+                           lambda: sk.rebin_fill_plain(rows, order, start, nxt.count, out_s, out_f)),
+        }
+        sk.rebin_fill(rows, order, start, nxt.count, out_s, out_f)
+        check(torch.equal(out_s, nxt.stream) and not out_f.any(),
+              f"rebin {what}: rebin_fill alone rebuilds the re-bin's stream")
+        bounds = rebin_bounds(st.count, n, g)
+        line = []
+        for name, (kern, plain) in kernels.items():
+            ms = time_ms(kern, reps, device)
+            plain_ms = time_ms(plain, max(2, reps // 5), device)
+            bound_ms, bound_by = bound(*bounds[name])
+            if what == "1M dam":
+                results[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            line.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} by "
+                        f"{bound_by}, {bound_ms / ms:.1%} of it)")
+        scratch, scratch_d1 = st.clone(), torch.empty_like(dep1)
+
+        def body():
+            scratch.stream.copy_(st.stream)
+            scratch.count.copy_(st.count)
+            stx._rebin_into(scratch, scratch_d1, cfg, dom, spec, tshape, nt, n, stages)
+
+        copy_ms = time_ms(lambda: (scratch.stream.copy_(st.stream), scratch.count.copy_(st.count)),
+                          reps, device)
+        body_ms = time_ms(body, reps, device) - copy_ms
+        body_graph_ms = graph_ms(body, device) - copy_ms
+        k1_ms = time_ms(lambda: stages.dep1(scratch, scratch_d1), reps, device)
+        print(f"[rebin] {what} (n={n}, A={spec.A}, cap {spec.cap}, stream "
+              f"{st.stream.numel() * F32 / 1e6:.0f} MB) after {frames} frames + {subs} substeps, "
+              f"{flagged} drift flags, {moved} particles keyed ahead of their cell's tile: "
+              f"rebin_gather bit-equal to plain; the re-bin in place bit-equal to the plain "
+              f"versions' (stream, count, tid, flag, nbr, watermarks, counter, p2g_1); IF bodies "
+              f"{len(bodies)} x (K1, rebin_gather, rebin_fill); replayed frame {frames + 1} "
+              f"({fired} re-bins) bit-equal to eager; {'; '.join(line)}; whole body "
+              f"{body_ms:.4f} ms eager, {body_graph_ms:.4f} ms in a graph (K1 {k1_ms:.4f}; the "
+              f"state copies {copy_ms:.4f} taken off)  [{card}]")
+        del sess, st, dep1, rows, keys, order, sid, first, nxt, start, out_s, out_f, scratch
+        del scratch_d1, got_d1, kernels
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1483,8 +1660,10 @@ def phase_slice(device, n: int, card: str, frames: int = 2):
     check(got == eager, f"replayed frame's launches {got} == the eager frame's {eager} "
                         f"({fired} re-bins fired in the replay)")
     per_sub = ("deposit_p2g2", "collect", "halo_axis", "halo_gblk")
-    check(all(got[k] == cfg.iterations for k in per_sub) and got["deposit_p2g1"] == 1 + fired,
-          f"K2-K5 once per substep, K1 once plus once per re-bin ({fired}): {got}")
+    check(all(got[k] == cfg.iterations for k in per_sub) and got["deposit_p2g1"] == 1 + fired
+          and all(got[k] == fired for k in REBIN_KERNELS),
+          f"K2-K5 once per substep, K1 once plus once per re-bin ({fired}), the re-bin's "
+          f"kernels once per re-bin: {got}")
     launches = {k: launches[k] for k in sk.KERNELS}
     print(f"[slice] replayed frame {frames + 1}: launches {summary(launches)} == the eager "
           f"frame's (wrapper counters); {fired} re-bins fired in it  [{card}]")
@@ -2499,7 +2678,8 @@ def phase_profile(card: str, n: int = N_1M, top: int = 8) -> None:
 
 
 CSRC_KERNELS = tuple(f"(anonymous namespace)::{k}<" for k in
-                     ("deposit_kernel", "collect_kernel", "halo_axes_kernel", "halo_axes_any_kernel"))
+                     ("deposit_kernel", "collect_kernel", "halo_axes_kernel", "halo_axes_any_kernel",
+                      "rebin_gather_kernel", "rebin_fill_kernel"))
 CSRC_KERNELS += ("(anonymous namespace)::set_condition(",)  # csrc/graph_if.cu, the IF nodes'
 
 
@@ -2509,12 +2689,15 @@ def csrc_launch_name(key: str):
     ``deposit_kernel<D, P2G2, MULTI>`` over a ``Geom``, the pallas one
     ``deposit_kernel<D, MODE>``; the stream collect has three template
     arguments, the pallas one one; the halo kernels' last argument is
-    GBLK."""
+    GBLK; the re-bin's kernels are ``rebin_gather_kernel<D>`` and
+    ``rebin_fill_kernel<D>``."""
     m = re.search(r"\(anonymous namespace\)::(deposit_kernel|collect_kernel|halo_axes_kernel"
-                  r"|halo_axes_any_kernel)<([^>]*)>", key)
+                  r"|halo_axes_any_kernel|rebin_gather_kernel|rebin_fill_kernel)<([^>]*)>", key)
     if m is None:
         return None
     kind, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+    if kind.startswith("rebin_"):
+        return kind.removesuffix("_kernel")
     if kind == "deposit_kernel":
         if args[1] in ("true", "false"):
             return "deposit_p2g2" if args[1] == "true" else "deposit_p2g1"
@@ -2718,6 +2901,7 @@ def main() -> int:
         return out
 
     results = run(phase_kernels, device, card)
+    results.update(run(phase_rebin, device, card))
     big_kinds = run(phase_deposit_geometries, device, card)
     run(phase_digests, device, card)
     results.update(run(phase_pallas_kernels, device, card))

@@ -47,6 +47,8 @@ SIGNATURES = {
     "fluid_collect": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_halo_axes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fluid_halo_gblk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
+    "fluid_rebin_gather": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _F, _P],
+    "fluid_rebin_fill": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "fluid_pallas_deposit": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_pallas_collect": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "fluid_micro_prefix_copy": [_I, _P, _L, _P, _I, _I, _P],

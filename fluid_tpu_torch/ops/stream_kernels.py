@@ -1,25 +1,28 @@
-"""The stream backend's five kernel entry points: wrapper, plain version, count.
+"""The stream backend's kernel entry points: wrapper, plain version, count.
 
-Each of ``deposit_p2g1``, ``deposit_p2g2``, ``collect``, ``halo_axes`` and
-``halo_gblk`` is a wrapper that checks its tensors and then
+Each of the substep's ``deposit_p2g1``, ``deposit_p2g2``, ``collect``,
+``halo_axes`` and ``halo_gblk``, and the re-bin's ``rebin_gather`` and
+``rebin_fill``, is a wrapper that checks its tensors and then
 
 * for CPU tensors, runs the plain PyTorch version below (direct 3^D taps
   with ``index_add_`` and gathers at the tile-window level) — the CPU tests'
   path, and what ``chip_smoke.py`` holds the kernels against on the card;
 * for CUDA tensors, launches the hand-written kernel of
-  ``csrc/stream_kernels.cu`` and raises if the launch reports an error.
-  There is no fallback from a CUDA tensor to the plain version.
+  ``csrc/stream_kernels.cu`` (the re-bin's: ``csrc/rebin_kernels.cu``) and
+  raises if the launch reports an error.  There is no fallback from a CUDA
+  tensor to the plain version.
 
 ``LAUNCHES[name]`` counts the kernel launches of each wrapper (never the
-plain versions), one name per TPU kernel, so a run can show that its main
-path went through every kernel; ``halo_axes`` counts as ``halo_axis``.
+plain versions), one name per TPU kernel and per re-bin kernel, so a run
+can show that its main path went through every kernel; ``halo_axes``
+counts as ``halo_axis``.
 
 The plain versions compute each particle's and each tap's values in the
 kernels' arithmetic order (taps in stencil order, axis 0 fastest), and
 collect and the halo sum in the kernels' order too, so those agree bit for
-bit on the card.  The deposits do not: the kernels sum a cell's particles
-in slot order and the plain versions with ``index_add_``, in its own order,
-so the two differ by rounding.
+bit on the card, as the re-bin's do.  The deposits do not: the kernels sum
+a cell's particles in slot order and the plain versions with
+``index_add_``, in its own order, so the two differ by rounding.
 
 Layouts (see ``csrc/stream_kernels.cu``): stream ``[A, F, cap]``, windows
 ``[A, CH, E^D]`` in flat cell order ``(e_0, ..., e_{D-1})``, flag
@@ -36,9 +39,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.graph import device_const
 from .bspline import quadratic_weights, stencil_offsets
 
-KERNELS = ("deposit_p2g1", "deposit_p2g2", "collect", "halo_axis", "halo_gblk")
+KERNELS = ("deposit_p2g1", "deposit_p2g2", "collect", "halo_axis", "halo_gblk",
+           "rebin_gather", "rebin_fill")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 
@@ -306,6 +311,52 @@ def halo_gblk_plain(x, hs_m, count, nbr, dtg, g: TileGeom, gate=None) -> torch.T
     return torch.where((gate > 0)[:, None, None], torch.cat([v, hs_m], dim=1), 0.0)
 
 
+def tile_keys(pos, g: TileGeom, vel=None, step: float = 0.0) -> torch.Tensor:
+    """Tile key per particle (int64).  With ``vel`` and a look-ahead
+    ``step`` (in time), bins PREDICTIVELY by ``pos + clip(step vel, +-1
+    cell)`` on each axis where that keeps the current cell in the chosen
+    tile's drift window (``fluid_tpu`` ``_keys_from_pos``)."""
+    dev = pos.device
+    shape = device_const([t * g.tile for t in g.tshape], dev)
+    origin = device_const(g.origin, dev)
+
+    def _cell(x):
+        return torch.minimum((torch.floor(x).to(torch.int64) - origin).clamp_min(0), shape - 1)
+
+    T, h = g.tile, g.halo
+    cell = _cell(pos)
+    kt = cell // T
+    if vel is not None and step != 0.0:
+        ct = _cell(pos + torch.clamp(vel * step, -1.0, 1.0)) // T
+        lc = cell - ct * T
+        kt = torch.where((lc >= 1 - h) & (lc <= T - 2 + h), ct, kt)
+    key = kt[..., 0]
+    for d in range(1, g.dim):
+        key = key * g.tshape[d] + kt[..., d]
+    return key
+
+
+def rebin_gather_plain(stream, count, n: int, g: TileGeom, step: float):
+    A, F, cap = stream.shape
+    a_idx, s_idx = _valid_slots(count, cap)
+    live = stream[a_idx, :, s_idx][:n]
+    m, D = live.shape[0], g.dim
+    rows = torch.zeros((n, F), dtype=torch.float32, device=stream.device)
+    rows[:m] = live
+    keys = torch.full((n,), math.prod(g.tshape), dtype=torch.int32, device=stream.device)
+    keys[:m] = tile_keys(live[:, :D], g, live[:, D:2 * D], step).to(torch.int32)
+    return rows, keys
+
+
+def rebin_fill_plain(rows, order, start, count, stream, flag) -> None:
+    A, F, cap = stream.shape
+    s_io = torch.arange(cap, device=stream.device)
+    valid = s_io[None, :] < count[:, None]
+    bidx = (start[:, None] + s_io[None, :]).clamp(0, order.shape[0] - 1)
+    stream.copy_(torch.where(valid[..., None], rows[order[bidx]], 0.0).permute(0, 2, 1))
+    flag.zero_()
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -376,12 +427,17 @@ def _check_tiles(count, tid, stream, g: TileGeom):
     return A, dev
 
 
-def deposit_p2g1(count, tid, stream, g: TileGeom) -> torch.Tensor:
-    """p2g_1 windows [A, 1+D, E^D]: mass and APIC momentum of each tile."""
+def deposit_p2g1(count, tid, stream, g: TileGeom, out=None) -> torch.Tensor:
+    """p2g_1 windows [A, 1+D, E^D]: mass and APIC momentum of each tile,
+    written into ``out`` where given (the re-bin's in-place deposit)."""
     A, dev = _check_tiles(count, tid, stream, g)
+    if out is not None:
+        _check("out", out, (A, 1 + g.dim, g.ncell), torch.float32, dev)
     if _on_cpu(dev):
-        return deposit_p2g1_plain(count, tid, stream, g)
-    out = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
+        d1 = deposit_p2g1_plain(count, tid, stream, g)
+        return d1 if out is None else out.copy_(d1)
+    if out is None:
+        out = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _launch("deposit_p2g1", "fluid_deposit", g.dim, 1, _ptr(count), _ptr(tid),
                 _ptr(stream), _ptr(None), _ptr(None), _ptr(None), _ptr(out), A,
@@ -477,3 +533,54 @@ def halo_gblk(x, hs_m, count, nbr, dtg: np.ndarray, g: TileGeom, gate=None) -> t
         _launch("halo_gblk", "fluid_halo_gblk", _ptr(x), _ptr(hs_m), _ptr(gate), _ptr(nbr),
                 _ptr(out), A, g.dim, g.E, g.tile, d[0], d[1], d[2])
     return out
+
+
+def rebin_gather(stream, count, n: int, g: TileGeom, step: float):
+    """The re-bin's compaction: the live slots of ``stream`` [A, F, cap]
+    (``count`` [A] of each tile) as rows [n, F] in slot order, and each
+    row's tile key [n] int32 (``tile_keys`` with the look-ahead ``step``;
+    0 keys by position alone).  Rows past the live count are zeros with the
+    key ``nt``, of no tile; live rows past ``n`` are dropped."""
+    A, dev = count.shape[0], stream.device
+    _check("count", count, (A,), torch.int32, dev)
+    _check("stream", stream, (A, g.F, g.cap), torch.float32, dev)
+    if n < 1:
+        raise ValueError(f"rebin_gather: n={n} rows, expected at least 1")
+    if _on_cpu(dev):
+        return rebin_gather_plain(stream, count, n, g, step)
+    check_cap(g.cap)
+    rows = torch.empty((n, g.F), dtype=torch.float32, device=dev)
+    keys = torch.empty((n,), dtype=torch.int32, device=dev)
+    cum = torch.cumsum(count, 0, dtype=torch.int32)
+    with torch.cuda.device(dev):
+        _launch("rebin_gather", "fluid_rebin_gather", g.dim, _ptr(stream), _ptr(count), _ptr(cum),
+                _ptr(rows), _ptr(keys), A, g.cap, n, g.tile, g.halo, _ints(g.tshape),
+                _ints(g.origin), int(step != 0.0), step)
+    return rows, keys
+
+
+def rebin_fill(rows, order, start, count, stream, flag) -> None:
+    """The re-bin's slot structure, written into ``stream`` [A, F, cap] and
+    ``flag`` [A, cap]: slot s < count[a] of tile a gets row
+    ``order[start[a] + s]`` of ``rows`` [N, F], every other slot 0, and
+    the flag is zeroed.  ``order`` [n] and ``start`` [A] are int64 (an
+    argsort and the tiles' first sorted ranks), ``count`` [A] int32."""
+    A, F, cap = stream.shape
+    dev = stream.device
+    _check("stream", stream, (A, F, cap), torch.float32, dev)
+    _check("rows", rows, (rows.shape[0], F), torch.float32, dev)
+    _check("order", order, (order.shape[0],), torch.int64, dev)
+    _check("start", start, (A,), torch.int64, dev)
+    _check("count", count, (A,), torch.int32, dev)
+    _check("flag", flag, (A, cap), torch.float32, dev)
+    if order.shape[0] < 1:
+        raise ValueError("rebin_fill: an empty order")
+    if _on_cpu(dev):
+        return rebin_fill_plain(rows, order, start, count, stream, flag)
+    check_cap(cap)
+    dim = {2 * d + d * d + 4: d for d in (2, 3)}.get(F)
+    if dim is None:
+        raise ValueError(f"rebin_fill: {F} stream rows, a 2D (12) or 3D (19) particle's expected")
+    with torch.cuda.device(dev):
+        _launch("rebin_fill", "fluid_rebin_fill", dim, _ptr(rows), _ptr(order), _ptr(start),
+                _ptr(count), _ptr(stream), _ptr(flag), A, cap, order.shape[0])

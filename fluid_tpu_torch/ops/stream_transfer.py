@@ -15,10 +15,12 @@ re-bins.  One substep runs the stages of ``substep_stages``:
   collect    g2p + particle tail + drift flag (+ the next substep's p2g_1)
 
 The five kernel entry points live in ``stream_kernels.py``: hand-written CUDA
-on the GPU, their plain PyTorch versions on the CPU.  Everything else here
-(binning, the active set, neighbour tables, compaction, un-binning) is plain
-PyTorch, ported operation by operation from the JAX module so that binning
-is bit-identical to it.
+on the GPU, their plain PyTorch versions on the CPU.  So do the re-bin's
+two: ``rebin_gather`` compacts and keys the live slots, ``rebin_fill``
+writes the slot structure from the sorted rows.  Everything else here (the
+sort, the active set, neighbour tables, un-binning) is plain PyTorch,
+ported operation by operation from the JAX module so that binning is
+bit-identical to it.
 
 Kept ``StreamSpec`` knobs: ``tile``, ``cap``, ``halo``, ``active`` and
 ``scene_stride``.  The TPU's block-geometry knobs (``group``, ``pair``,
@@ -188,23 +190,10 @@ def _flatten_coords(c: torch.Tensor, shape) -> torch.Tensor:
 def _keys_from_pos(pos, domain: Domain, spec: StreamSpec, tshape, vel=None, dt=0.0):
     """Tile key per particle (int64).  With ``vel``, bins PREDICTIVELY by
     ``pos + clip(6 dt vel, +-1 cell)`` when that keeps the current cell in
-    the chosen tile's drift window (``fluid_tpu`` ``_keys_from_pos``)."""
-    dev = pos.device
-    shape = device_const(domain.shape, dev)
-    origin = device_const(domain.origin, dev)
-
-    def _cell(x):
-        return torch.minimum((torch.floor(x).to(torch.int64) - origin).clamp_min(0), shape - 1)
-
-    T, h = spec.tile, spec.halo
-    cell = _cell(pos)
-    if vel is None or dt == 0.0:
-        return _flatten_coords(cell // T, tshape)
-    shift = torch.clamp(vel * (_LOOKAHEAD * dt), -1.0, 1.0)
-    ct = _cell(pos + shift) // T
-    lc = cell - ct * T
-    ok = (lc >= 1 - h) & (lc <= T - 2 + h)
-    return _flatten_coords(torch.where(ok, ct, cell // T), tshape)
+    the chosen tile's drift window (``stream_kernels.tile_keys``)."""
+    g = sk.TileGeom(dim=len(tshape), tile=spec.tile, halo=spec.halo, cap=spec.cap,
+                    tshape=tuple(tshape), origin=tuple(int(o) for o in domain.origin))
+    return sk.tile_keys(pos, g, vel, _LOOKAHEAD * dt)
 
 
 def _active_index(tid_act, nt: int, A: int) -> torch.Tensor:
@@ -263,22 +252,25 @@ def _active_set(occ: torch.Tensor, tshape) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _bin_rows(rows, tid_of_particle, n: int, spec: StreamSpec, nt: int, tshape,
-              row_idx=None, occ_force=None) -> StreamState:
-    """rows [N, F] + tile ids -> slot structure, occupied tiles first.
+def _bin_rows(rows, tid_of_particle, spec: StreamSpec, nt: int, tshape, occ_force=None,
+              out: Optional[StreamState] = None) -> StreamState:
+    """rows [N, F] + tile ids [n] -> slot structure, occupied tiles first.
 
-    Tile ids >= nt never land in a tile.  ``row_idx`` ([n] into rows)
-    composes a prior compaction: sorted row i is rows[row_idx[order[i]]].
-    The sort is stable (slot order within a tile follows particle order,
-    as ``jnp.argsort`` does).  ``occ_force`` ([nt] bool) marks tiles the
-    needed-relay closure treats as occupied although no local particle is
-    in them (the sharded backend's ghost columns, filled by the exchange);
-    they bin as zero-count actives."""
+    Tile ids >= nt never land in a tile.  The sort is stable (slot order
+    within a tile follows row order, as ``jnp.argsort`` does).
+    ``occ_force`` ([nt] bool) marks tiles the needed-relay closure treats
+    as occupied although no local particle is in them (the sharded
+    backend's ghost columns, filled by the exchange); they bin as
+    zero-count actives.  The slot structure (stream, count, tid, flag,
+    nbr) is written into ``out``'s tensors where given, which the result
+    shares, else into new ones (rebins 0); the result's shell_drop and
+    need_peak are this binning's.  The tile bookkeeping is PyTorch over the
+    grid's tiles; ``stream_kernels.rebin_fill`` writes the slots."""
     cap, A = spec.cap, spec.A
     dev = rows.device
     order = torch.argsort(tid_of_particle, stable=True)
     sid = tid_of_particle[order]
-    start = torch.searchsorted(sid, torch.arange(nt + 2, device=dev), right=False)
+    start = torch.searchsorted(sid, torch.arange(nt + 2, dtype=sid.dtype, device=dev), right=False)
     count_t = (start[1:] - start[:-1])[:nt]
 
     occ_p = count_t > 0
@@ -298,25 +290,26 @@ def _bin_rows(rows, tid_of_particle, n: int, spec: StreamSpec, nt: int, tshape,
     tid_act = torch.where(tid_act < 0, nt, tid_act)
     count_pad = torch.cat([count_t, count_t.new_zeros(1)])
     count_act = torch.clamp_max(count_pad[tid_act.clamp(0, nt)], cap)
-
     act_start = start[:-1][tid_act.clamp(0, nt)]
-    s_io = torch.arange(cap, device=dev)
-    perm = order if row_idx is None else row_idx[order]
-    srows = rows[perm]
-    valid = s_io[None, :] < count_act[:, None]
-    bidx = (act_start[:, None] + s_io[None, :]).clamp(0, n - 1)
-    slot_rows = torch.where(valid[..., None], srows[bidx], 0.0)  # [A, cap, F]
     need = occ.sum().reshape(1).to(torch.int32)
-    return StreamState(
-        stream=slot_rows.permute(0, 2, 1).contiguous(),
-        count=count_act.to(torch.int32),
-        tid=tid_act.to(torch.int32),
-        flag=torch.zeros((A, cap), dtype=torch.float32, device=dev),
-        nbr=_nbr_table(tid_act, tshape, nt, A),
-        shell_drop=torch.clamp_min(need - A, 0),
-        need_peak=need,
-        rebins=torch.zeros((1,), dtype=torch.int32, device=dev),
-    )
+    drop = torch.clamp_min(need - A, 0)
+
+    if out is None:
+        i32 = dict(dtype=torch.int32, device=dev)
+        out = StreamState(
+            stream=torch.empty((A, rows.shape[1], cap), dtype=torch.float32, device=dev),
+            count=torch.empty((A,), **i32), tid=torch.empty((A,), **i32),
+            flag=torch.empty((A, cap), dtype=torch.float32, device=dev),
+            nbr=torch.empty((2 * len(tshape), A), **i32), shell_drop=drop, need_peak=need,
+            rebins=torch.zeros((1,), **i32),
+        )
+    else:
+        out = dataclasses.replace(out, shell_drop=drop, need_peak=need)
+    out.count.copy_(count_act)
+    out.tid.copy_(tid_act)
+    out.nbr.copy_(_nbr_table(tid_act, tshape, nt, A))
+    sk.rebin_fill(rows, order, act_start, out.count, out.stream, out.flag)
+    return out
 
 
 def bin_particles(p: ParticleState, domain: Domain, spec: StreamSpec,
@@ -333,30 +326,12 @@ def bin_particles(p: ParticleState, domain: Domain, spec: StreamSpec,
         dim=1,
     )
     tid_p = _keys_from_pos(p.pos, domain, spec, tshape, vel=p.vel, dt=dt)
-    return _bin_rows(rows, tid_p, n, spec, nt, tshape)
-
-
-def _stream_flat(st: StreamState) -> torch.Tensor:
-    """stream -> rows [A*cap, F] in slot order."""
-    A, F, cap = st.stream.shape
-    return st.stream.permute(0, 2, 1).reshape(A * cap, F)
-
-
-def _compact_src(count: torch.Tensor, n: int, cap: int, A: int) -> torch.Tensor:
-    """[n] flat slot index of the i-th live particle (slot order)."""
-    count = count.to(torch.int64)
-    cum = torch.cumsum(count, 0)
-    b = torch.zeros((n + 1,), dtype=torch.int64, device=count.device)
-    b.index_add_(0, cum.clamp(0, n), torch.ones_like(cum))
-    a = torch.cumsum(b, 0)[:n].clamp(0, A - 1)
-    i = torch.arange(n, device=count.device)
-    start = cum - count
-    return (a * cap + (i - start[a])).clamp(0, A * cap - 1)
+    return _bin_rows(rows, tid_p, spec, nt, tshape)
 
 
 def unbin(st: StreamState, domain: Domain, spec: StreamSpec, n: int, D: int) -> ParticleState:
     """Stream -> ParticleState in the original particle order (id row)."""
-    rows = _stream_flat(st)[_compact_src(st.count, n, spec.cap, spec.A)]
+    rows, _ = sk.rebin_gather(st.stream, st.count, n, tile_geom(domain, spec), 0.0)
     out = rows[torch.argsort(rows[:, _id_row(D)].to(torch.int64), stable=True)]
     return ParticleState(
         pos=out[:, 0:D].contiguous(),
@@ -369,17 +344,14 @@ def unbin(st: StreamState, domain: Domain, spec: StreamSpec, n: int, D: int) -> 
 
 
 def _rebin_full(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec,
-                tshape, nt: int, n: int) -> StreamState:
-    """Re-bin the live slots, O(n): compact, key predictively, bin."""
-    D = cfg.dim
-    flat = _stream_flat(st)
-    src = _compact_src(st.count, n, spec.cap, spec.A)
-    live_rows = flat[src]
-    tid_p = _keys_from_pos(live_rows[:, :D], domain, spec, tshape,
-                           vel=live_rows[:, D:2 * D], dt=cfg.dt)
-    live = torch.arange(n, device=flat.device) < st.count.sum()
-    tid_p = torch.where(live, tid_p, nt)
-    return _bin_rows(flat, tid_p, n, spec, nt, tshape, row_idx=src)
+                tshape, nt: int, n: int, out: Optional[StreamState] = None) -> StreamState:
+    """Re-bin the live slots, O(n): compact and key them predictively
+    (``stream_kernels.rebin_gather``), then bin them (``_bin_rows``), into
+    ``out``'s tensors where given (``st`` itself: the compaction has read
+    the stream before the fill writes it)."""
+    rows, keys = sk.rebin_gather(st.stream, st.count, n, tile_geom(domain, spec),
+                                 _LOOKAHEAD * cfg.dt)
+    return _bin_rows(rows, keys, spec, nt, tshape, out=out)
 
 
 def overflow_count(pos, domain: Domain, spec: StreamSpec, vel=None, dt: float = 0.0) -> torch.Tensor:
@@ -426,7 +398,7 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
                    fused: bool = False):
     """Stage closures of the stream substep, on ``device``::
 
-      dep1(st)                   -> p2g_1 windows [A, 1+D, E^D]
+      dep1(st[, out])            -> p2g_1 windows [A, 1+D, E^D] (into out)
       halo_m(st, dep1v)          -> halo'd mass windows [A, 1, E^D]
       dep2(st, dep1v, hs_m)      -> combined momentum+force windows [A, D, E^D]
       halo_gblk(st, dep2v, hs_m) -> grid values [A, 1+D, E^D] (v rows, mass;
@@ -439,8 +411,8 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
                             cfg.pressure_floor, cfg.dynamic_viscosity], device, torch.float32)
     dtg = sk.gravity_step(cfg.dt, cfg.gravity)
 
-    def dep1(st):
-        return sk.deposit_p2g1(st.count, st.tid, st.stream, g)
+    def dep1(st, out=None):
+        return sk.deposit_p2g1(st.count, st.tid, st.stream, g, out)
 
     def halo_m(st, dep1v):
         return sk.halo_axes(dep1v[:, :1].contiguous(), st.count, st.nbr, g, 0, D)
@@ -508,16 +480,14 @@ def frame_inplace(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec
 
 
 def _rebin_into(st: StreamState, dep1, cfg, domain, spec, tshape, nt, n, stages) -> None:
-    """Re-bin ``st`` in place, carry the shell_drop / need_peak watermarks
-    and count the re-bin; the fused p2g_1 is stale after it and is
-    recomputed into ``dep1``."""
-    st2 = _rebin_full(st, cfg, domain, spec, tshape, nt, n)
-    for f in ("stream", "count", "tid", "flag", "nbr"):
-        getattr(st, f).copy_(getattr(st2, f))
+    """Re-bin ``st`` in place (``_rebin_full`` with ``st`` as its output),
+    carry the shell_drop / need_peak watermarks and count the re-bin; the
+    fused p2g_1 is stale after it and is redeposited into ``dep1``."""
+    st2 = _rebin_full(st, cfg, domain, spec, tshape, nt, n, out=st)
     st.shell_drop.copy_(torch.maximum(st.shell_drop, st2.shell_drop))
     st.need_peak.copy_(torch.maximum(st.need_peak, st2.need_peak))
     st.rebins.add_(1)
-    dep1.copy_(stages.dep1(st))
+    stages.dep1(st, dep1)
 
 
 def frame_binned(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec,

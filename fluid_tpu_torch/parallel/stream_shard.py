@@ -231,11 +231,11 @@ def _shard_state(st: StreamState, col, sspec: StreamShardSpec) -> ShardStreamSta
                             migrated=torch.zeros((1,), dtype=torch.int32, device=st.count.device))
 
 
-def _bin_local(rows, n_rows: int, sspec: StreamShardSpec, keys) -> ShardStreamState:
+def _bin_local(rows, sspec: StreamShardSpec, keys) -> ShardStreamState:
     """``_bin_rows`` on the local template with the ghost columns forced
     into the closure, plus the column tables and the halos' gate."""
     tshape = _local_tshape(sspec)
-    st = stx._bin_rows(rows, keys, n_rows, sspec.spec, math.prod(tshape), tshape,
+    st = stx._bin_rows(rows, keys, sspec.spec, math.prod(tshape), tshape,
                        occ_force=_ghost_mask(sspec, rows.device))
     return _shard_state(st, _col_table(st.tid, sspec), sspec)
 
@@ -358,18 +358,20 @@ def _sharded_rebin(states: List[ShardStreamState], cfg: Config,
     carry over; rows this re-bin cannot keep count into ``shell_drop``.
     Each shard's live count is read on the host, so the re-bin's row shape
     follows it (JAX needs the static ``live_cap`` shape instead)."""
-    spec, D = sspec.spec, cfg.dim
+    D = cfg.dim
     tshape = _local_tshape(sspec)
     nt, rs = math.prod(tshape), math.prod(tshape[1:])
     mcap = sspec.migrate_cap
+    g = stx.tile_geom(sspec.local_domain, sspec.spec)
     parts = []
     for d, ss in enumerate(states):
         st = ss.st
         live = int(st.count.sum())
         ncap = max(min(live, sspec.live_cap_rows), 1)  # one invalid row when empty
-        rows = stx._stream_flat(st)[stx._compact_src(st.count, ncap, spec.cap, spec.A)]
+        # the live rows in slot order and their local keys (nt past the live rows)
+        rows, keys = sk.rebin_gather(st.stream, st.count, ncap, g, stx._LOOKAHEAD * cfg.dt)
+        keys = keys.long()
         valid = torch.arange(ncap, device=ss.device) < live
-        keys = torch.where(valid, _local_keys(rows[:, :D], rows[:, D:2 * D], sspec, cfg.dt), nt)
         tx = keys // rs
         go_l, go_r = valid & (tx == 0), valid & (tx == sspec.ts + 1)
         sel_l, val_l = _extract_k(go_l, mcap)
@@ -398,7 +400,7 @@ def _sharded_rebin(states: List[ShardStreamState], cfg: Config,
         im[:, 0] -= torch.where(imv, float(sspec.shift(d)), 0.0)
         im_keys = torch.where(imv, _local_keys(im[:, :D], im[:, D:2 * D], sspec, cfg.dt), nt)
         rows_all = torch.cat([rows, im])
-        new = _bin_local(rows_all, rows_all.shape[0], sspec, torch.cat([keys, im_keys]))
+        new = _bin_local(rows_all, sspec, torch.cat([keys, im_keys]))
         old = ss.st
         new.st = dataclasses.replace(
             new.st,
@@ -467,7 +469,7 @@ def shard_stream(p: ParticleState, cfg: Config, sspec: StreamShardSpec,
         keys = _local_keys(rows[:, :D], rows[:, D:2 * D], sspec, cfg.dt)
         if size == 0:  # one row that lands in no tile
             rows, keys = rows.new_zeros((1, rows.shape[1])), keys.new_full((1,), nt)
-        out.append(_bin_local(rows, rows.shape[0], sspec, keys))
+        out.append(_bin_local(rows, sspec, keys))
     return out
 
 
@@ -476,13 +478,16 @@ def gather_stream(states: List[ShardStreamState], cfg: Config, sspec: StreamShar
     """Every shard's live slots back in one ParticleState in the original
     order, on the first shard's device.  Raises on particle loss or an
     exhausted budget (``shell_drop``)."""
-    D, spec = cfg.dim, sspec.spec
+    D = cfg.dim
+    g = stx.tile_geom(sspec.local_domain, sspec.spec)
     dev0 = states[0].device
     out = torch.zeros((n, 2 * D + D * D + 4), dtype=torch.float32, device=dev0)
     seen = 0
     for d, ss in enumerate(states):
         live = int(ss.st.count.sum())
-        rows = stx._stream_flat(ss.st)[stx._compact_src(ss.st.count, live, spec.cap, spec.A)].to(dev0)
+        if live == 0:
+            continue
+        rows = sk.rebin_gather(ss.st.stream, ss.st.count, live, g, 0.0)[0].to(dev0)
         rows[:, 0] += sspec.shift(d)  # back to global x
         out[rows[:, stx._id_row(D)].long()] = rows
         seen += live

@@ -243,7 +243,8 @@ def test_frame_body_makes_no_host_read(backend, monkeypatch):
     fg.body(fg.state.clone(), graph.warm_branch)
     mode = NoHostRead()
     for mod, names in ((sk, ("deposit_p2g1_plain", "deposit_p2g2_plain", "collect_plain",
-                             "halo_axes_plain", "halo_gblk_plain")),
+                             "halo_axes_plain", "halo_gblk_plain", "rebin_gather_plain",
+                             "rebin_fill_plain")),
                        (pk, ("deposit_plain", "p2g2_plain", "collect_plain"))):
         for name in names:
             monkeypatch.setattr(mod, name, _paused(mode, getattr(mod, name)))

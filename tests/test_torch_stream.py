@@ -18,6 +18,7 @@ from fluid_tpu.ops import stream_transfer as jstx
 from fluid_tpu.state import ParticleState as JParticles
 from fluid_tpu_torch import state as tstate
 from fluid_tpu_torch import step as tstep
+from fluid_tpu_torch.ops import stream_kernels as sk
 from fluid_tpu_torch.ops import stream_transfer as tstx
 
 torch.set_num_threads(1)
@@ -180,3 +181,125 @@ def test_shell_drop_watermark_on_budget_exhaustion():
     st = tstx.bin_particles(p, dom, tstx.StreamSpec(active=2))
     assert int(st.count.sum()) == 8, "no particle loss — only relays dropped"
     assert int(st.shell_drop[0]) > 0, "relay drop must set the watermark"
+
+
+def _keys_before(pos, dom, spec, tshape, vel, dt):
+    """The predictive keys as the re-bin computed them before its kernels."""
+    shape, origin = torch.as_tensor(dom.shape), torch.as_tensor(dom.origin)
+
+    def _cell(x):
+        return torch.minimum((torch.floor(x).to(torch.int64) - origin).clamp_min(0), shape - 1)
+
+    T, h = spec.tile, spec.halo
+    cell = _cell(pos)
+    ct = _cell(pos + torch.clamp(vel * (6.0 * dt), -1.0, 1.0)) // T
+    lc = cell - ct * T
+    kt = torch.where((lc >= 1 - h) & (lc <= T - 2 + h), ct, cell // T)
+    key = kt[:, 0]
+    for d in range(1, len(tshape)):
+        key = key * tshape[d] + kt[:, d]
+    return key
+
+
+def _rebin_before(st, cfg, dom, spec, tshape, nt, n):
+    """The re-bin as it was before it wrote in place: the live slots
+    gathered from the flat slot rows, keyed, sorted, then the slot rows
+    gathered, masked and transposed into a new state."""
+    A, cap, D = spec.A, spec.cap, cfg.dim
+    flat = st.stream.permute(0, 2, 1).reshape(A * cap, -1)
+    count = st.count.to(torch.int64)
+    cum = torch.cumsum(count, 0)
+    b = torch.zeros((n + 1,), dtype=torch.int64)
+    b.index_add_(0, cum.clamp(0, n), torch.ones_like(cum))
+    a = torch.cumsum(b, 0)[:n].clamp(0, A - 1)
+    src = (a * cap + (torch.arange(n) - (cum - count)[a])).clamp(0, A * cap - 1)
+    live_rows = flat[src]
+    keys = _keys_before(live_rows[:, :D], dom, spec, tshape, live_rows[:, D:2 * D], cfg.dt)
+    keys = torch.where(torch.arange(n) < st.count.sum(), keys, nt)
+
+    order = torch.argsort(keys, stable=True)
+    start = torch.searchsorted(keys[order], torch.arange(nt + 2), right=False)
+    count_t = (start[1:] - start[:-1])[:nt]
+    occ_p = count_t > 0
+    occ = tstx._active_set(occ_p, tshape)
+    shell = occ & ~occ_p
+    rank_p = torch.cumsum(occ_p.to(torch.int64), 0) - 1
+    rank_s = occ_p.sum() + torch.cumsum(shell.to(torch.int64), 0) - 1
+    occ_rank = torch.where(occ_p, rank_p, rank_s)
+    act_of_tile = torch.where(occ & (occ_rank < A), occ_rank, A)
+    tid_act = torch.full((A,), -1, dtype=torch.int64)
+    tid_act.scatter_reduce_(0, act_of_tile.clamp(0, A - 1),
+                            torch.where(act_of_tile < A, torch.arange(nt), -1), "amax",
+                            include_self=True)
+    tid_act = torch.where(tid_act < 0, nt, tid_act)
+    count_act = torch.clamp_max(torch.cat([count_t, count_t.new_zeros(1)])[tid_act.clamp(0, nt)], cap)
+    s_io = torch.arange(cap)
+    srows = flat[src[order]]
+    valid = s_io[None, :] < count_act[:, None]
+    bidx = (start[:-1][tid_act.clamp(0, nt)][:, None] + s_io[None, :]).clamp(0, n - 1)
+    need = occ.sum().reshape(1).to(torch.int32)
+    return tstx.StreamState(
+        stream=torch.where(valid[..., None], srows[bidx], 0.0).permute(0, 2, 1).contiguous(),
+        count=count_act.to(torch.int32), tid=tid_act.to(torch.int32),
+        flag=torch.zeros((A, cap)), nbr=tstx._nbr_table(tid_act, tshape, nt, A),
+        shell_drop=torch.clamp_min(need - A, 0), need_peak=need,
+        rebins=torch.zeros((1,), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("case", ["moved", "full-tile", "every-slot", "tight-budget"])
+def test_rebin_in_place_equals_rebin_before(dim, case):
+    """``_rebin_into`` (the plain versions of its kernels) leaves the state,
+    field for field, equal to the re-bin as it was before it wrote in place
+    (``_rebin_before`` plus copies), carries the watermarks, counts the
+    re-bin, and redeposits p2g_1 into the given windows.  Cases: particles
+    moved up to 3 cells, n below A cap; one tile filled to cap; n = A cap,
+    every slot (``frame_binned``'s default); an active budget below the
+    needed-relay closure, so shell tiles drop."""
+    n = 160 if dim == 2 else 256
+    cfg, pos, vel, C, dom = _case(dim, n, seed=5, vel_scale=2.0)
+    tshape, nt = tstx._tile_geometry(dom, tstx.StreamSpec())
+    cap = 128
+    if case == "full-tile":  # the tile at cells [12, 16) of every axis, still
+        rng = np.random.default_rng(1)
+        pos[:cap] = rng.uniform(12.5, 15.5, (cap, dim)).astype(np.float32)
+        vel[:cap] = 0.0
+    p = tstate.from_numpy(pos, vel, C, device="cpu")
+    spec = tstx.StreamSpec(cap=cap, active=nt)
+    if case == "tight-budget":
+        full = tstx.bin_particles(p, dom, spec, dt=cfg.dt)
+        occ = int((full.count > 0).sum())
+        spec = tstx.StreamSpec(cap=cap, active=(occ + int(full.need_peak[0])) // 2)
+    st = tstx.bin_particles(p, dom, spec, dt=cfg.dt)
+    A = spec.A
+    g = torch.Generator().manual_seed(dim)
+    moved = (torch.rand((A, dim, cap), generator=g) * 6.0 - 3.0)
+    if case == "full-tile":
+        moved[:, :, :] = 0.0
+        moved[st.count < cap] = torch.rand((int((st.count < cap).sum()), dim, cap), generator=g) * 2.0 - 1.0
+    st.stream[:, :dim] = (st.stream[:, :dim] + moved).clamp(1.0, 15.0)
+    st.flag[:, ::3] = 2.0
+    st.need_peak.fill_(1)
+    st.rebins.fill_(5)
+    n_arg = A * cap if case == "every-slot" else n
+
+    want = _rebin_before(st, cfg, dom, spec, tshape, nt, n_arg)
+    got = st.clone()
+    stages = tstx.substep_stages(cfg, dom, spec, "cpu", fused=True)
+    dep1 = torch.full((A, 1 + dim, spec.E**dim), 7.0)
+    sk.reset_launches()
+    tstx._rebin_into(got, dep1, cfg, dom, spec, tshape, nt, n_arg, stages)
+    for k in ("stream", "count", "tid", "flag", "nbr"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert torch.equal(got.shell_drop, want.shell_drop)
+    assert torch.equal(got.need_peak, want.need_peak) and int(got.need_peak[0]) > 1
+    assert int(got.rebins[0]) == 6
+    assert torch.equal(dep1, stages.dep1(want))
+    assert not any(sk.LAUNCHES.values())  # the plain versions launch nothing
+    assert not torch.equal(got.tid, st.tid) or not torch.equal(got.count, st.count)
+    if case == "tight-budget":
+        assert int(got.shell_drop[0]) > 0
+    else:
+        assert int(got.count.sum()) == n
+    if case == "full-tile":
+        assert int(got.count.max()) == cap

@@ -348,3 +348,85 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         sk.halo_gblk(r["d2"], r["d1"][:, :2].contiguous(), st.count, st.nbr, dtg, g)
     assert all(v == 0 for v in sk.LAUNCHES.values())  # plain versions count nothing
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_deposit_p2g1_into_out_equals_fresh(dim):
+    """``deposit_p2g1`` with an output tensor writes into it and returns it,
+    equal to the windows it returns without one."""
+    r = _reference(dim)
+    st, g = r["tst"], r["geom"]
+    out = torch.full((st.count.shape[0], 1 + dim, g.ncell), float("nan"))
+    got = sk.deposit_p2g1(st.count, st.tid, st.stream, g, out)
+    assert got is out
+    assert torch.equal(out, sk.deposit_p2g1(st.count, st.tid, st.stream, g))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("rows", ["past-live", "below-live"])
+def test_rebin_gather_compacts_and_keys_live_slots(dim, rows):
+    """``rebin_gather``: the live slots in slot order and their predictive
+    keys (``_keys_from_pos`` at the frame's dt, as int32); past the live
+    count, zero rows keyed nt; with fewer rows than live slots, the first
+    ones.  ``rebin_fill`` then rebuilds the binned stream from them."""
+    r = _reference(dim)
+    st, g, cfg, dom, tspec = r["tst"], r["geom"], r["cfg"], r["dom"], r["tspec"]
+    live = int(st.count.sum())
+    n = live + 40 if rows == "past-live" else live - 30
+    got_rows, got_keys = sk.rebin_gather(st.stream, st.count, n, g, 6.0 * cfg.dt)
+    a_idx, s_idx = (torch.arange(g.cap)[None, :] < st.count[:, None]).nonzero(as_tuple=True)
+    want = st.stream.permute(0, 2, 1)[a_idx, s_idx][:n]
+    m = want.shape[0]
+    assert got_rows.shape == (n, g.F) and got_keys.dtype == torch.int32
+    assert torch.equal(got_rows[:m], want) and not got_rows[m:].any()
+    tshape, nt = tstx._tile_geometry(dom, tspec)
+    keys = tstx._keys_from_pos(want[:, :dim], dom, tspec, tshape, vel=want[:, dim:2 * dim], dt=cfg.dt)
+    assert torch.equal(got_keys[:m], keys.to(torch.int32)) and bool((got_keys[m:] == nt).all())
+    if rows == "past-live":  # the stream was binned by these keys: filling from them restores it
+        order = torch.argsort(got_keys, stable=True)
+        start = torch.cumsum(st.count.long(), 0) - st.count.long()
+        stream, flag = torch.full_like(st.stream, 5.0), torch.full_like(st.flag, 2.0)
+        sk.rebin_fill(got_rows, order, start, st.count, stream, flag)
+        assert torch.equal(stream, st.stream) and not flag.any()
+    assert not any(sk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("bad", ["gather_count_dtype", "gather_stream_shape", "gather_device",
+                                 "gather_no_rows", "fill_order_dtype", "fill_start_shape",
+                                 "fill_rows_width", "fill_flag_shape", "fill_layout", "fill_device",
+                                 "p2g1_out_shape", "p2g1_out_dtype"])
+def test_rebin_wrappers_reject_bad_arguments(bad):
+    """The re-bin's wrappers and ``deposit_p2g1``'s output reject a wrong
+    dtype (TypeError), shape, layout or device (ValueError), and launch
+    nothing."""
+    r = _reference(3)
+    st, g = r["tst"], r["geom"]
+    A, n = st.count.shape[0], int(st.count.sum())
+    rows = torch.zeros((n, g.F))
+    order, start = torch.arange(n), torch.zeros((A,), dtype=torch.int64)
+    stream, flag = torch.empty_like(st.stream), torch.empty_like(st.flag)
+    calls = {
+        "gather_count_dtype": lambda: sk.rebin_gather(st.stream, st.count.long(), n, g, 0.1),
+        "gather_stream_shape": lambda: sk.rebin_gather(st.stream[:, 1:].contiguous(), st.count, n,
+                                                       g, 0.1),
+        "gather_device": lambda: sk.rebin_gather(st.stream.to("meta"), st.count.to("meta"), n, g,
+                                                 0.1),
+        "gather_no_rows": lambda: sk.rebin_gather(st.stream, st.count, 0, g, 0.1),
+        "fill_order_dtype": lambda: sk.rebin_fill(rows, order.int(), start, st.count, stream, flag),
+        "fill_start_shape": lambda: sk.rebin_fill(rows, order, start[1:], st.count, stream, flag),
+        "fill_rows_width": lambda: sk.rebin_fill(rows[:, 1:].contiguous(), order, start, st.count,
+                                                 stream, flag),
+        "fill_flag_shape": lambda: sk.rebin_fill(rows, order, start, st.count, stream, flag[1:]),
+        "fill_layout": lambda: sk.rebin_fill(rows, order, start, st.count,
+                                             stream.transpose(1, 2).contiguous().transpose(1, 2),
+                                             flag),
+        "fill_device": lambda: sk.rebin_fill(*(t.to("meta") for t in (rows, order, start, st.count,
+                                                                       stream, flag))),
+        "p2g1_out_shape": lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g,
+                                                  torch.empty((A, 1, g.ncell))),
+        "p2g1_out_dtype": lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g,
+                                                  torch.empty((A, 4, g.ncell), dtype=torch.float64)),
+    }
+    with pytest.raises(TypeError if bad.endswith("dtype") else ValueError):
+        calls[bad]()
+    assert not any(sk.LAUNCHES.values())

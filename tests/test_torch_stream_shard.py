@@ -108,12 +108,12 @@ def test_bin_rows_occ_force_equals_jax(dim):
     spec = tstx.StreamSpec(active=js.A)
     want = jstx._bin_rows(jnp.asarray(rows), jnp.asarray(keys, jnp.int32), n, js, nt, tshape,
                           occ_force=jnp.asarray(force))
-    got = tstx._bin_rows(torch.as_tensor(rows), torch.as_tensor(keys), n, spec, nt, tshape,
+    got = tstx._bin_rows(torch.as_tensor(rows), torch.as_tensor(keys), spec, nt, tshape,
                          occ_force=torch.as_tensor(force))
     ref = tstx.stream_state_from_numpy({k: np.asarray(getattr(want, k)) for k in ST_KEYS}, spec)
     for key in ST_KEYS:
         assert torch.equal(getattr(got, key), getattr(ref, key)), key
-    plain = tstx._bin_rows(torch.as_tensor(rows), torch.as_tensor(keys), n, spec, nt, tshape)
+    plain = tstx._bin_rows(torch.as_tensor(rows), torch.as_tensor(keys), spec, nt, tshape)
     assert int(got.need_peak[0]) > int(plain.need_peak[0])
 
 
