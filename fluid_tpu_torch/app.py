@@ -22,6 +22,12 @@ or over N CPU shards with ``--cpu``; it has no timing overlay.
 The state lives on the card unless ``--cpu`` (``device="cpu"``) is given;
 without a card the app exits with an error, it never falls back to the CPU.
 
+The stream ``Session`` runs strict, at the slot cap ``default_spec`` sizes
+from the scene: in 2D (four particles a cell, sixteen cells a tile) 256
+slots, room for the ring the mouse packs when it pushes into the block; in
+3D 128.  A lost particle is never silent: a re-bin that asks a tile for
+more than its cap raises ``RuntimeError`` at the frame's strict check.
+
 Usage::
 
     python -m fluid_tpu_torch.app --dim 2            # interactive, q quits

@@ -76,15 +76,27 @@ class StreamSpec:
         return self.active
 
 
+# A tile's slot headroom over its rest-density estimate, in cells at rest
+# density: a packed ring under the mouse or a splash fills a tile of few
+# cells far above its average (2D, 16 cells: 205 of an estimate of 64 in the
+# cap sweep), a tile of many cells less so.
+_CAP_HEADROOM_CELLS = 48
+
+
 def default_spec(cfg: Config, domain: Domain, n: int) -> StreamSpec:
-    """Active budget like ``fluid_tpu``'s: 32x the rest-density tile
+    """T=4, halo 2.  Slot cap: the rest-density tile estimate
+    ``rest_density * T**dim`` plus ``_CAP_HEADROOM_CELLS`` cells' worth,
+    rounded up to whole warps (``check_cap``): 128 for the 3D reference
+    scene, 256 for the 2D one, whose tiles have a quarter of the cells.
+    Active budget like ``fluid_tpu``'s: 32x the rest-density tile
     estimate, capped by the tile count.  The 110k cap exists for the TPU's
     scalar memory; it is kept only so both packages size A alike."""
     T = 4
     per_tile = cfg.rest_density * T**cfg.dim
     occupied = max(2048, int(n / max(per_tile, 1.0)) * 32)
     nt = math.prod(s // T for s in domain.shape)
-    return StreamSpec(tile=T, cap=128, halo=2, active=min(occupied, nt, 110_000))
+    cap = 32 * math.ceil(cfg.rest_density * (T**cfg.dim + _CAP_HEADROOM_CELLS) / 32)
+    return StreamSpec(tile=T, cap=cap, halo=2, active=min(occupied, nt, 110_000))
 
 
 def _id_row(D: int) -> int:
@@ -99,7 +111,9 @@ class StreamState:
     stream [A, F, cap] f32; count, tid [A] int32 (tid == nt: unused entry);
     flag [A, cap] f32 drift verdicts of the last collect (2.0 = re-bin);
     nbr [2D, A] int32 +/- face neighbours' active index (A = none);
-    shell_drop, need_peak, rebins [1] int32 watermarks / counter.
+    shell_drop, need_peak, fill_peak, rebins [1] int32 watermarks / counter:
+    fill_peak is the most particles a binning asked one tile to hold, taken
+    before the clip to cap (above cap: particles were lost).
     """
 
     stream: torch.Tensor
@@ -109,6 +123,7 @@ class StreamState:
     nbr: torch.Tensor
     shell_drop: torch.Tensor
     need_peak: torch.Tensor
+    fill_peak: torch.Tensor
     rebins: torch.Tensor
 
     def clone(self) -> "StreamState":
@@ -123,7 +138,8 @@ class StreamState:
 def stream_state_from_numpy(d: dict, spec: StreamSpec, device=None) -> StreamState:
     """A ``fluid_tpu`` StreamState as numpy (``pair=False``; layout
     ``stream [NG, F, G*cap]``, ``flag [NG, G, cap]``) -> the port's layout.
-    ``nbrg`` (gated tables) has no counterpart and is ignored."""
+    ``nbrg`` (gated tables) has no counterpart and is ignored; without a
+    ``fill_peak`` (``fluid_tpu`` keeps none) it is the fullest tile's count."""
     A, cap = spec.A, spec.cap
     stream = np.asarray(d["stream"], np.float32)
     NG, F, GL = stream.shape
@@ -143,6 +159,7 @@ def stream_state_from_numpy(d: dict, spec: StreamSpec, device=None) -> StreamSta
         nbr=t(d["nbr"], torch.int32),
         shell_drop=t(d["shell_drop"], torch.int32),
         need_peak=t(d["need_peak"], torch.int32),
+        fill_peak=t(d.get("fill_peak", [np.max(d["count"], initial=0)]), torch.int32),
         rebins=t(d["rebins"], torch.int32),
     )
 
@@ -263,9 +280,10 @@ def _bin_rows(rows, tid_of_particle, spec: StreamSpec, nt: int, tshape, occ_forc
     backend's ghost columns, filled by the exchange); they bin as
     zero-count actives.  The slot structure (stream, count, tid, flag,
     nbr) is written into ``out``'s tensors where given, which the result
-    shares, else into new ones (rebins 0); the result's shell_drop and
-    need_peak are this binning's.  The tile bookkeeping is PyTorch over the
-    grid's tiles; ``stream_kernels.rebin_fill`` writes the slots."""
+    shares, else into new ones (rebins 0); the result's shell_drop,
+    need_peak and fill_peak are this binning's.  The tile bookkeeping is
+    PyTorch over the grid's tiles; ``stream_kernels.rebin_fill`` writes the
+    slots."""
     cap, A = spec.cap, spec.A
     dev = rows.device
     order = torch.argsort(tid_of_particle, stable=True)
@@ -293,6 +311,7 @@ def _bin_rows(rows, tid_of_particle, spec: StreamSpec, nt: int, tshape, occ_forc
     act_start = start[:-1][tid_act.clamp(0, nt)]
     need = occ.sum().reshape(1).to(torch.int32)
     drop = torch.clamp_min(need - A, 0)
+    fill = count_t.max().reshape(1).to(torch.int32)
 
     if out is None:
         i32 = dict(dtype=torch.int32, device=dev)
@@ -301,10 +320,10 @@ def _bin_rows(rows, tid_of_particle, spec: StreamSpec, nt: int, tshape, occ_forc
             count=torch.empty((A,), **i32), tid=torch.empty((A,), **i32),
             flag=torch.empty((A, cap), dtype=torch.float32, device=dev),
             nbr=torch.empty((2 * len(tshape), A), **i32), shell_drop=drop, need_peak=need,
-            rebins=torch.zeros((1,), **i32),
+            fill_peak=fill, rebins=torch.zeros((1,), **i32),
         )
     else:
-        out = dataclasses.replace(out, shell_drop=drop, need_peak=need)
+        out = dataclasses.replace(out, shell_drop=drop, need_peak=need, fill_peak=fill)
     out.count.copy_(count_act)
     out.tid.copy_(tid_act)
     out.nbr.copy_(_nbr_table(tid_act, tshape, nt, A))
@@ -481,11 +500,13 @@ def frame_inplace(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec
 
 def _rebin_into(st: StreamState, dep1, cfg, domain, spec, tshape, nt, n, stages) -> None:
     """Re-bin ``st`` in place (``_rebin_full`` with ``st`` as its output),
-    carry the shell_drop / need_peak watermarks and count the re-bin; the
-    fused p2g_1 is stale after it and is redeposited into ``dep1``."""
+    carry the shell_drop / need_peak / fill_peak watermarks and count the
+    re-bin; the fused p2g_1 is stale after it and is redeposited into
+    ``dep1``."""
     st2 = _rebin_full(st, cfg, domain, spec, tshape, nt, n, out=st)
     st.shell_drop.copy_(torch.maximum(st.shell_drop, st2.shell_drop))
     st.need_peak.copy_(torch.maximum(st.need_peak, st2.need_peak))
+    torch.maximum(st.fill_peak, st2.fill_peak, out=st.fill_peak)
     st.rebins.add_(1)
     stages.dep1(st, dep1)
 

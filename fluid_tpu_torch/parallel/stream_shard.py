@@ -406,6 +406,7 @@ def _sharded_rebin(states: List[ShardStreamState], cfg: Config,
             new.st,
             shell_drop=torch.maximum(old.shell_drop, new.st.shell_drop + dropped),
             need_peak=torch.maximum(old.need_peak, new.st.need_peak),
+            fill_peak=torch.maximum(old.fill_peak, new.st.fill_peak),
             rebins=old.rebins + 1,
         )
         new.migrated = ss.migrated + shipped

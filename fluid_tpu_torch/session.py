@@ -23,7 +23,8 @@ Each call records host spans in the process's recorder
 (``utils/timing.py``): ``frame`` and ``run`` (their parts ``mouse``,
 ``replay`` and ``check``), ``render`` (``histogram``, ``read``,
 ``ascii``), ``sync`` (``block_until_ready``), ``restore``, ``particles``
-and ``snapshot``.
+and ``snapshot``; the strict check also records the stream's ``fill_peak``
+watermark beside its cap as a counter sample.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from .ops import tiled_transfer as tt
 from .state import FIELDS, ParticleState
 from .utils.graph import FrameGraph
 from .utils.platform import resolve_device
-from .utils.timing import span
+from .utils.timing import recorder, span
 
 
 def default_backend(device=None) -> str:
@@ -84,7 +85,8 @@ class Session:
         "tiled"; None is the backend's default ("pallas" always uses
         ``tiled_transfer.default_spec``, as in JAX)
     strict : after every frame check particle conservation and the
-        active-budget watermark (stream only; one small device read)
+        active-budget watermark (stream only; one small device read, which
+        also fetches the tile-fill watermark for the recorder)
     device : where the state lives (None: ``default_device()``, the card)
     """
 
@@ -152,13 +154,15 @@ class Session:
                     self._check(f"frame {self._frames - 1}")
 
     def _check(self, where: str) -> None:
-        live = self.live_count()
+        st = self._st
+        live, drops, fill = torch.cat([st.count.sum(dtype=torch.int32).reshape(1),
+                                       st.shell_drop, st.fill_peak]).tolist()
+        recorder().count("fill_peak", fill, self.spec.cap)
         if live != self.n:
             raise RuntimeError(
                 f"particle loss at {where}: sum(count)={live} != n={self.n} — "
                 f"a re-bin overflowed the slot structure (raise spec.active/cap)"
             )
-        drops = self.shell_drop()
         if drops:
             raise RuntimeError(
                 f"active-budget exhaustion at {where}: {drops} needed relay "
@@ -231,6 +235,11 @@ class Session:
     def need_peak(self) -> int:
         """Watermark of the needed-relay closure size (the budget demand)."""
         return int(self._st.need_peak.max()) if self.backend == "stream" else 0
+
+    def fill_peak(self) -> int:
+        """Watermark of the most particles a binning asked one tile to hold,
+        before the clip to ``spec.cap`` (above the cap: particles were lost)."""
+        return int(self._st.fill_peak.max()) if self.backend == "stream" else 0
 
     def rebins(self) -> int:
         """Drift re-bins since the initial bin."""

@@ -23,15 +23,19 @@ program itself does, on one clock:
   node (``frame_begin``, ``frame_end``) and one each side of every IF body
   (``rebin_begin``, ``rebin_end``), so each replay and each re-bin that
   fires stamps itself;
+* counter samples, ``count(name, value, limit)``: a value the program has
+  read anyway (the strict check's read of the stream's ``fill_peak``
+  watermark beside its cap), stamped with the host clock into a ring of its
+  own;
 * anchors, an eager stamp between two synchronizes timed on the host clock
   (the tightest of a few), taken when a device's ring is made and at each
   read; a linear fit of the anchors maps the device's clock onto the
   host's (the two drift apart by milliseconds over minutes).
 
-``records(t0, t1)`` gives a window's host spans and device spans (``frame``
-and ``rebin``, begin to end) on the host clock; ``idle_by_span(t0, t1)``
-the window's time with no frame graph on the device, put down to the
-innermost host span then in flight.  ``tracing(False)`` turns the recorder
+``records(t0, t1)`` gives a window's host spans, device spans (``frame``
+and ``rebin``, begin to end) and counter samples on the host clock;
+``idle_by_span(t0, t1)`` the window's time with no frame graph on the
+device, put down to the innermost host span then in flight.  ``tracing(False)`` turns the recorder
 off: spans become one shared no-op and graphs captured after it hold no
 stamps.
 """
@@ -42,6 +46,7 @@ import array
 import ctypes
 import dataclasses
 import time
+from collections import deque
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -119,6 +124,7 @@ DEVICE_SPANS = (("frame", FRAME_BEGIN, FRAME_END), ("rebin", REBIN_BEGIN, REBIN_
 BETWEEN = "between calls"
 SPANS = 1 << 17  # host records: 50 s of the app loop, ~10k frames of 9 spans
 STAMPS = 1 << 17  # device stamps a device: 2 a frame and 2 a re-bin
+COUNTS = 1 << 15  # counter samples: one a strict check, ~12k in 50 s of the 2D app loop
 ANCHOR_TRIES = 8  # eager stamps an anchor takes the tightest of
 ANCHORS_KEPT = 64  # the first anchor and the latest others
 
@@ -174,6 +180,8 @@ class Records:
     anchors : anchors the fit rests on (all devices)
     anchor_ns : the widest anchor's half interval: how far its stamp can
         lie from the host time it is given
+    counts : (name, time, value, limit) of the counter samples taken in
+        the window, by time
     """
 
     spans: list
@@ -184,6 +192,7 @@ class Records:
     residual_ns: float = 0.0
     anchors: int = 0
     anchor_ns: float = 0.0
+    counts: list = dataclasses.field(default_factory=list)
 
 
 def fit_clock(anchors) -> Tuple[Callable, float]:
@@ -365,6 +374,7 @@ class Recorder:
         self._names: list = []
         self._spans: dict = {}
         self._rings: dict = {}
+        self._counts: deque = deque(maxlen=COUNTS)  # (name, time, value, limit)
 
     # -- host spans ---------------------------------------------------------
 
@@ -405,6 +415,16 @@ class Recorder:
         names = self._names
         return [(names[c], int(d), int(x), int(y))
                 for c, d, x, y in zip(code[keep], depth[keep], a[keep], b[keep])]
+
+    # -- counter samples ----------------------------------------------------
+
+    def count(self, name: str, value: int, limit: int = 0, at: Optional[int] = None) -> None:
+        """A sample of counter ``name``: ``value`` (and the ``limit`` it is
+        held to) at ``at`` (perf_counter_ns; None: now); nothing while the
+        recorder is off.  The ring keeps the latest ``COUNTS``."""
+        if self.on:
+            self._counts.append((name, time.perf_counter_ns() if at is None else int(at),
+                                 int(value), int(limit)))
 
     # -- device stamps ------------------------------------------------------
 
@@ -448,12 +468,13 @@ class Recorder:
     # -- readout ------------------------------------------------------------
 
     def records(self, t0: Optional[int] = None, t1: Optional[int] = None) -> Records:
-        """The host and device spans that overlap [t0, t1] (perf_counter_ns;
-        None: unbounded)."""
+        """The host and device spans that overlap [t0, t1] and the counter
+        samples taken in it (perf_counter_ns; None: unbounded)."""
         t0 = -(1 << 62) if t0 is None else int(t0)
         t1 = 1 << 62 if t1 is None else int(t1)
         device, *stamps = self._device_records(t0, t1)
-        return Records(self._host_spans(t0, t1), device, self.dropped, *stamps)
+        return Records(self._host_spans(t0, t1), device, self.dropped, *stamps,
+                       counts=[c for c in self._counts if t0 <= c[1] <= t1])
 
     def idle_by_span(self, t0: int, t1: int) -> Optional[dict]:
         """path -> seconds of [t0, t1] with no frame graph on the device, by

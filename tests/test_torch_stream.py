@@ -243,6 +243,7 @@ def _rebin_before(st, cfg, dom, spec, tshape, nt, n):
         count=count_act.to(torch.int32), tid=tid_act.to(torch.int32),
         flag=torch.zeros((A, cap)), nbr=tstx._nbr_table(tid_act, tshape, nt, A),
         shell_drop=torch.clamp_min(need - A, 0), need_peak=need,
+        fill_peak=count_t.max().reshape(1).to(torch.int32),
         rebins=torch.zeros((1,), dtype=torch.int32))
 
 
@@ -280,6 +281,7 @@ def test_rebin_in_place_equals_rebin_before(dim, case):
     st.stream[:, :dim] = (st.stream[:, :dim] + moved).clamp(1.0, 15.0)
     st.flag[:, ::3] = 2.0
     st.need_peak.fill_(1)
+    st.fill_peak.fill_(1)
     st.rebins.fill_(5)
     n_arg = A * cap if case == "every-slot" else n
 
@@ -293,6 +295,7 @@ def test_rebin_in_place_equals_rebin_before(dim, case):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
     assert torch.equal(got.shell_drop, want.shell_drop)
     assert torch.equal(got.need_peak, want.need_peak) and int(got.need_peak[0]) > 1
+    assert torch.equal(got.fill_peak, want.fill_peak) and int(got.fill_peak[0]) > 1
     assert int(got.rebins[0]) == 6
     assert torch.equal(dep1, stages.dep1(want))
     assert not any(sk.LAUNCHES.values())  # the plain versions launch nothing

@@ -160,6 +160,11 @@ STRETCH = [("frame", 550e6, 560e6), ("rebin", 600e6, 601e6), ("rebin", 700e6, 70
            ("rebin", 900e6, 1100e6)]
 
 
+# fill_peak samples (time, value) of the strict checks, cap 128: two in the
+# traced stretch, the fuller ones outside it
+FILLS = [(400_000_000, 300), (600_000_000, 90), (800_000_000, 100), (1_100_000_000, 200)]
+
+
 def _synthetic(monkeypatch, frames=2, base=1_200_000_000, period=450):
     """A recorder holding ``frames`` app frames after a ``particles`` span,
     and the next ``particles`` span; its device records synthetic: the app
@@ -169,6 +174,8 @@ def _synthetic(monkeypatch, frames=2, base=1_200_000_000, period=450):
     for k in range(frames):
         _app_frame(rec, base + k * period)
     rec.record("particles", base + frames * period, base + frames * period + 50)
+    for at, fill in FILLS:
+        rec.count("fill_peak", fill, 128, at=at)
     device = STRETCH + [("frame", float(base + k * period + 125), float(base + k * period + 380))
                         for k in range(frames)]
 
@@ -214,6 +221,7 @@ WANT = {
     "session_idle_ms.interactive": 65e-6,
     "frame_device_ms.interactive": 255e-6,
     "rebin_device_ms.batch": (1_000_000 + 500_000) / 3 * 1e-6,
+    "tile_fill_peak.interactive": 100 / 128 * 100.0,
 }
 
 
