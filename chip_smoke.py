@@ -26,12 +26,22 @@ counters over the same frame run eagerly (``replay_launches``).
             window geometry with E != 2T); halo_gblk matches its plain
             version (v rows 1e-6 relative, the mass row and the zero-count
             tiles equal), also at E != 2T; the deposits and the fused
-            collect are bit-equal across two launches; the unfused collect
-            and a copy of each halo output's size are timed beside them.
+            collect are bit-equal across two launches; the collect is
+            timed as the frame launches it, into the state's own stream and
+            flag; the unfused collect and a copy of each halo output's size
+            are timed beside them.  The collect in place on the 1M dam at
+            caps 128 and 256 (every tile), the slots past each tile's count
+            and every flag seeded with a sentinel: rows within 1e-5 of
+            plain, flags equal, the sentinel untouched past the count,
+            bit-equal to the out-of-place launch and across two launches.
+            The same checks at cap 256 on tiles past one collect chunk (128
+            slots), which K3 walks chunk by chunk: the 2D reference scene
+            after the app's centroid mouse frame, and a 3D dam packed 2x.
             Then the deposits, halo_gblk and the fused collect, checked the
             same way, at 3D specs whose blocks need more than 48 KB of
             shared memory (cap 256; tile 8 at caps 128 and 256) and at caps
-            past 256, walked in chunks of 256 slots, on the whole 1M dam
+            past 256, walked in chunks of 256 slots (the collect: 128), on
+            the whole 1M dam
             (tile 8 at cap 1024, timed; tile 4 at cap 512)
    rebin    the re-bin's kernels (csrc/rebin_kernels.cu) on the 1M dam at
             the benchmark's layout (T=4, cap 256, A = every tile) after 40
@@ -301,7 +311,8 @@ def particle_ops(kind: str, D: int, valid: int, taps: int | None = None) -> int:
 def stream_bounds(st, g, D: int) -> dict:
     """(bytes, ops) of each stream kernel on this state: each input read
     once (only the valid slots of the stream, only the windows of occupied
-    tiles where an empty tile reads none), each output written once.  The
+    tiles where an empty tile reads none), each output written once (the
+    collect's stream and flag: only the valid slots, in place).  The
     halo has one entry per launch kind: the mass halo (CH = 1, passes
     [0, D)) and the m+f halo (CH = D, passes [0, D-1)), each reading the
     count, the face tables and its occupied input windows (the gate), and
@@ -324,7 +335,7 @@ def stream_bounds(st, g, D: int) -> dict:
                          + A * D * nc * F32,
                          particle_ops("p2g2", D, valid) + occ * D * nc),
         "collect": (valid * (D + 2) * F32 + occ * (1 + D) * nc * F32 + tiles
-                    + (A * g.F * g.cap + A * g.cap + A * (1 + D) * nc) * F32,
+                    + (valid * (g.F + 1) + A * (1 + D) * nc) * F32,
                     particle_ops("collect", D, valid) + particle_ops("p2g1", D, valid)),
         "halo_mass": halo(1, D),
         "halo_mf": halo(D, D - 1),
@@ -414,19 +425,25 @@ def dam_1m(device, n: int = N_1M, seed: int = 0):
 
 
 def stream_state(device, n: int, dim: int, tile: int = 0, cap: int = 0, keep: int = 1,
-                 rng_device=None):
+                 rng_device=None, squeeze: float = 1.0):
     """A dam of ``n`` particles with random velocities and APIC matrices
     (the seeding distributions of tests/data, so every channel carries
     data), binned for the stream kernels: by the default spec, or, with
     ``tile`` and ``cap``, by a spec of that tile edge and cap over every
-    tile, keeping every ``keep``-th particle so the tiles fit the cap.  The
+    tile, keeping every ``keep``-th particle so the tiles fit the cap, and
+    with ``squeeze`` > 1 packing the dam into 1/squeeze of its height (to
+    its bottom, +y), so tiles hold ``squeeze`` times the particles.  The
     random numbers come from generators on ``rng_device`` (default:
     ``device``); "cpu" gives the same particles on any card."""
     rng = device if rng_device is None else torch.device(rng_device)
     gen = torch.Generator(device=rng).manual_seed(0)
     cfg, p, dom = scene.scaled_dam_break(gen, n, dim=dim, device=rng)
-    if keep > 1:
-        p = state.ParticleState.create(p.pos[::keep].contiguous(), device=rng)
+    if keep > 1 or squeeze != 1.0:
+        pos = p.pos[::keep].clone()
+        if squeeze != 1.0:
+            bottom = pos[:, 1].max()
+            pos[:, 1] = bottom - (bottom - pos[:, 1]) / squeeze
+        p = state.ParticleState.create(pos, device=rng)
     gen = torch.Generator(device=rng).manual_seed(1)
     p.vel = 0.3 * torch.randn(p.vel.shape, generator=gen, device=rng)
     p.C = 0.05 * torch.randn(p.C.shape, generator=gen, device=rng)
@@ -513,6 +530,11 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                         lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)),
         }
         bounds = stream_bounds(st, g, D)
+        # K3 timed as the frame launches it: into the state's own stream and
+        # flag, here those of a copy that each launch advances by a substep
+        scr = st.clone()
+        timed = {"collect": lambda: sk.collect(scr.count, scr.tid, params, scr.stream, gblk, g,
+                                               True, out=(scr.stream, scr.flag))}
         for name, (kern, plain) in cases.items():
             got, want = kern(), plain()
             sync(device)
@@ -529,7 +551,8 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                 unf = sk.collect(st.count, st.tid, params, st.stream, gblk, g, False)
                 check(torch.equal(unf[0], got[0]) and torch.equal(unf[1], got[1]),
                       f"{dim}D unfused collect equals the fused one's rows and flag")
-                unfused_ms = time_ms(lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g, False),
+                unfused_ms = time_ms(lambda: sk.collect(scr.count, scr.tid, params, scr.stream, gblk,
+                                                        g, False, out=(scr.stream, scr.flag)),
                                      reps, device)
                 # mouse on at the box centre, packed-scene x walls every 64 cells
                 centre = cfg.boundary_clip[1][0] / 2
@@ -541,7 +564,7 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                       f"{dim}D collect with mouse + scene stride: rows {walls_err} <= 1e-5, flag equal")
                 extra = (f" flag_equal=True fused_p2g1_err={dep_err:.3e} (scale {scale:.3e})"
                          f" mouse+stride_err={walls_err:.3e} repeat_bit_equal=True"
-                         f" unfused {unfused_ms:.4f} ms")
+                         f" unfused {unfused_ms:.4f} ms (timed in place)")
                 del again, unf, gw, ww
             elif name.startswith("deposit"):
                 scale = float(want.abs().max())
@@ -563,7 +586,7 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                          f"{'' if HALO_ON_PATH[name] else ' (on no path)'}"
                          f" (a copy of the output's size: {copy_ms:.4f} ms)")
             del got, want
-            ms = time_ms(kern, reps, device)
+            ms = time_ms(timed.get(name, kern), reps, device)
             plain_ms = time_ms(plain, max(2, reps // 5), device)
             bound_ms, bound_by = bound(*bounds[name])
             if dim == 3:
@@ -589,8 +612,19 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
         print(f"[kernels] {dim}D halo_mass and halo_mf at E={g3.E} != 2T (the general kernel): "
               f"bit_equal=True; halo_gblk there: max_rel={rel3:.3e}, mass row and zero tiles "
               f"equal  [{card}]")
-        del st, d1, m1, m, d2, gblk, halo_in, x3, m3
+        del st, scr, d1, m1, m, d2, gblk, halo_in, x3, m3
         torch.cuda.empty_cache()
+    for n in [n for dim, n in sizes if dim == 3]:
+        kinds = {cap: collect_in_place(device, card, f"3D n={n} T=4 cap={cap}",
+                                       stream_state(device, n, 3, tile=4, cap=cap), reps)
+                 for cap in (128, 256)}
+        results["collect"]["kinds"] = {"T4_cap256": kinds[256]}
+    for what, make in two_chunk_states(device).items():
+        state = make()
+        top = int(state[2].count.max())
+        check(state[1].cap == 256 and top > 128, f"{what}: a tile past 128 slots (max count {top})")
+        collect_in_place(device, card, what, state, reps)
+        del state
     # K4's one row is the kind the main path launches (the mass halo, once
     # per substep); both kinds stand under "kinds"
     kinds = {kind: results.pop(kind) for kind in HALO_KINDS}
@@ -601,6 +635,88 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                   for kind, k in kinds.items()},
     }
     return results
+
+
+SENTINEL = -7.5
+
+
+def collect_in_place(device, card: str, what: str, state, reps: int = 10) -> dict:
+    """K3 as the frame launches it, into the state's own stream and flag, on
+    ``state`` = (cfg, spec, st, g) as ``stream_state`` gives it, with the
+    slots past each tile's count and every flag seeded with a sentinel:
+    against the plain version the live rows within 1e-5, the flags equal
+    and the p2g1 windows within 1e-4 of their scale; the slots past the
+    count and their flags still the sentinel; the out-of-place launch's
+    live rows, flags and windows bit-equal to the in-place one's, and zero
+    past the count; bit-equal across two launches.  Returns the in-place
+    launch's numbers as a kind of K3's table entry."""
+    cfg, spec, st, g = state
+    D, cap = g.dim, spec.cap
+    what = f"{what} in-place collect"
+    params6 = deposit_params(cfg, device)
+    params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+    d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
+    m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g, 0, D)
+    d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
+    gblk = sk.halo_gblk(d2, m, st.count, st.nbr, sk.gravity_step(cfg.dt, cfg.gravity), g)
+    want = sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)
+    fresh = sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)
+    live = torch.arange(cap, device=device)[None, :] < st.count[:, None]
+    runs = []
+    for _ in range(2):
+        s = st.clone()
+        s.stream.masked_fill_(~live[:, None, :], SENTINEL)
+        s.flag.fill_(SENTINEL)
+        out = sk.collect(s.count, s.tid, params, s.stream, gblk, g, True, out=(s.stream, s.flag))
+        check(out[0] is s.stream and out[1] is s.flag, f"{what} wrote in place")
+        runs.append((s, out[2]))
+    sync(device)
+    (a, dep), (b, dep_b) = runs
+    rows, flags = torch.where(live[:, None, :], a.stream, 0.0), torch.where(live, a.flag, 0.0)
+    err = float((rows - want[0]).abs().max())
+    scale = float(want[2].abs().max())
+    dep_err = float((dep - want[2]).abs().max())
+    check(err <= 1e-5 and torch.equal(flags, want[1]) and dep_err <= 1e-4 * scale,
+          f"{what}: rows {err} <= 1e-5, flag equal, p2g1 {dep_err} <= 1e-4 * {scale}")
+    check(bool((a.stream.permute(0, 2, 1)[~live] == SENTINEL).all())
+          and bool((a.flag[~live] == SENTINEL).all()),
+          f"{what}: the slots past the count and their flags untouched")
+    check(torch.equal(rows, fresh[0]) and torch.equal(flags, fresh[1]) and torch.equal(dep, fresh[2]),
+          f"{what}: live rows, flags and p2g1 bit-equal to the out-of-place launch's")
+    check(torch.equal(a.stream, b.stream) and torch.equal(a.flag, b.flag) and torch.equal(dep, dep_b),
+          f"{what}: bit-equal across two launches")
+    dead = int((~live).sum())
+    del runs, b, dep_b, fresh, want, rows, flags, d1, m, d2
+    ms = time_ms(lambda: sk.collect(a.count, a.tid, params, a.stream, gblk, g, True,
+                                    out=(a.stream, a.flag)), reps, device)
+    bound_ms, bound_by = bound(*stream_bounds(st, g, D)["collect"])
+    top = int(st.count.max())
+    print(f"[kernels] {what}: A={spec.A} occupied={int((st.count > 0).sum())} max count="
+          f"{top} ({-(-top // 128)} chunk(s) of 128), {dead} slots past the count seeded with {SENTINEL}: rows "
+          f"{err:.3e}, flag equal, p2g1 {dep_err:.3e} of {scale:.3e}; dead slots untouched; "
+          f"bit-equal to the out-of-place launch and across two launches; kernel {ms:.4f} ms "
+          f"bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
+    del st, a, dep, gblk
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "on_path": "stream 1M benchmark"}
+
+
+def two_chunk_states(device) -> dict:
+    """Makers of states at cap 256 whose fullest tiles hold more than one
+    collect chunk (128 slots), so the fused collect walks them through
+    window_walk: the 2D reference scene after the app's first mouse frame
+    (at the fluid's centroid, on the default spec, as the 2D app cell
+    drives it) and a 3D dam of N_2D packed into half its height."""
+    def scene_2d():
+        cfg, p, dom = scene.reference_scene_2d(0, device=device)
+        sess = Session(cfg, dom, p, backend="stream", device=device)
+        sess.frame(step.mouse([float(v) for v in p.pos[:, :2].mean(dim=0)]))
+        return cfg, sess.spec, sess.stream_state().clone(), stx.tile_geom(dom, sess.spec)
+
+    return {"2D reference scene after the centroid mouse frame": scene_2d,
+            f"3D n={N_2D} packed 2x T=4 cap=256":
+                lambda: stream_state(device, N_2D, 3, tile=4, cap=256, squeeze=2.0)}
 
 
 def rebin_bounds(count, n: int, g) -> dict:
@@ -682,7 +798,7 @@ def phase_rebin(device, card: str, reps: int = 10) -> dict:
         while not bool(stx.needs_rebin(st)):
             check(subs < 4 * cfg.iterations, f"rebin {what}: a drift flag within "
                                              f"{4 * cfg.iterations} substeps")
-            st, dep1 = stx._substep_core(st, dep1, stages, params)
+            dep1 = stx._substep_core(st, dep1, stages, params)
             subs += 1
         st.shell_drop.fill_(0)
         st.need_peak.fill_(1)
@@ -816,19 +932,22 @@ def phase_deposit_geometries(device, card: str, reps: int = 10) -> dict:
               f"{what} fused collect bitwise equal across two launches")
         print(f"[kernels] {what} A={spec.A} occupied={int((st.count > 0).sum())} "
               f"max count={int(st.count.max())} ({-(-int(st.count.max()) // 256)} chunk(s) of "
-              f"256 slots): deposit_p2g1, deposit_p2g2 and the fused collect agree with plain "
+              f"256 slots, the collect {-(-int(st.count.max()) // 128)} of 128): deposit_p2g1, "
+              f"deposit_p2g2 and the fused collect agree with plain "
               f"(rows {rows:.3e}, p2g1 {dep:.3e} of {scale:.3e}) and repeat bit-equal; "
               f"halo_gblk max_rel={rel:.3e}, mass row and zero tiles equal  [{card}]")
         del got, want, again
         if (tile, cap) == TIMED_GEOMETRY:
             bounds = stream_bounds(st, g, 3)
+            scr = st.clone()  # K3 timed in place, as the frame launches it
             cases = {
                 "deposit_p2g1": (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g),
                                  lambda: sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
                 "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
                                  lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6,
                                                                d1, g)),
-                "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g, True),
+                "collect": (lambda: sk.collect(scr.count, scr.tid, params, scr.stream, gblk, g, True,
+                                               out=(scr.stream, scr.flag)),
                             lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)),
             }
             for name, (kern, plain) in cases.items():
@@ -1602,11 +1721,12 @@ def rebin_check_cost_ms(sess: Session, device, substeps: int = 8, rounds: int = 
     st0 = sess.stream_state()
 
     def run(read: bool) -> float:
+        st = st0.clone()  # the substeps update their state in place
         sync(device)
         t0 = time.perf_counter()
-        st, dep1 = st0, stages.dep1(st0)
+        dep1 = stages.dep1(st)
         for _ in range(substeps):
-            st, dep1 = stx._substep_core(st, dep1, stages, params)
+            dep1 = stx._substep_core(st, dep1, stages, params)
             if read:
                 bool(stx.needs_rebin(st))
         sync(device)
@@ -2687,7 +2807,7 @@ def csrc_launch_name(key: str):
     """The wrapper (a key of ``sk.LAUNCHES`` or ``pk.LAUNCHES``) whose kernel
     a profiler kernel event ``key`` is, or None: the stream deposit is
     ``deposit_kernel<D, P2G2, MULTI>`` over a ``Geom``, the pallas one
-    ``deposit_kernel<D, MODE>``; the stream collect has three template
+    ``deposit_kernel<D, MODE>``; the stream collect has two template
     arguments, the pallas one one; the halo kernels' last argument is
     GBLK; the re-bin's kernels are ``rebin_gather_kernel<D>`` and
     ``rebin_fill_kernel<D>``."""
@@ -2703,7 +2823,7 @@ def csrc_launch_name(key: str):
             return "deposit_p2g2" if args[1] == "true" else "deposit_p2g1"
         return {"1": "pallas_deposit_p2g1", "2": "pallas_deposit_force", "3": "pallas_p2g2"}[args[1]]
     if kind == "collect_kernel":
-        return "collect" if len(args) == 3 else "pallas_collect"
+        return "collect" if len(args) == 2 else "pallas_collect"
     return "halo_gblk" if args[-1] == "true" else "halo_axis"
 
 
@@ -2936,7 +3056,8 @@ def main() -> int:
     results["halo_axis"]["kinds"]["halo_mass_ghost"] = {k: ghost["halo_mass_ghost"][k] for k in strip}
     results["halo_gblk"]["kinds"] = {"halo_gblk_ghost": {k: ghost["halo_gblk_ghost"][k] for k in strip}}
     for name, kinds in big_kinds.items():  # K1-K3 at T=8, cap=1024
-        results[name]["kinds"] = {kind: {k: v[k] for k in strip} for kind, v in kinds.items()}
+        results[name].setdefault("kinds", {}).update(
+            {kind: {k: v[k] for k in strip} for kind, v in kinds.items()})
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
          **launches[name], **results[name]}

@@ -20,12 +20,15 @@
 //   count, tid [A] int32; nbr rows [A] int32 with A = "no neighbour"
 //
 // Every kernel launches one block per active tile (the halo packs several)
-// over all A tiles: a tile whose count is 0 writes zeros and returns (the
-// halo reads it as zero), so no output is ever left uninitialized and the
-// host never reads a count to size a grid.  A deposit or collect block has
-// one thread per slot of a chunk of min(cap, 256) slots and walks the
-// tile's slots chunk by chunk, so any cap that is a multiple of 32 launches
-// and its shared memory holds one chunk's stage, not cap's.  Deposits
+// over all A tiles: a tile whose count is 0 writes zero windows and returns
+// (the halo reads it as zero), so no window is ever left uninitialized and
+// the host never reads a count to size a grid.  The collect writes only a
+// tile's live slots of the stream and flag, in place: the slots past the
+// count hold zeros, as every writer that sets a count leaves them.  A
+// deposit block has one thread per slot of a chunk of min(cap, 256) slots,
+// a collect block of min(cap, 128), and walks the tile's slots chunk by
+// chunk, so any cap that is a multiple of 32 launches and its shared memory
+// holds one chunk's stage, not cap's.  Deposits
 // scatter each particle's 3^D taps, one lane per tap, into a tile window in
 // shared memory, one particle after the other in slot order: no float
 // atomics, every cell sums its particles in slot order (p2g2: two slot
@@ -68,15 +71,17 @@ __device__ __forceinline__ int div_by(int n, FastDiv f) {
 
 __host__ __device__ constexpr int pow3(int n) { return n == 0 ? 1 : 3 * pow3(n - 1); }
 
-// Widest chunk of slots a deposit or collect block takes at a time (its
-// thread count, p2g2 aside).
+// Widest chunk of slots a deposit block takes at a time (its thread count,
+// p2g2 aside), and a collect block (see collect_kernel).
 constexpr int CHUNK_MAX = 256;
+constexpr int COLLECT_CHUNK = 128;
 
 struct Geom {
   int A;          // active tiles (grid size)
   int T, h, E;    // tile edge, halo reach, window edge
   int cap;        // slots per tile, a multiple of 32
-  int chunk;      // slots staged and walked at a time: min(cap, CHUNK_MAX)
+  int chunk;      // slots staged and walked at a time: min(cap, CHUNK_MAX),
+                  // a collect's min(cap, COLLECT_CHUNK)
   int ncell;      // E^D
   int F;          // stream rows
   int tshape[3];  // tiles per axis
@@ -548,59 +553,78 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 
 // collect_kernel — replaces make_collect_kernel (stream_transfer.py:1163).
 //
-// One thread per slot of a chunk, chunk after chunk: g2p from the tile's
-// grid-value window gblk [1+D, E^D] (v rows, then mass): v = sum w gv,
-// B = sum w gv (x) dpos, C = 4B, rho = sum w m; pressure; then the
-// particle tail: advect, the mouse
-// impulse after advection (quirk Q3), clamp and the un-scaled soft wall
-// (quirk Q2) with x walls shifted by the packed-scene stride, and the drift
-// flag (2.0 when the new cell leaves [1-h, T-2+h]).  Writes a NEW stream
-// buffer (out of place); invalid slots write zero rows and a zero flag.
+// One thread per live slot of a chunk, chunk after chunk up to the tile's
+// count: g2p from the tile's grid-value window gblk [1+D, E^D] (v rows,
+// then mass): v = sum w gv, B = sum w gv (x) dpos, C = 4B, rho = sum w m;
+// pressure; then the particle tail: advect, the mouse impulse after
+// advection (quirk Q3), clamp and the un-scaled soft wall (quirk Q2) with x
+// walls shifted by the packed-scene stride, and the drift flag (2.0 when
+// the new cell leaves [1-h, T-2+h]).  A live slot's thread reads its
+// slot's fields, then writes the new ones and the flag into out_stream and
+// flag.  out_stream may be stream itself: the frame updates its state in
+// place, and no other thread touches the slot.  Slots past the count are
+// not touched (they hold zeros in every stream the port keeps), so a
+// caller that wants a new buffer passes one filled with zeros.  A tile of
+// count 0 writes only its zero p2g1 windows.
 // FUSED also deposits the next substep's p2g1 windows from the updated
-// particles (the same window walk as deposit_kernel<D, false>, one chunk
-// after the other in slot order).
+// particles (the walk of deposit_kernel<D, false>): a tile of one chunk
+// through deposit_window, a longer one chunk by chunk through window_walk,
+// both in slot order, so the windows do not depend on the chunking.
 //
-// Bound: by the layout, per tile it reads the stream block (9.7 KB) and the
-// gblk window (8 KB, 27 taps per particle, within one 8 KB block so they hit
-// L1/L2) and writes the new block (9.7 KB), the flag (0.5 KB) and, fused,
-// 8 KB of windows: ~36 KB per tile, ~1.2 GB per call at 32,768 tiles.
-// Measured at that shape on an NVIDIA H100 80GB HBM3 (700 W) by
-// chip_smoke.py: 0.89 ms fused with a cell-owner scan as the deposit; with
-// the tap-parallel deposit of deposit_kernel 0.49 ms fused and 0.21 ms
-// unfused (the g2p and tail alone), ~2.1x the fused byte bound.
+// The chunk is COLLECT_CHUNK slots at most, whatever the cap, so a block's
+// threads and stage do not grow with the cap: at cap 256 a block takes
+// 128 threads and 31.3 KB (3D), seven blocks and 28 walking warps an SM,
+// where a chunk of 256 took 256 threads and 49.7 KB, three blocks (by
+// registers) and 12 walking warps.
 //
-// MULTI as for deposit_kernel.
+// Bound: by the layout, per occupied tile it reads the live slots' position,
+// mass and id (20 B a particle in 3D) and the gblk window (8 KB, 27 taps
+// per particle, within one 8 KB block so they hit L1/L2) and writes the
+// live rows (76 B a particle) and flags and, fused, 8 KB of windows; an
+// empty tile writes its 8 KB of zero windows: ~0.51 GB per call at the 1M
+// shape (32,768 tiles, 17,554 occupied), where writing every slot at cap
+// 256 made it ~1.2 GB.
+// Measured at that shape on an NVIDIA H100 80GB HBM3 (700 W), fused, in a
+// graph, on the 1M dam after 40 frames (15,824 occupied tiles of up to 97
+// particles): 0.404 ms at caps 128 and 256, 2.7x the byte bound (0.149
+// ms).  Writing every slot through a chunk of min(cap, 256) took 0.470,
+// 0.649, 0.684 and 0.798 ms at caps 128, 192, 224 and 256 (seven, four,
+// four and three blocks an SM); at cap 256 a chunk of 64 took 0.441 ms
+// (ten blocks of two warps) and window_walk for every tile 0.445.  One
+// instantiation serves every cap: a second one for cap <= COLLECT_CHUNK,
+// without the chunk-by-chunk branch (64 registers, not 72), took 0.420 ms
+// at cap 128.  What is left is the walk, bound by the instructions the SM
+// issues, as in deposit_kernel.
 //
 // params: [dt, rest, k, gamma, floor, mouse_radius, damp, mouse_active,
 //          mouse_x, mouse_y, lo[D], hi[D], scene_stride].
-template <int D, bool FUSED, bool MULTI>
+template <int D, bool FUSED>
 __global__ void collect_kernel(Geom g, const int* __restrict__ count,
                                const int* __restrict__ tidv,
                                const float* __restrict__ params,
-                               const float* __restrict__ stream,
+                               const float* stream,
                                const float* __restrict__ gblk,
-                               float* __restrict__ out_stream,
+                               float* out_stream,
                                float* __restrict__ flag,
                                float* __restrict__ dep) {
   extern __shared__ __align__(16) float smem[];
   const int a = blockIdx.x;
   const int cap = g.cap, F = g.F;
   const int cnt = count[a];
-  const float* blk = stream + static_cast<int64_t>(a) * F * cap;
-  float* oblk = out_stream + static_cast<int64_t>(a) * F * cap;
   float* tile_dep = FUSED ? dep + static_cast<int64_t>(a) * (1 + D) * g.ncell : nullptr;
   if (cnt == 0) {
-    for (int i = threadIdx.x; i < F * cap; i += blockDim.x) oblk[i] = 0.0f;
-    for (int i = threadIdx.x; i < cap; i += blockDim.x) flag[static_cast<int64_t>(a) * cap + i] = 0.0f;
     if (FUSED) {
       for (int i = threadIdx.x; i < (1 + D) * g.ncell; i += blockDim.x) tile_dep[i] = 0.0f;
     }
     return;
   }
+  const float* blk = stream + static_cast<int64_t>(a) * F * cap;
+  float* oblk = out_stream + static_cast<int64_t>(a) * F * cap;
+  float* tflag = flag + static_cast<int64_t>(a) * cap;
   const int tid = tidv[a];
   const Stage<D> sh(smem);
   float* win = FUSED ? smem + Stage<D>::words_per_slot() * g.chunk : nullptr;
-  for (int c0 = 0; c0 < cap; c0 += g.chunk) {  // blockDim.x == g.chunk
+  for (int c0 = 0; c0 < cnt; c0 += g.chunk) {  // blockDim.x == g.chunk
     const int s = c0 + threadIdx.x;
     const bool valid = s < cnt;
     float newpos[D], v[D], newC[D * D];
@@ -650,15 +674,12 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
       oblk[(2 * D + D * D + 1) * cap + s] = pid;
       oblk[(2 * D + D * D + 2) * cap + s] = rho;
       oblk[(2 * D + D * D + 3) * cap + s] = pressure;
-      flag[static_cast<int64_t>(a) * cap + s] = fl;
-    } else if (s < cap) {
-      for (int f = 0; f < F; ++f) oblk[f * cap + s] = 0.0f;
-      flag[static_cast<int64_t>(a) * cap + s] = 0.0f;
+      tflag[s] = fl;
     }
-    if (FUSED && c0 < cnt) {  // stage the chunk's updated particles, then walk them
+    if (FUSED) {  // stage the chunk's updated particles, then walk them
       if (valid) sh.store(threadIdx.x, stencil_of<D>(g, tid, newpos), mass, v, newC);
       __syncthreads();
-      if constexpr (!MULTI) {
+      if (cnt <= g.chunk) {  // the whole tile in one chunk
         deposit_window<D, false>(sh, g, cnt, win, tile_dep, nullptr);
         return;
       }
@@ -669,7 +690,6 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
       window_walk<D, false, 1>(sh, g, cnt, c0, min(g.chunk, cnt - c0), win);
       __syncthreads();  // the walk has read the stage before the next chunk
     }
-    if (!MULTI) return;
   }
   if (FUSED) window_store<D, false>(g, win, tile_dep, nullptr);
 }
@@ -1050,12 +1070,13 @@ int launch_deposit(const Geom& g, cudaStream_t st, Args... args) {
                            : launch_tiles(deposit_kernel<D, P2G2, false>, g, threads, smem, st, args...);
 }
 
-// A collect launch, likewise; the unfused collect needs no shared memory.
+// A collect launch, in chunks of COLLECT_CHUNK slots; the unfused collect
+// needs no shared memory.
 template <int D, bool FUSED, typename... Args>
-int launch_collect(const Geom& g, cudaStream_t st, Args... args) {
+int launch_collect(Geom g, cudaStream_t st, Args... args) {
+  g.chunk = g.cap < COLLECT_CHUNK ? g.cap : COLLECT_CHUNK;
   const size_t smem = FUSED ? block_bytes<D>(g, 1 + D) : 0;
-  return g.cap > CHUNK_MAX ? launch_tiles(collect_kernel<D, FUSED, true>, g, g.chunk, smem, st, args...)
-                           : launch_tiles(collect_kernel<D, FUSED, false>, g, g.chunk, smem, st, args...);
+  return launch_tiles(collect_kernel<D, FUSED>, g, g.chunk, smem, st, args...);
 }
 
 }  // namespace

@@ -218,7 +218,7 @@ def deposit_p2g2_plain(count, tid, stream, hs_m, params, d1, g: TileGeom) -> tor
     return torch.where((count > 0)[:, None, None], out, 0.0)
 
 
-def collect_plain(count, tid, params, stream, gblk, g: TileGeom, fused: bool):
+def collect_plain(count, tid, params, stream, gblk, g: TileGeom, fused: bool, out=None):
     A, D, cap = count.shape[0], g.dim, g.cap
     a_idx, s_idx = _valid_slots(count, cap)
     tid_v = tid.long()[a_idx]
@@ -257,16 +257,18 @@ def collect_plain(count, tid, params, stream, gblk, g: TileGeom, fused: bool):
         bad = bad | (lcn < 1 - g.halo) | (lcn > g.tile - 2 + g.halo)
 
     rows = torch.stack(newpos + v + newC + [mass, pid, rho, pressure], dim=-1)
-    out = torch.zeros_like(stream)
-    out[a_idx, :, s_idx] = rows
-    flag = torch.zeros((A, cap), dtype=torch.float32, device=stream.device)
+    if out is None:
+        out = (torch.zeros_like(stream),
+               torch.zeros((A, cap), dtype=torch.float32, device=stream.device))
+    stream_out, flag = out
+    stream_out[a_idx, :, s_idx] = rows
     flag[a_idx, s_idx] = torch.where(bad, 2.0, 0.0)
     if not fused:
-        return out, flag
+        return stream_out, flag
     pos_n = torch.stack(newpos, dim=-1)
     vel_n = torch.stack(v, dim=-1)
     C_n = torch.stack(newC, dim=-1).reshape(-1, D, D)
-    return out, flag, _p2g1_windows(a_idx, pos_n, vel_n, C_n, mass, tid_v, A, g)
+    return stream_out, flag, _p2g1_windows(a_idx, pos_n, vel_n, C_n, mass, tid_v, A, g)
 
 
 def halo_axis_plain(x, nbp, nbm, g: TileGeom, axis: int) -> torch.Tensor:
@@ -463,23 +465,34 @@ def deposit_p2g2(count, tid, stream, hs_m, params, d1, g: TileGeom) -> torch.Ten
     return out
 
 
-def collect(count, tid, params, stream, gblk, g: TileGeom, fused: bool):
+def collect(count, tid, params, stream, gblk, g: TileGeom, fused: bool, out=None):
     """g2p + particle tail -> (next stream [A, F, cap], flag [A, cap]) and,
     when ``fused``, the next substep's p2g1 windows [A, 1+D, E^D].
-    params: see ``stream_transfer.collect_params``."""
+    params: see ``stream_transfer.collect_params``.
+
+    With ``out`` = (stream', flag'), the live slots' new rows and flags are
+    written there and every other slot is left as it is: ``out`` may be
+    ``(stream, flag)``, the state updated in place, whose slots past the
+    count hold zeros.  Without it the result is new buffers, zeros past the
+    count."""
     A, dev = _check_tiles(count, tid, stream, g)
     _check("gblk", gblk, (A, 1 + g.dim, g.ncell), torch.float32, dev)
     _check("params", params, (11 + 2 * g.dim,), torch.float32, dev)
+    if out is not None:
+        _check("out stream", out[0], stream.shape, torch.float32, dev)
+        _check("out flag", out[1], (A, g.cap), torch.float32, dev)
     if _on_cpu(dev):
-        return collect_plain(count, tid, params, stream, gblk, g, fused)
-    out = torch.empty_like(stream)
-    flag = torch.empty((A, g.cap), dtype=torch.float32, device=dev)
+        return collect_plain(count, tid, params, stream, gblk, g, fused, out)
+    if out is None:
+        out = (torch.zeros_like(stream),
+               torch.zeros((A, g.cap), dtype=torch.float32, device=dev))
+    out_s, flag = out
     dep = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev) if fused else None
     with torch.cuda.device(dev):
         _launch("collect", "fluid_collect", g.dim, int(fused), _ptr(count), _ptr(tid),
-                _ptr(params), _ptr(stream), _ptr(gblk), _ptr(out), _ptr(flag),
+                _ptr(params), _ptr(stream), _ptr(gblk), _ptr(out_s), _ptr(flag),
                 _ptr(dep), A, g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin))
-    return (out, flag, dep) if fused else (out, flag)
+    return (out_s, flag, dep) if fused else (out_s, flag)
 
 
 def halo_axes(x, count, nbr, g: TileGeom, first: int, last: int, gate=None) -> torch.Tensor:

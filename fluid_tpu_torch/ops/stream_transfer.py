@@ -422,7 +422,9 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
       dep2(st, dep1v, hs_m)      -> combined momentum+force windows [A, D, E^D]
       halo_gblk(st, dep2v, hs_m) -> grid values [A, 1+D, E^D] (v rows, mass;
                                     zeros at zero-count tiles)
-      collect(st, gblk, params)  -> (stream', flag[, dep1_next if fused])
+      collect(st, gblk, params[, out])
+                                 -> (stream', flag[, dep1_next if fused]);
+                                    with out = (st.stream, st.flag), in place
     """
     D = cfg.dim
     g = tile_geom(domain, spec)
@@ -442,8 +444,8 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
     def halo_gblk(st, dep2v, hs_m):
         return sk.halo_gblk(dep2v, hs_m, st.count, st.nbr, dtg, g)
 
-    def collect(st, gblk, params):
-        return sk.collect(st.count, st.tid, params, st.stream, gblk, g, fused)
+    def collect(st, gblk, params, out=None):
+        return sk.collect(st.count, st.tid, params, st.stream, gblk, g, fused, out)
 
     return types.SimpleNamespace(
         dep1=dep1, halo_m=halo_m, dep2=dep2, halo_gblk=halo_gblk, collect=collect,
@@ -451,14 +453,15 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
 
 
 def _substep_core(st: StreamState, dep1, stages, params):
-    """One substep given its p2g_1 windows; returns (state, dep1_next or
-    None when the stages are not fused)."""
+    """One substep given its p2g_1 windows, updating ``st``'s stream and
+    flag in place (the collect writes each live slot over itself); returns
+    the next substep's p2g_1 windows (None when the stages are not
+    fused)."""
     hs_m = stages.halo_m(st, dep1)
     d2 = stages.dep2(st, dep1, hs_m)
     gblk = stages.halo_gblk(st, d2, hs_m)
-    outs = stages.collect(st, gblk, params)
-    st2 = dataclasses.replace(st, stream=outs[0], flag=outs[1])
-    return st2, (outs[2] if len(outs) > 2 else None)
+    outs = stages.collect(st, gblk, params, (st.stream, st.flag))
+    return outs[2] if len(outs) > 2 else None
 
 
 def needs_rebin(st: StreamState) -> torch.Tensor:
@@ -475,13 +478,15 @@ def frame_inplace(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec
     ``Session`` on the card captures into one CUDA graph
     (``utils/graph.py``).
 
-    The collect of each substep also deposits the next substep's p2g_1.
-    After each substep ``branch(needs_rebin(st), rebin)`` decides on the
-    re-bin, as the JAX frame's ``lax.cond`` does: ``eager_branch`` reads the
-    flag on the host, a capture makes the re-bin the body of an IF node that
-    the card decides.  The re-bin writes into the substep's outputs, so
-    where it does not run nothing runs and they already hold the fused
-    p2g_1.  ``n`` is the live particle count (default: every slot)."""
+    The collect of each substep updates the stream and flag in place and
+    also deposits the next substep's p2g_1.  After each substep
+    ``branch(needs_rebin(st), rebin)`` decides on the re-bin, as the JAX
+    frame's ``lax.cond`` does: ``eager_branch`` reads the flag on the host,
+    a capture makes the re-bin the body of an IF node that the card
+    decides.  The re-bin writes into ``st`` and the substep's p2g_1
+    windows, so where it does not run nothing runs and they already hold
+    the fused p2g_1.  ``n`` is the live particle count (default: every
+    slot)."""
     tshape, nt = _tile_geometry(domain, spec)
     dev = st.stream.device
     n_sub = cfg.iterations if substeps is None else substeps
@@ -489,13 +494,10 @@ def frame_inplace(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec
     stages = substep_stages(cfg, domain, spec, dev, fused=True)
     params = collect_params(cfg, mouse_pos, mouse_active, spec.scene_stride, dev)
     dep1 = stages.dep1(st)
-    cur = st
     for _ in range(n_sub):
-        cur, dep1 = _substep_core(cur, dep1, stages, params)
-        branch(needs_rebin(cur), functools.partial(
-            _rebin_into, cur, dep1, cfg, domain, spec, tshape, nt, n_c, stages))
-    st.stream.copy_(cur.stream)
-    st.flag.copy_(cur.flag)
+        dep1 = _substep_core(st, dep1, stages, params)
+        branch(needs_rebin(st), functools.partial(
+            _rebin_into, st, dep1, cfg, domain, spec, tshape, nt, n_c, stages))
 
 
 def _rebin_into(st: StreamState, dep1, cfg, domain, spec, tshape, nt, n, stages) -> None:

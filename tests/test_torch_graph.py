@@ -61,15 +61,16 @@ def _dam_case(iterations=2, n=512, seed=0):
 
 
 def _host_loop_frame(st, cfg, dom, spec, mp, ma, substeps, n):
-    """The stream frame as a functional loop that reads ``needs_rebin`` on
-    the host after every substep and rebinds the state: the form the frame
-    had before it ran in place over a state's own tensors."""
+    """The stream frame as a loop that reads ``needs_rebin`` on the host
+    after every substep and rebinds the state to each re-bin's new
+    tensors: the form the frame had before its re-bins ran in place over a
+    state's own tensors."""
     tshape, nt = tstx._tile_geometry(dom, spec)
     stages = tstx.substep_stages(cfg, dom, spec, "cpu", fused=True)
     params = tstx.collect_params(cfg, mp, ma, spec.scene_stride, "cpu")
     dep1 = stages.dep1(st)
     for _ in range(substeps):
-        st, dep1 = tstx._substep_core(st, dep1, stages, params)
+        dep1 = tstx._substep_core(st, dep1, stages, params)
         if bool(tstx.needs_rebin(st)):
             st2 = tstx._rebin_full(st, cfg, dom, spec, tshape, nt, n)
             st = dataclasses.replace(st2, shell_drop=torch.maximum(st.shell_drop, st2.shell_drop),
@@ -149,6 +150,33 @@ def _buffers(sess):
     return {f.name: getattr(st, f.name) for f in dataclasses.fields(st)}
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("cap", [128, 256])
+def test_session_frames_keep_dead_slots_zero(dim, cap):
+    """Fast particles under the mouse, several stream Session frames with
+    re-bins (the collect updating the session's stream in place): every
+    slot past a tile's count, and its flag, stays zero, and the state is
+    bit-equal to ``frame_binned``'s from the same start."""
+    cfg, pos, vel, C, dom = _fast_case(dim)
+    cfg = cfg.replace(iterations=4)
+    spec = tstx.StreamSpec(cap=cap, active=math.prod(s // 4 for s in dom.shape))
+    sess = Session(cfg, dom, tstate.from_numpy(pos, vel, C, device="cpu"), backend="stream",
+                   spec=spec, device="cpu")
+    want = sess.stream_state().clone()
+    mice = [tstep.mouse((6.0, 6.0)), None, tstep.mouse((5.0, 7.0))]
+    for mouse in mice:
+        sess.frame(mouse)
+        mp, ma = tstep.no_mouse() if mouse is None else mouse
+        want = tstx.frame_binned(want, cfg, dom, spec, mp, ma, n=pos.shape[0])
+    st = sess.stream_state()
+    assert sess.rebins() > 0
+    for k in STATE_KEYS:
+        assert torch.equal(getattr(st, k), getattr(want, k)), k
+    dead = torch.arange(cap)[None, :] >= st.count[:, None]
+    assert int(st.stream.permute(0, 2, 1)[dead].count_nonzero()) == 0
+    assert int(st.flag[dead].count_nonzero()) == 0
+
+
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_restore_keeps_the_buffers_and_replays(backend):
     """``restore`` copies into the session's buffers (every ``data_ptr``
@@ -201,6 +229,40 @@ class NoHostRead(TorchDispatchMode):
                     t is not None and t.dtype == torch.bool for t in args[1]):
                 raise HostRead(f"{func} with a bool mask")
         return func(*args, **(kwargs or {}))
+
+
+class StateCopies(TorchDispatchMode):
+    """Records each ``copy_`` into a tensor whose data starts at one of
+    ``ptrs``, as ``outside`` or, within a ``paused`` call, ``inside``."""
+
+    def __init__(self, ptrs):
+        super().__init__()
+        self.ptrs = ptrs
+        self.paused = 0
+        self.outside, self.inside = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket is aten.copy_ and args[0].data_ptr() in self.ptrs:
+            (self.inside if self.paused else self.outside).append(tuple(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_frame_body_copies_no_stream_outside_the_rebin(dim):
+    """The stream frame body, as a Session captures it, with every re-bin
+    taken: outside the re-bin's body nothing copies into the state's
+    stream or flag (the collect writes their live slots in place); the
+    re-bin's own fill, which does, is seen."""
+    cfg, pos, vel, C, dom = _fast_case(dim)
+    sess = Session(cfg.replace(iterations=4), dom, tstate.from_numpy(pos, vel, C, device="cpu"),
+                   backend="stream", device="cpu", strict=False)
+    fg = sess.frame_graph
+    scratch = fg.state.clone()
+    mode = StateCopies({scratch.stream.data_ptr(), scratch.flag.data_ptr()})
+    with mode:
+        fg.body(scratch, lambda pred, fn: _paused(mode, fn)())
+    assert mode.outside == []
+    assert len(mode.inside) >= 4 and int(scratch.rebins[0]) == 4
 
 
 @pytest.mark.parametrize("what", ["as_tensor(list)", "tensor(numpy)", "bool()", "item()",

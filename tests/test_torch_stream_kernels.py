@@ -31,6 +31,7 @@ from fluid_tpu.config import default_2d, default_3d
 from fluid_tpu.domain import make_domain
 from fluid_tpu.ops import stream_transfer as jstx
 from fluid_tpu.state import ParticleState as JParticles
+from fluid_tpu_torch import state as tstate
 from fluid_tpu_torch import step as tstep
 from fluid_tpu_torch.ops import stream_kernels as sk
 from fluid_tpu_torch.ops import stream_transfer as tstx
@@ -301,6 +302,42 @@ def test_collect_from_port_gblk_matches_pallas(dim):
     want = sk.collect(st.count, st.tid, params, st.stream, r["gblk"], g, True)
     for a, b in zip(got, want):
         _close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("cap", [128, 256])
+def test_collect_in_place_writes_only_live_slots(dim, fused, cap):
+    """The collect into the state's own stream and flag (``out``) gives the
+    out-of-place collect's live rows, flags and p2g1 windows bit for bit,
+    and leaves every slot past a tile's count as it found it (a sentinel
+    here; zeros in every state the port keeps); every live flag is
+    written."""
+    cfg, pos, vel, C = _scene(dim)
+    dom = make_domain(cfg, halo_cells=4)
+    spec = tstx.StreamSpec(cap=cap, active=math.prod(s // 4 for s in dom.shape))
+    st = tstx.bin_particles(tstate.from_numpy(pos, vel, C, device="cpu"), dom, spec, dt=cfg.dt)
+    stages = tstx.substep_stages(cfg, dom, spec, "cpu", fused=fused)
+    d1 = stages.dep1(st)
+    hs_m = stages.halo_m(st, d1)
+    gblk = stages.halo_gblk(st, stages.dep2(st, d1, hs_m), hs_m)
+    params = tstx.collect_params(cfg, *tstep.mouse(MOUSE_XY), STRIDE)
+    want = stages.collect(st, gblk, params)
+    live = torch.arange(cap)[None, :] < st.count[:, None]
+    assert live.any() and (~live).any()  # non-vacuous
+    sentinel = -7.5
+    got = st.clone()
+    got.stream.masked_fill_(~live[:, None, :], sentinel)
+    got.flag.fill_(sentinel)
+    outs = stages.collect(got, gblk, params, (got.stream, got.flag))
+    assert outs[0] is got.stream and outs[1] is got.flag
+    assert torch.equal(torch.where(live[:, None, :], got.stream, 0.0), want[0])
+    assert torch.equal(torch.where(live, got.flag, 0.0), want[1])
+    assert bool((got.stream.permute(0, 2, 1)[~live] == sentinel).all())
+    assert bool((got.flag[~live] == sentinel).all())
+    assert int(want[0].permute(0, 2, 1)[~live].count_nonzero()) == 0
+    if fused:
+        assert torch.equal(outs[2], want[2])
 
 
 @pytest.mark.parametrize("bad", ["count_dtype", "count_shape", "nbr_shape", "pass_range",
