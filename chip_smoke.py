@@ -12,24 +12,25 @@ by torch.profiler's kernel events, and held against the wrappers'
 counters over the same frame run eagerly (``replay_launches``).
 
 1. device   require a CUDA device; print the card's name and power limit
-2. build    compile csrc/*.cu with nvcc, one process per source started
-            together, then link; prints each step's wall seconds (the ptxas
-            report goes to the output directory)
+2. build    build and load every launching module's kernel library at
+            once (ops/cuda_build.py: one nvcc per source, then one link a
+            library); prints each library's steps' wall seconds (the ptxas
+            report goes to the output directory); then, in a fresh process,
+            a stream Session frame loads the graph and stream libraries
+            only
 3. kernels  bin a 3D dam of 1,000,000 particles (and a 2D dam of
             100,000); run each of the five stream kernel wrappers and its
             plain PyTorch version on the same card tensors, at the shapes
             the main path gives them; compare and time both with CUDA
-            events.  Both halo launch kinds (mass: CH=1, passes [0, D), on
-            the main path; m+f: CH=D, passes [0, D-1), on no path since
-            halo_gblk took all D passes) must be bit-equal to the gated
-            chain of plain passes, also through the general kernel (a
-            window geometry with E != 2T); halo_gblk matches its plain
-            version (v rows 1e-6 relative, the mass row and the zero-count
-            tiles equal), also at E != 2T; the deposits and the fused
-            collect are bit-equal across two launches; the collect is
-            timed as the frame launches it, into the state's own stream and
-            flag; the unfused collect and a copy of each halo output's size
-            are timed beside them.  The collect in place on the 1M dam at
+            events.  The mass halo (CH=1, the D passes) must be bit-equal
+            to the gated chain of plain passes, also through the general
+            kernel (a window geometry with E != 2T, with 1 and D
+            channels); halo_gblk matches its plain version (v rows 1e-6
+            relative, the mass row and the zero-count tiles equal), also at
+            E != 2T; the deposits and the collect are bit-equal across two
+            launches; the collect is timed as the frame launches it, into
+            the state's own stream and flag; a copy of the halo output's
+            size is timed beside it.  The collect in place on the 1M dam at
             caps 128 and 256 (every tile), the slots past each tile's count
             and every flag seeded with a sentinel: rows within 1e-5 of
             plain, flags equal, the sentinel untouched past the count,
@@ -37,7 +38,7 @@ counters over the same frame run eagerly (``replay_launches``).
             The same checks at cap 256 on tiles past one collect chunk (128
             slots), which K3 walks chunk by chunk: the 2D reference scene
             after the app's centroid mouse frame, and a 3D dam packed 2x.
-            Then the deposits, halo_gblk and the fused collect, checked the
+            Then the deposits, halo_gblk and the collect, checked the
             same way, at 3D specs whose blocks need more than 48 KB of
             shared memory (cap 256; tile 8 at caps 128 and 256) and at caps
             past 256, walked in chunks of 256 slots (the collect: 128), on
@@ -57,7 +58,8 @@ counters over the same frame run eagerly (``replay_launches``).
             frame; each kernel, its plain version and the whole body
             (eager, and 20 bodies in one graph) timed beside the byte bounds
    digests  at cap 256 (one chunk) K1, K4, K2, K5 and K3 give the outputs
-            recorded from the kernels before the chunked walk, bit for bit
+            recorded from the kernels before the chunked walk, bit for bit,
+            and K3's stream and flag those of the unfused collect then
             (tests/data/stream_kernels_cap256.json)
 4. pallas kernels
             the four pallas kernels (p2g1 deposit, force deposit, fused
@@ -226,6 +228,7 @@ import subprocess
 import sys
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -256,6 +259,8 @@ from fluid_tpu_torch.utils.platform import card_info, require_cuda  # noqa: E402
 
 N_1M = 1_000_000
 N_2D = 100_000
+# every launching module's kernel library (ops/cuda_build.py)
+LIBRARIES = (graph_mod.LIBRARY, sk.LIBRARY, pk.LIBRARY, mk.LIBRARY, mst.LIBRARY, mp.LIBRARY)
 REBIN_KERNELS = ("rebin_gather", "rebin_fill")
 SOURCE = {name: "fluid_tpu_torch/csrc/stream_kernels.cu" for name in sk.KERNELS}
 SOURCE.update({name: "fluid_tpu_torch/csrc/rebin_kernels.cu" for name in REBIN_KERNELS})
@@ -313,10 +318,9 @@ def stream_bounds(st, g, D: int) -> dict:
     once (only the valid slots of the stream, only the windows of occupied
     tiles where an empty tile reads none), each output written once (the
     collect's stream and flag: only the valid slots, in place).  The
-    halo has one entry per launch kind: the mass halo (CH = 1, passes
-    [0, D)) and the m+f halo (CH = D, passes [0, D-1)), each reading the
-    count, the face tables and its occupied input windows (the gate), and
-    adding two terms per pass to every output value.  halo_gblk reads the
+    mass halo (CH = 1, the D passes) reads the count, the face tables and
+    the occupied input windows (the gate), and adds two terms per pass to
+    every output value.  halo_gblk reads the
     count, the face tables and the occupied m+f and mass windows, writes
     every grid-value window, and at occupied tiles adds two terms per pass
     and divides and adds once per v value."""
@@ -324,10 +328,6 @@ def stream_bounds(st, g, D: int) -> dict:
     valid = int(st.count.sum())
     occ = int((st.count > 0).sum())
     tiles = 2 * A * F32
-
-    def halo(CH, passes):
-        return ((occ + A) * CH * nc * F32 + (1 + 2 * D) * A * F32, 2 * passes * A * CH * nc)
-
     return {
         "deposit_p2g1": (valid * (2 * D + D * D + 1) * F32 + tiles + A * (1 + D) * nc * F32,
                          particle_ops("p2g1", D, valid)),
@@ -337,8 +337,7 @@ def stream_bounds(st, g, D: int) -> dict:
         "collect": (valid * (D + 2) * F32 + occ * (1 + D) * nc * F32 + tiles
                     + (valid * (g.F + 1) + A * (1 + D) * nc) * F32,
                     particle_ops("collect", D, valid) + particle_ops("p2g1", D, valid)),
-        "halo_mass": halo(1, D),
-        "halo_mf": halo(D, D - 1),
+        "halo_mass": ((occ + A) * nc * F32 + (1 + 2 * D) * A * F32, 2 * D * A * nc),
         "halo_gblk": ((occ * (D + 1) * nc + A * (1 + D) * nc + (1 + 2 * D) * A) * F32,
                       occ * D * nc * (2 * D + 2)),
     }
@@ -363,6 +362,23 @@ def pallas_bounds(act_count, g, D: int) -> dict:
                            + A * pk.slot_rows(D) * g.cap * F32,
                            particle_ops("collect", D, valid)),
     }
+
+
+def load_libraries() -> None:
+    """Build (where not built yet) and load every kernel library, all at
+    once."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(lambda lib: lib.load(), LIBRARIES))
+
+
+def session_libraries() -> None:
+    """Print the kernel libraries this process has loaded after one frame
+    of a stream Session of the 3D reference scene on the card (run in a
+    fresh process)."""
+    cfg, p, dom = scene.reference_scene_3d(seed=0, device=require_cuda())
+    Session(cfg, dom, p, backend="stream").frame()
+    torch.cuda.synchronize()
+    print(" ".join(sorted(cuda_build.LOADED)))
 
 
 def check(ok: bool, what: str) -> None:
@@ -464,13 +480,6 @@ def deposit_params(cfg, device) -> torch.Tensor:
                         dtype=torch.float32, device=device)
 
 
-# the two halo launch kinds, as (channels, last pass): the mass halo of the
-# main path, and the m+f halo's first D - 1 passes, on no path since
-# halo_gblk runs all D passes
-HALO_KINDS = {"halo_mass": lambda D: (1, D), "halo_mf": lambda D: (D, D - 1)}
-HALO_ON_PATH = {"halo_mass": True, "halo_mf": False}
-
-
 def check_gblk(got, want, count, what: str) -> float:
     """halo_gblk against its plain version: the v rows within 1e-6
     relative, the mass row and the zero-count tiles equal; returns the
@@ -488,11 +497,11 @@ def check_gblk(got, want, count, what: str) -> float:
 def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D))):
     """Each stream kernel against its plain version on one binned state at
     the main path's shapes: the 3D 1M dam (whose times go into the kernel
-    table) and a 2D dam of 100,000 (the D=2 instantiations).  Both halo
-    launch kinds are bit-equal to the gated chain of plain passes and
-    halo_gblk matches its plain version (check_gblk); the deposits and the
-    fused collect give bit-equal outputs when launched twice on the same
-    inputs."""
+    table) and a 2D dam of 100,000 (the D=2 instantiations).  The mass
+    halo is bit-equal to the gated chain of plain passes, also through the
+    general kernel at E != 2T with 1 and D channels, and halo_gblk matches
+    its plain version (check_gblk); the deposits and the collect give
+    bit-equal outputs when launched twice on the same inputs."""
     results = {}
     for dim, n in sizes:
         cfg, spec, st, g = stream_state(device, n, dim)
@@ -504,37 +513,29 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
 
         d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
         m1 = d1[:, :1].contiguous()
-        m = sk.halo_axes(m1, st.count, nbr, g, 0, D)
+        m = sk.halo_axes(m1, st.count, nbr, g)
         d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
         gblk = sk.halo_gblk(d2, m, st.count, nbr, dtg, g)
-        halo_in = {"halo_mass": m1, "halo_mf": d2}
         print(f"[kernels] {dim}D n={n} A={spec.A} occupied={int((st.count > 0).sum())} "
               f"need={int(st.need_peak[0])} windows={tuple(d1.shape)} stream={tuple(st.stream.shape)}")
-
-        def halo_case(kind):
-            CH, last = HALO_KINDS[kind](D)
-            xin = halo_in[kind]
-            return (lambda: sk.halo_axes(xin, st.count, nbr, g, 0, last),
-                    lambda: sk.halo_axes_plain(xin, st.count, nbr, g, 0, last))
-
         cases = {
             "deposit_p2g1": (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g),
                              lambda: sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
-            "halo_mass": halo_case("halo_mass"),
+            "halo_mass": (lambda: sk.halo_axes(m1, st.count, nbr, g),
+                          lambda: sk.halo_axes_plain(m1, st.count, nbr, g)),
             "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
                              lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6, d1, g)),
-            "halo_mf": halo_case("halo_mf"),
             "halo_gblk": (lambda: sk.halo_gblk(d2, m, st.count, nbr, dtg, g),
                           lambda: sk.halo_gblk_plain(d2, m, st.count, nbr, dtg, g)),
-            "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g, True),
-                        lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)),
+            "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g),
+                        lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g)),
         }
         bounds = stream_bounds(st, g, D)
         # K3 timed as the frame launches it: into the state's own stream and
         # flag, here those of a copy that each launch advances by a substep
         scr = st.clone()
         timed = {"collect": lambda: sk.collect(scr.count, scr.tid, params, scr.stream, gblk, g,
-                                               True, out=(scr.stream, scr.flag))}
+                                               out=(scr.stream, scr.flag))}
         for name, (kern, plain) in cases.items():
             got, want = kern(), plain()
             sync(device)
@@ -547,25 +548,19 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                 check(dep_err <= 1e-4 * scale, f"{dim}D fused p2g1 {dep_err} <= 1e-4 * {scale}")
                 again = kern()
                 check(all(torch.equal(a, b) for a, b in zip(again, got)),
-                      f"{dim}D fused collect bitwise equal across two launches")
-                unf = sk.collect(st.count, st.tid, params, st.stream, gblk, g, False)
-                check(torch.equal(unf[0], got[0]) and torch.equal(unf[1], got[1]),
-                      f"{dim}D unfused collect equals the fused one's rows and flag")
-                unfused_ms = time_ms(lambda: sk.collect(scr.count, scr.tid, params, scr.stream, gblk,
-                                                        g, False, out=(scr.stream, scr.flag)),
-                                     reps, device)
+                      f"{dim}D collect bitwise equal across two launches")
                 # mouse on at the box centre, packed-scene x walls every 64 cells
                 centre = cfg.boundary_clip[1][0] / 2
                 pw = stx.collect_params(cfg, *step.mouse((centre, centre)), 64.0, device)
-                gw = sk.collect(st.count, st.tid, pw, st.stream, gblk, g, True)
-                ww = sk.collect_plain(st.count, st.tid, pw, st.stream, gblk, g, True)
+                gw = sk.collect(st.count, st.tid, pw, st.stream, gblk, g)
+                ww = sk.collect_plain(st.count, st.tid, pw, st.stream, gblk, g)
                 walls_err = float((gw[0] - ww[0]).abs().max())
                 check(walls_err <= 1e-5 and torch.equal(gw[1], ww[1]),
                       f"{dim}D collect with mouse + scene stride: rows {walls_err} <= 1e-5, flag equal")
                 extra = (f" flag_equal=True fused_p2g1_err={dep_err:.3e} (scale {scale:.3e})"
                          f" mouse+stride_err={walls_err:.3e} repeat_bit_equal=True"
-                         f" unfused {unfused_ms:.4f} ms (timed in place)")
-                del again, unf, gw, ww
+                         " (timed in place)")
+                del again, gw, ww
             elif name.startswith("deposit"):
                 scale = float(want.abs().max())
                 err = float((got - want).abs().max())
@@ -577,14 +572,11 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                 rel = check_gblk(got, want, st.count, f"{dim}D")
                 extra = f" max_rel={rel:.3e} mass_row_equal=True zero_tiles_equal=True"
             else:
-                CH, last = HALO_KINDS[name](D)
                 err = float((got - want).abs().max())
-                check(torch.equal(got, want), f"{dim}D {name} (CH={CH}, passes [0, {last})) bit-equal "
-                      "to the gated chain of plain passes")
+                check(torch.equal(got, want), f"{dim}D {name} (CH=1, the {D} passes) bit-equal to "
+                      "the gated chain of plain passes")
                 copy_ms = time_ms(lambda: torch.empty_like(got).copy_(got), reps, device)
-                extra = (f" CH={CH} passes=[0,{last}) bit_equal=True"
-                         f"{'' if HALO_ON_PATH[name] else ' (on no path)'}"
-                         f" (a copy of the output's size: {copy_ms:.4f} ms)")
+                extra = f" CH=1 bit_equal=True (a copy of the output's size: {copy_ms:.4f} ms)"
             del got, want
             ms = time_ms(timed.get(name, kern), reps, device)
             plain_ms = time_ms(plain, max(2, reps // 5), device)
@@ -597,11 +589,12 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
         # the kernel for any other window geometry: E = 10 != 2T (halo 3) on the same tiles
         g3 = dataclasses.replace(g, halo=3)
         gen = torch.Generator(device=device).manual_seed(2)
-        for kind, (CH, last) in ((k, f(D)) for k, f in HALO_KINDS.items()):
+        for CH in (1, D):
             x3 = torch.randn((spec.A, CH, g3.ncell), generator=gen, device=device)
-            check(torch.equal(sk.halo_axes(x3, st.count, nbr, g3, 0, last),
-                              sk.halo_axes_plain(x3, st.count, nbr, g3, 0, last)),
-                  f"{dim}D {kind} with E={g3.E} != 2T bit-equal to the gated chain of plain passes")
+            check(torch.equal(sk.halo_axes(x3, st.count, nbr, g3),
+                              sk.halo_axes_plain(x3, st.count, nbr, g3)),
+                  f"{dim}D halo_axes CH={CH} with E={g3.E} != 2T bit-equal to the gated chain of "
+                  "plain passes")
             del x3
         x3 = torch.randn((spec.A, D, g3.ncell), generator=gen, device=device)
         m3 = torch.rand((spec.A, 1, g3.ncell), generator=gen, device=device)
@@ -609,10 +602,10 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
         rel3 = check_gblk(sk.halo_gblk(x3, m3, st.count, nbr, dtg, g3),
                           sk.halo_gblk_plain(x3, m3, st.count, nbr, dtg, g3), st.count,
                           f"{dim}D E={g3.E}")
-        print(f"[kernels] {dim}D halo_mass and halo_mf at E={g3.E} != 2T (the general kernel): "
+        print(f"[kernels] {dim}D halo_axes CH=1 and CH={D} at E={g3.E} != 2T (the general kernel): "
               f"bit_equal=True; halo_gblk there: max_rel={rel3:.3e}, mass row and zero tiles "
               f"equal  [{card}]")
-        del st, scr, d1, m1, m, d2, gblk, halo_in, x3, m3
+        del st, scr, d1, m1, m, d2, gblk, x3, m3
         torch.cuda.empty_cache()
     for n in [n for dim, n in sizes if dim == 3]:
         kinds = {cap: collect_in_place(device, card, f"3D n={n} T=4 cap={cap}",
@@ -625,15 +618,11 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
         check(state[1].cap == 256 and top > 128, f"{what}: a tile past 128 slots (max count {top})")
         collect_in_place(device, card, what, state, reps)
         del state
-    # K4's one row is the kind the main path launches (the mass halo, once
-    # per substep); both kinds stand under "kinds"
-    kinds = {kind: results.pop(kind) for kind in HALO_KINDS}
-    results["halo_axis"] = {
-        **kinds["halo_mass"],
-        "kinds": {kind: {**{key: k[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-                         "on_path": HALO_ON_PATH[kind]}
-                  for kind, k in kinds.items()},
-    }
+    # K4's row is the mass halo, once per substep; it stands under "kinds"
+    # beside the sharded path's ghost-gated kind
+    mass = results.pop("halo_mass")
+    results["halo_axis"] = {**mass, "kinds": {"halo_mass": {
+        **{key: mass[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")}, "on_path": True}}}
     return results
 
 
@@ -656,18 +645,18 @@ def collect_in_place(device, card: str, what: str, state, reps: int = 10) -> dic
     params6 = deposit_params(cfg, device)
     params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
     d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
-    m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g, 0, D)
+    m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g)
     d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
     gblk = sk.halo_gblk(d2, m, st.count, st.nbr, sk.gravity_step(cfg.dt, cfg.gravity), g)
-    want = sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)
-    fresh = sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)
+    want = sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g)
+    fresh = sk.collect(st.count, st.tid, params, st.stream, gblk, g)
     live = torch.arange(cap, device=device)[None, :] < st.count[:, None]
     runs = []
     for _ in range(2):
         s = st.clone()
         s.stream.masked_fill_(~live[:, None, :], SENTINEL)
         s.flag.fill_(SENTINEL)
-        out = sk.collect(s.count, s.tid, params, s.stream, gblk, g, True, out=(s.stream, s.flag))
+        out = sk.collect(s.count, s.tid, params, s.stream, gblk, g, out=(s.stream, s.flag))
         check(out[0] is s.stream and out[1] is s.flag, f"{what} wrote in place")
         runs.append((s, out[2]))
     sync(device)
@@ -687,7 +676,7 @@ def collect_in_place(device, card: str, what: str, state, reps: int = 10) -> dic
           f"{what}: bit-equal across two launches")
     dead = int((~live).sum())
     del runs, b, dep_b, fresh, want, rows, flags, d1, m, d2
-    ms = time_ms(lambda: sk.collect(a.count, a.tid, params, a.stream, gblk, g, True,
+    ms = time_ms(lambda: sk.collect(a.count, a.tid, params, a.stream, gblk, g,
                                     out=(a.stream, a.flag)), reps, device)
     bound_ms, bound_by = bound(*stream_bounds(st, g, D)["collect"])
     top = int(st.count.max())
@@ -704,7 +693,7 @@ def collect_in_place(device, card: str, what: str, state, reps: int = 10) -> dic
 
 def two_chunk_states(device) -> dict:
     """Makers of states at cap 256 whose fullest tiles hold more than one
-    collect chunk (128 slots), so the fused collect walks them through
+    collect chunk (128 slots), so the collect walks them through
     window_walk: the 2D reference scene after the app's first mouse frame
     (at the fluid's centroid, on the default spec, as the 2D app cell
     drives it) and a 3D dam of N_2D packed into half its height."""
@@ -790,7 +779,7 @@ def phase_rebin(device, card: str, reps: int = 10) -> dict:
 
         tshape, nt = stx._tile_geometry(dom, spec)
         g = stx.tile_geom(dom, spec)
-        stages = stx.substep_stages(cfg, dom, spec, device, fused=True)
+        stages = stx.substep_stages(cfg, dom, spec, device)
         params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
         st = sess.stream_state().clone()
         dep1 = stages.dep1(st)
@@ -885,16 +874,16 @@ def phase_rebin(device, card: str, reps: int = 10) -> dict:
 # dam at bench.py's big-tile spec (T=8, cap 1024) and at T=4, cap 512
 DEPOSIT_GEOMETRIES = ((4, 256, 1, 200_000), (8, 128, 8, 200_000), (8, 256, 4, 200_000),
                       (8, 1024, 1, N_1M), (4, 512, 1, N_1M))
-TIMED_GEOMETRY = (8, 1024)  # its K1, K2 and fused K3 times stand as kinds in the table
+TIMED_GEOMETRY = (8, 1024)  # its K1, K2 and K3 times stand as kinds in the table
 
 
 def phase_deposit_geometries(device, card: str, reps: int = 10) -> dict:
-    """K1, K2, K5 and the fused K3 against their plain versions, at the
+    """K1, K2, K5 and K3 against their plain versions, at the
     tolerances of phase_kernels, the deposits and K3 bit-equal across two
     launches, at the specs of DEPOSIT_GEOMETRIES: the deposit and collect
     launches opt into the larger block, tile 8 (E = 12 != 2T) takes the
     general halo_gblk kernel, and a cap past 256 walks its slots in
-    chunks.  Returns K1, K2 and the fused K3 timed at TIMED_GEOMETRY, as
+    chunks.  Returns K1, K2 and K3 timed at TIMED_GEOMETRY, as
     kinds of their table entries."""
     kinds = {}
     for tile, cap, keep, n in DEPOSIT_GEOMETRIES:
@@ -902,7 +891,7 @@ def phase_deposit_geometries(device, card: str, reps: int = 10) -> dict:
         params6 = deposit_params(cfg, device)
         params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
         d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
-        m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g, 0, 3)
+        m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g)
         d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
         dtg = sk.gravity_step(cfg.dt, cfg.gravity)
         gblk = sk.halo_gblk(d2, m, st.count, st.nbr, dtg, g)
@@ -919,21 +908,21 @@ def phase_deposit_geometries(device, card: str, reps: int = 10) -> dict:
         check(torch.equal(sk.deposit_p2g1(st.count, st.tid, st.stream, g), d1)
               and torch.equal(sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g), d2),
               f"{what} deposits bitwise equal across two launches")
-        got = sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)
-        want = sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)
+        got = sk.collect(st.count, st.tid, params, st.stream, gblk, g)
+        want = sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g)
         rows = float((got[0] - want[0]).abs().max())
         scale = float(want[2].abs().max())
         dep = float((got[2] - want[2]).abs().max())
         errs["collect"] = rows
         check(rows <= 1e-5 and torch.equal(got[1], want[1]) and dep <= 1e-4 * scale,
-              f"{what} fused collect: rows {rows} <= 1e-5, flag equal, p2g1 {dep} <= 1e-4 * {scale}")
-        again = sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)
+              f"{what} collect: rows {rows} <= 1e-5, flag equal, p2g1 {dep} <= 1e-4 * {scale}")
+        again = sk.collect(st.count, st.tid, params, st.stream, gblk, g)
         check(all(torch.equal(a, b) for a, b in zip(again, got)),
-              f"{what} fused collect bitwise equal across two launches")
+              f"{what} collect bitwise equal across two launches")
         print(f"[kernels] {what} A={spec.A} occupied={int((st.count > 0).sum())} "
               f"max count={int(st.count.max())} ({-(-int(st.count.max()) // 256)} chunk(s) of "
               f"256 slots, the collect {-(-int(st.count.max()) // 128)} of 128): deposit_p2g1, "
-              f"deposit_p2g2 and the fused collect agree with plain "
+              f"deposit_p2g2 and the collect agree with plain "
               f"(rows {rows:.3e}, p2g1 {dep:.3e} of {scale:.3e}) and repeat bit-equal; "
               f"halo_gblk max_rel={rel:.3e}, mass row and zero tiles equal  [{card}]")
         del got, want, again
@@ -946,9 +935,9 @@ def phase_deposit_geometries(device, card: str, reps: int = 10) -> dict:
                 "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
                                  lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6,
                                                                d1, g)),
-                "collect": (lambda: sk.collect(scr.count, scr.tid, params, scr.stream, gblk, g, True,
+                "collect": (lambda: sk.collect(scr.count, scr.tid, params, scr.stream, gblk, g,
                                                out=(scr.stream, scr.flag)),
-                            lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g, True)),
+                            lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g)),
             }
             for name, (kern, plain) in cases.items():
                 ms = time_ms(kern, reps, device)
@@ -984,22 +973,22 @@ def _digest(*tensors) -> str:
 def kernel_digests(device, tile: int, cap: int, n: int) -> dict:
     """SHA-256 of each stream kernel's output on the stream state of
     ``stream_state(device, n, 3, tile, cap, rng_device="cpu")``: K1, the
-    mass halo K4, K2, K5, the fused and the unfused K3; "inputs" digests
-    the binned state they read."""
+    mass halo K4, K2, K5 and K3 ("collect"), and K3's stream and flag
+    alone ("collect_unfused", as the unfused collect recorded them);
+    "inputs" digests the binned state they read."""
     cfg, spec, st, g = stream_state(device, n, 3, tile=tile, cap=cap, rng_device="cpu")
     params6 = deposit_params(cfg, device)
     params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
     d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
-    m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g, 0, 3)
+    m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g)
     d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
     gblk = sk.halo_gblk(d2, m, st.count, st.nbr, sk.gravity_step(cfg.dt, cfg.gravity), g)
+    collect = sk.collect(st.count, st.tid, params, st.stream, gblk, g)
     return {"tile": tile, "cap": cap, "n": n,
             "inputs": _digest(st.stream, st.count, st.tid, st.nbr),
             "deposit_p2g1": _digest(d1), "halo_axis": _digest(m), "deposit_p2g2": _digest(d2),
             "halo_gblk": _digest(gblk),
-            "collect": _digest(*sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)),
-            "collect_unfused": _digest(*sk.collect(st.count, st.tid, params, st.stream, gblk, g,
-                                                   False))}
+            "collect": _digest(*collect), "collect_unfused": _digest(*collect[:2])}
 
 
 def phase_digests(device, card: str) -> None:
@@ -1012,8 +1001,9 @@ def phase_digests(device, card: str) -> None:
     check(got["inputs"] == want["inputs"], "digests: the inputs equal the recorded ones")
     differ = [k for k in want if got[k] != want[k]]
     check(not differ, f"digests: bit-equal to the recording, differ: {differ}")
-    print(f"[digests] 3D n={want['n']} T={want['tile']} cap={want['cap']}: K1, K4 mass, K2, K5, "
-          f"fused and unfused K3 bit-equal to the kernels before the chunked walk  [{card}]")
+    print(f"[digests] 3D n={want['n']} T={want['tile']} cap={want['cap']}: K1, K4 mass, K2, K5 "
+          f"and K3 bit-equal to the kernels before the chunked walk, K3's stream and flag to the "
+          f"unfused collect's  [{card}]")
 
 
 def pallas_state(device, n: int, dim: int, tile: int = 0, cap: int = 0, rng_device=None):
@@ -1716,7 +1706,7 @@ def rebin_check_cost_ms(sess: Session, device, substeps: int = 8, rounds: int = 
     the same substeps from the session's state, timed with and without the
     read (no re-bin is taken either way), in alternating order."""
     cfg, dom, spec = sess.cfg, sess.domain, sess.spec
-    stages = stx.substep_stages(cfg, dom, spec, device, fused=True)
+    stages = stx.substep_stages(cfg, dom, spec, device)
     params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
     st0 = sess.stream_state()
 
@@ -2361,7 +2351,7 @@ def zero_tile_share(cfg, spec, dom, st, device, card: str, reps: int = 5) -> Non
     dtg = sk.gravity_step(cfg.dt, cfg.gravity)
     d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
     m1 = d1[:, :1].contiguous()
-    hm = sk.halo_axes(m1, st.count, st.nbr, g, 0, D)
+    hm = sk.halo_axes(m1, st.count, st.nbr, g)
     d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, hm, params6, d1, g)
     gb = sk.halo_gblk(d2, hm, st.count, st.nbr, dtg, g)
 
@@ -2369,10 +2359,10 @@ def zero_tile_share(cfg, spec, dom, st, device, card: str, reps: int = 5) -> Non
         count, tid, stream, d1k, m1k, hmk, d2k, gbk = (
             t[:k].contiguous() for t in (st.count, st.tid, st.stream, d1, m1, hm, d2, gb))
         return {"deposit_p2g1": lambda: sk.deposit_p2g1(count, tid, stream, g),
-                "halo_axis": lambda: sk.halo_axes(m1k, count, nbr, g, 0, D),
+                "halo_axis": lambda: sk.halo_axes(m1k, count, nbr, g),
                 "deposit_p2g2": lambda: sk.deposit_p2g2(count, tid, stream, hmk, params6, d1k, g),
                 "halo_gblk": lambda: sk.halo_gblk(d2k, hmk, count, nbr, dtg, g),
-                "collect": lambda: sk.collect(count, tid, params, stream, gbk, g, True)}
+                "collect": lambda: sk.collect(count, tid, params, stream, gbk, g)}
 
     full = cases(A, st.nbr)
     cut = {"occupied": (occ, cases(occ, None)), "occupied+relay": (used, cases(used, tables))}
@@ -2479,7 +2469,7 @@ def shard_kernel_check(states, sspec, cfg, card: str, reps: int = 10) -> dict:
     k = max(range(len(states)), key=lambda i: int(states[i].st.count.sum()))
     ss, mk = states[k], m1[k]
     st, gate = ss.st, ss.gate
-    hs_m = [sk.halo_axes(m, s2.st.count, s2.st.nbr, g, 0, D, gate=s2.gate) for m, s2 in zip(m1, states)]
+    hs_m = [sk.halo_axes(m, s2.st.count, s2.st.nbr, g, gate=s2.gate) for m, s2 in zip(m1, states)]
     d2 = tsh._exchange_blocks(
         [sk.deposit_p2g2(s2.st.count, s2.st.tid, s2.st.stream, h, p6, d1, g)
          for s2, h, p6, d1 in zip(states, hs_m, stages.params6, dep1)], states)
@@ -2487,8 +2477,8 @@ def shard_kernel_check(states, sspec, cfg, card: str, reps: int = 10) -> dict:
     check(bool((x2[gate > st.count] != 0).any()) and bool((mk[gate > st.count] != 0).any()),
           "shards: the exchange filled ghost windows")
     cases = {
-        "halo_mass_ghost": (lambda: sk.halo_axes(mk, st.count, st.nbr, g, 0, D, gate=gate),
-                            lambda: sk.halo_axes_plain(mk, st.count, st.nbr, g, 0, D, gate=gate)),
+        "halo_mass_ghost": (lambda: sk.halo_axes(mk, st.count, st.nbr, g, gate=gate),
+                            lambda: sk.halo_axes_plain(mk, st.count, st.nbr, g, gate=gate)),
         "halo_gblk_ghost": (lambda: sk.halo_gblk(x2, hk, st.count, st.nbr, stages.dtg, g, gate=gate),
                             lambda: sk.halo_gblk_plain(x2, hk, st.count, st.nbr, stages.dtg, g,
                                                        gate=gate)),
@@ -2712,7 +2702,6 @@ def trace_witness(frames: int = 3) -> None:
     stretch place the kernels of IF bodies milliseconds from where they ran
     and its frame stamps drift 14 us a frame from the recorder's."""
     device, card = require_cuda(), card_info()
-    cuda_build.load()
     cfg, p, dom = dam_1m(device)
     sess = Session(cfg, dom, p, spec=TRACE_SPEC, device=device)
     sess.run(2)
@@ -2807,8 +2796,8 @@ def csrc_launch_name(key: str):
     """The wrapper (a key of ``sk.LAUNCHES`` or ``pk.LAUNCHES``) whose kernel
     a profiler kernel event ``key`` is, or None: the stream deposit is
     ``deposit_kernel<D, P2G2, MULTI>`` over a ``Geom``, the pallas one
-    ``deposit_kernel<D, MODE>``; the stream collect has two template
-    arguments, the pallas one one; the halo kernels' last argument is
+    ``deposit_kernel<D, MODE>``; the stream collect is ``collect_kernel<D>``
+    over a ``Geom``, the pallas one over a ``PGeom``; the halo kernels' last argument is
     GBLK; the re-bin's kernels are ``rebin_gather_kernel<D>`` and
     ``rebin_fill_kernel<D>``."""
     m = re.search(r"\(anonymous namespace\)::(deposit_kernel|collect_kernel|halo_axes_kernel"
@@ -2823,7 +2812,7 @@ def csrc_launch_name(key: str):
             return "deposit_p2g2" if args[1] == "true" else "deposit_p2g1"
         return {"1": "pallas_deposit_p2g1", "2": "pallas_deposit_force", "3": "pallas_p2g2"}[args[1]]
     if kind == "collect_kernel":
-        return "collect" if len(args) == 2 else "pallas_collect"
+        return "pallas_collect" if "PGeom" in key else "collect"
     return "halo_gblk" if args[-1] == "true" else "halo_axis"
 
 
@@ -3003,15 +2992,24 @@ def main() -> int:
     print(card)
 
     t0 = time.perf_counter()
-    cuda_build.load()
+    load_libraries()
     build_s = time.perf_counter() - t0
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_ptxas.txt"), "w") as fh:
-        fh.write(cuda_build.build_log)
-    steps = ", ".join(f"{name} {secs:.2f} s" for name, secs in cuda_build.build_seconds.items())
-    print(f"[build] {cuda_build.library_path().name} in {build_s:.2f} s ({steps or 'cached'}; "
-          f"ptxas report: chiprun_out/chip_smoke_ptxas.txt)")
+        fh.write("".join(lib.build_log for lib in LIBRARIES))
+    for lib in LIBRARIES:
+        steps = ", ".join(f"{name} {secs:.2f} s" for name, secs in lib.build_seconds.items())
+        print(f"[build] {lib.name}: {lib.path().name} ({steps or 'cached'})")
+    print(f"[build] {len(LIBRARIES)} libraries in {build_s:.2f} s (ptxas report: "
+          f"chiprun_out/chip_smoke_ptxas.txt)")
+    fresh = subprocess.run([sys.executable, "-c", "import chip_smoke as c; c.session_libraries()"],
+                           capture_output=True, text=True, timeout=300, cwd=ROOT)
+    check(fresh.returncode == 0 and fresh.stdout.split() == ["graph", "stream"],
+          f"a fresh process's stream Session frame loads the graph and stream libraries only: "
+          f"{fresh.stdout.strip()!r} {fresh.stderr[-600:]}")
+    print(f"[build] a fresh process's stream Session frame loaded: {fresh.stdout.strip()}  "
+          f"[{card}]")
 
     def run(phase, *args):
         """Run one phase and print its wall seconds."""
@@ -3079,7 +3077,7 @@ if __name__ == "__main__":
         # record of DIGESTS (stream) or PALLAS_DIGESTS (pallas) from the
         # kernels of the package beside this script
         kind, path = sys.argv[2:4]
-        cuda_build.load()
+        load_libraries()
         dev = require_cuda()
         if kind == "stream":
             record = kernel_digests(dev, 4, 256, 200_000)

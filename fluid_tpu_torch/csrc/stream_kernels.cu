@@ -4,12 +4,11 @@
 //
 //   deposit_kernel<D, P2G2=false>  make_deposit_kernel(mode="p2g1")   (:676)
 //   deposit_kernel<D, P2G2=true>   make_deposit_kernel(mode="p2g2")   (:676)
-//   collect_kernel<D, FUSED>       make_collect_kernel(fused_p2g1)    (:1163)
-//   halo_axes_kernel<NP, CH, false>  _make_halo_axis, NP passes chained (:2006)
-//   halo_axes_kernel<D, D, true>     _make_halo_gblk (:1882) with the D - 1
-//                                    _make_halo_axis passes ahead of it
-//     (halo_axes_any_kernel<NP, GBLK> for E != 2T and other pass/channel
-//     counts)
+//   collect_kernel<D>              make_collect_kernel(fused_p2g1=True) (:1163)
+//   halo_axes_kernel<D, 1, false>  _make_halo_axis, all D passes chained (:2006)
+//   halo_axes_kernel<D, D, true>   _make_halo_gblk (:1882) with the D - 1
+//                                  _make_halo_axis passes ahead of it
+//     (halo_axes_any_kernel<D, GBLK> for E != 2T and other channel counts)
 //
 // Layouts (tile-major; A active tiles, slots per tile cap, window E = T+2h):
 //   stream [A, F, cap]  fields as rows, so thread j reading slot j of a field
@@ -566,7 +565,7 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 // not touched (they hold zeros in every stream the port keeps), so a
 // caller that wants a new buffer passes one filled with zeros.  A tile of
 // count 0 writes only its zero p2g1 windows.
-// FUSED also deposits the next substep's p2g1 windows from the updated
+// It also deposits the next substep's p2g1 windows from the updated
 // particles (the walk of deposit_kernel<D, false>): a tile of one chunk
 // through deposit_window, a longer one chunk by chunk through window_walk,
 // both in slot order, so the windows do not depend on the chunking.
@@ -580,11 +579,11 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 // Bound: by the layout, per occupied tile it reads the live slots' position,
 // mass and id (20 B a particle in 3D) and the gblk window (8 KB, 27 taps
 // per particle, within one 8 KB block so they hit L1/L2) and writes the
-// live rows (76 B a particle) and flags and, fused, 8 KB of windows; an
+// live rows (76 B a particle) and flags and 8 KB of windows; an
 // empty tile writes its 8 KB of zero windows: ~0.51 GB per call at the 1M
 // shape (32,768 tiles, 17,554 occupied), where writing every slot at cap
 // 256 made it ~1.2 GB.
-// Measured at that shape on an NVIDIA H100 80GB HBM3 (700 W), fused, in a
+// Measured at that shape on an NVIDIA H100 80GB HBM3 (700 W), in a
 // graph, on the 1M dam after 40 frames (15,824 occupied tiles of up to 97
 // particles): 0.404 ms at caps 128 and 256, 2.7x the byte bound (0.149
 // ms).  Writing every slot through a chunk of min(cap, 256) took 0.470,
@@ -598,7 +597,7 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 //
 // params: [dt, rest, k, gamma, floor, mouse_radius, damp, mouse_active,
 //          mouse_x, mouse_y, lo[D], hi[D], scene_stride].
-template <int D, bool FUSED>
+template <int D>
 __global__ void collect_kernel(Geom g, const int* __restrict__ count,
                                const int* __restrict__ tidv,
                                const float* __restrict__ params,
@@ -611,11 +610,9 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
   const int a = blockIdx.x;
   const int cap = g.cap, F = g.F;
   const int cnt = count[a];
-  float* tile_dep = FUSED ? dep + static_cast<int64_t>(a) * (1 + D) * g.ncell : nullptr;
+  float* tile_dep = dep + static_cast<int64_t>(a) * (1 + D) * g.ncell;
   if (cnt == 0) {
-    if (FUSED) {
-      for (int i = threadIdx.x; i < (1 + D) * g.ncell; i += blockDim.x) tile_dep[i] = 0.0f;
-    }
+    for (int i = threadIdx.x; i < (1 + D) * g.ncell; i += blockDim.x) tile_dep[i] = 0.0f;
     return;
   }
   const float* blk = stream + static_cast<int64_t>(a) * F * cap;
@@ -623,7 +620,7 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
   float* tflag = flag + static_cast<int64_t>(a) * cap;
   const int tid = tidv[a];
   const Stage<D> sh(smem);
-  float* win = FUSED ? smem + Stage<D>::words_per_slot() * g.chunk : nullptr;
+  float* win = smem + Stage<D>::words_per_slot() * g.chunk;
   for (int c0 = 0; c0 < cnt; c0 += g.chunk) {  // blockDim.x == g.chunk
     const int s = c0 + threadIdx.x;
     const bool valid = s < cnt;
@@ -676,22 +673,21 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
       oblk[(2 * D + D * D + 3) * cap + s] = pressure;
       tflag[s] = fl;
     }
-    if (FUSED) {  // stage the chunk's updated particles, then walk them
-      if (valid) sh.store(threadIdx.x, stencil_of<D>(g, tid, newpos), mass, v, newC);
-      __syncthreads();
-      if (cnt <= g.chunk) {  // the whole tile in one chunk
-        deposit_window<D, false>(sh, g, cnt, win, tile_dep, nullptr);
-        return;
-      }
-      if (c0 == 0) {
-        window_clear<1 + D>(g, win);
-        __syncthreads();
-      }
-      window_walk<D, false, 1>(sh, g, cnt, c0, min(g.chunk, cnt - c0), win);
-      __syncthreads();  // the walk has read the stage before the next chunk
+    // stage the chunk's updated particles, then walk them
+    if (valid) sh.store(threadIdx.x, stencil_of<D>(g, tid, newpos), mass, v, newC);
+    __syncthreads();
+    if (cnt <= g.chunk) {  // the whole tile in one chunk
+      deposit_window<D, false>(sh, g, cnt, win, tile_dep, nullptr);
+      return;
     }
+    if (c0 == 0) {
+      window_clear<1 + D>(g, win);
+      __syncthreads();
+    }
+    window_walk<D, false, 1>(sh, g, cnt, c0, min(g.chunk, cnt - c0), win);
+    __syncthreads();  // the walk has read the stage before the next chunk
   }
-  if (FUSED) window_store<D, false>(g, win, tile_dep, nullptr);
+  window_store<D, false>(g, win, tile_dep, nullptr);
 }
 
 // Halo windows overlap by E - T = 2h cells along each axis.  One pass along
@@ -700,10 +696,10 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
 // cells e_k < E - T; a neighbour index == A reads as zero.  Both
 // directions read the pass input.
 //
-// Passes [first, first + NP) chained, as one tree per output cell.  The
-// value after pass k at (tile t, cell c) is
+// The NP = D passes chained, as one tree per output cell.  The value
+// after pass k at (tile t, cell c) is
 //   (v_k(t, c) + [c_k >= T] v_k(p_k(t), c - T s_k)) + [c_k < E-T] v_k(m_k(t), c + T s_k)
-// with v_first the gated input; a masked term and a tile A add 0.0f.  Its
+// with v_0 the gated input; a masked term and a tile A add 0.0f.  Its
 // leaves are raw input reads at the end of a route of neighbour tiles; a
 // thread evaluates the tree in the passes' order, so the result is
 // bit-identical to the chained passes.  Node n's children are 3n (own),
@@ -729,8 +725,8 @@ struct GridUpdate {
 // Leaf 0 is the tile itself: A there means the tile holds no particle.
 template <int NP>
 __device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ count,
-                                            const int* __restrict__ nbr, int A, int first,
-                                            int tpb, int a0) {
+                                            const int* __restrict__ nbr, int A, int tpb,
+                                            int a0) {
   constexpr int K = pow3(NP);
   for (int i = threadIdx.x; i < tpb * K; i += blockDim.x) {
     const int j = i / K, leaf = i - j * K;
@@ -739,15 +735,15 @@ __device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ 
     for (int l = NP - 1; l >= 0; --l) {  // the top level (last pass) first
       digit_of /= 3;
       const int digit = (leaf / digit_of) % 3;
-      if (digit != 0 && t < A) t = nbr[static_cast<int64_t>(2 * (first + l) + digit - 1) * A + t];
+      if (digit != 0 && t < A) t = nbr[static_cast<int64_t>(2 * l + digit - 1) * A + t];
     }
     route[i] = t < A && count[t] > 0 ? t : A;
   }
 }
 
 // halo_axes_kernel — replaces _make_halo_axis (stream_transfer.py:2006),
-// NP of its passes chained in one launch, for the window geometry of every
-// stream spec the port builds, E = 2T (h = T/2).  There one of a level's
+// all NP = D of its passes chained in one launch, for the window geometry
+// of every stream spec the port builds, E = 2T (h = T/2).  There one of a level's
 // two masks is always on: a cell's tree has 2^NP leaves, leaf b taking the
 // neighbour at level l where bit l is set, and a level sums as
 // (own + nb) + 0.0f or (own + 0.0f) + nb.  The input is read as
@@ -769,12 +765,11 @@ __device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ 
 //
 // Bound: bytes, each occupied input window read once and every output
 // window written once: at the 1M shape (32,768 tiles, 17,554 occupied)
-// 36 + 67 MB for the mass launch and 108 + 201 MB for the m+f launch.
+// 36 + 67 MB for the mass launch.
 // Measured there on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py:
-// 0.12 ms (mass, 3 passes) and 0.17 ms (m+f, 2 passes), where one
-// separate launch per pass took 0.35 ms and 0.63 ms, and a copy of the
-// output's size 0.05 ms and 0.14 ms.  The mass launch waits on its routes
-// (three dependent table reads per tile) more than on bytes.
+// 0.12 ms (mass, 3 passes), where one separate launch per pass took
+// 0.35 ms, and a copy of the output's size 0.05 ms.  It waits on its
+// routes (three dependent table reads per tile) more than on bytes.
 //
 // halo_axes_kernel<D, D, true> (GBLK) — replaces _make_halo_gblk
 // (stream_transfer.py:1882) with the D - 1 _make_halo_axis passes ahead of
@@ -794,8 +789,8 @@ __device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ 
 template <int NP, int CH, bool GBLK>
 __global__ void __launch_bounds__(128) halo_axes_kernel(
     const float* __restrict__ x, const int* __restrict__ count, const int* __restrict__ nbr,
-    float* __restrict__ out, int A, int ncell, int E, int T, int first, int tpb, FastDiv divN,
-    FastDiv divE, HaloLevels lv, GridUpdate up) {
+    float* __restrict__ out, int A, int ncell, int E, int T, int tpb, FastDiv divN, FastDiv divE,
+    HaloLevels lv, GridUpdate up) {
   extern __shared__ int route[];  // [tpb][3^NP]
   constexpr int K = pow3(NP), B = 1 << NP, CPT = CH * B > 16 ? 2 : 4;
   const int a0 = blockIdx.x * tpb;
@@ -810,7 +805,7 @@ __global__ void __launch_bounds__(128) halo_axes_kernel(
       return;
     }
   }
-  halo_routes<NP>(route, count, nbr, A, first, tpb, a0);
+  halo_routes<NP>(route, count, nbr, A, tpb, a0);
   __syncthreads();
   for (int base = 0; base < tpb * ncell; base += CPT * 128) {
     float v[CPT][CH][B];
@@ -912,12 +907,12 @@ __device__ __forceinline__ float halo_tree(const HaloCell& c, int node, int e) {
 template <int NP, bool GBLK>
 __global__ void __launch_bounds__(128) halo_axes_any_kernel(
     const float* __restrict__ x, const int* __restrict__ count, const int* __restrict__ nbr,
-    float* __restrict__ out, int A, int CH, int ncell, int E, int T, int first, int tpb,
-    FastDiv divN, FastDiv divE, HaloLevels lv, GridUpdate up) {
+    float* __restrict__ out, int A, int CH, int ncell, int E, int T, int tpb, FastDiv divN,
+    FastDiv divE, HaloLevels lv, GridUpdate up) {
   extern __shared__ int route[];  // [tpb][3^NP]
   constexpr int K = pow3(NP);
   const int a0 = blockIdx.x * tpb;
-  halo_routes<NP>(route, count, nbr, A, first, tpb, a0);
+  halo_routes<NP>(route, count, nbr, A, tpb, a0);
   __syncthreads();
   for (int it = threadIdx.x; it < tpb * ncell; it += blockDim.x) {
     const int j = div_by(it, divN), e = it - j * ncell;
@@ -1011,14 +1006,13 @@ int launch_tiles(void (*kernel)(Geom, P...), const Geom& g, int threads, size_t 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Halo passes [first, last) over windows [A, CH, E^dim] in one launch of
-// halo_axes_kernel (E = 2T, the substep's (passes, channels) pairs) or
+// The dim halo passes over windows [A, CH, E^dim] in one launch of
+// halo_axes_kernel (E = 2T, the substep's channel counts) or
 // halo_axes_any_kernel (every other call); GBLK with the grid update.
 template <bool GBLK>
 int launch_halo(const float* x, const int* count, const int* nbr, float* out, int A, int CH,
-                int dim, int E, int T, int first, int last, GridUpdate up, cudaStream_t st) {
-  if (dim < 2 || dim > 3 || first < 0 || first >= last || last > dim || CH < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+                int dim, int E, int T, GridUpdate up, cudaStream_t st) {
+  if (dim < 2 || dim > 3 || CH < 1) return static_cast<int>(cudaErrorInvalidValue);
   int ncell = 1;
   for (int d = 0; d < dim; ++d) ncell *= E;
   if (static_cast<int64_t>(A) * (GBLK ? CH + 1 : CH) * ncell >= (int64_t{1} << 31))
@@ -1029,33 +1023,28 @@ int launch_halo(const float* x, const int* count, const int* nbr, float* out, in
   HaloLevels lv;
   for (int l = 0; l < 3; ++l) {
     int stride = 1;
-    for (int d = first + l + 1; d < dim; ++d) stride *= E;
+    for (int d = l + 1; d < dim; ++d) stride *= E;
     lv.stride[l] = fast_div(stride);
     lv.sh[l] = T * stride;
   }
   const FastDiv divN = fast_div(ncell), divE = fast_div(E);
-  const size_t smem = static_cast<size_t>(tpb) * pow3(last - first) * sizeof(int);
-  const int NP = last - first;
+  const size_t smem = static_cast<size_t>(tpb) * pow3(dim) * sizeof(int);
 #define HALO_AXES(np, ch)                                                                   \
-  if (E == 2 * T && NP == np && CH == ch) {                                                 \
+  if (E == 2 * T && dim == np && CH == ch) {                                                \
     halo_axes_kernel<np, ch, GBLK><<<blocks, threads, smem, st>>>(                          \
-        x, count, nbr, out, A, ncell, E, T, first, tpb, divN, divE, lv, up);                \
+        x, count, nbr, out, A, ncell, E, T, tpb, divN, divE, lv, up);                       \
     return static_cast<int>(cudaGetLastError());                                            \
   }
 #define HALO_ANY(np)                                                                        \
-  if (NP == np)                                                                             \
+  if (dim == np)                                                                            \
     halo_axes_any_kernel<np, GBLK><<<blocks, threads, smem, st>>>(                          \
-        x, count, nbr, out, A, CH, ncell, E, T, first, tpb, divN, divE, lv, up);
+        x, count, nbr, out, A, CH, ncell, E, T, tpb, divN, divE, lv, up);
   if constexpr (GBLK) {
-    // the m+f halo of all D passes (CH = D), in 3D and in 2D
-    HALO_AXES(3, 3) HALO_AXES(2, 2)
-    HALO_ANY(2) HALO_ANY(3)
+    HALO_AXES(3, 3) HALO_AXES(2, 2)  // the m+f halo (CH = D)
   } else {
-    // the mass halo (D passes, CH = 1), and the m+f halo's first D - 1
-    // passes (CH = D), the two-launch form of halo_gblk: on no path
-    HALO_AXES(3, 1) HALO_AXES(2, 3) HALO_AXES(2, 1) HALO_AXES(1, 2)
-    HALO_ANY(1) HALO_ANY(2) HALO_ANY(3)
+    HALO_AXES(3, 1) HALO_AXES(2, 1)  // the mass halo (CH = 1)
   }
+  HALO_ANY(2) HALO_ANY(3)
 #undef HALO_AXES
 #undef HALO_ANY
   return static_cast<int>(cudaGetLastError());
@@ -1070,13 +1059,11 @@ int launch_deposit(const Geom& g, cudaStream_t st, Args... args) {
                            : launch_tiles(deposit_kernel<D, P2G2, false>, g, threads, smem, st, args...);
 }
 
-// A collect launch, in chunks of COLLECT_CHUNK slots; the unfused collect
-// needs no shared memory.
-template <int D, bool FUSED, typename... Args>
+// A collect launch, in chunks of COLLECT_CHUNK slots.
+template <int D, typename... Args>
 int launch_collect(Geom g, cudaStream_t st, Args... args) {
   g.chunk = g.cap < COLLECT_CHUNK ? g.cap : COLLECT_CHUNK;
-  const size_t smem = FUSED ? block_bytes<D>(g, 1 + D) : 0;
-  return launch_tiles(collect_kernel<D, FUSED>, g, g.chunk, smem, st, args...);
+  return launch_tiles(collect_kernel<D>, g, g.chunk, block_bytes<D>(g, 1 + D), st, args...);
 }
 
 }  // namespace
@@ -1097,23 +1084,21 @@ int fluid_deposit(int dim, int mode, const int* count, const int* tid,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int fluid_collect(int dim, int fused, const int* count, const int* tid,
-                  const float* params, const float* stream, const float* gblk,
-                  float* out_stream, float* flag, float* dep, int A, int T, int h,
-                  int cap, const int* tshape, const int* origin, void* cuda_stream) {
+int fluid_collect(int dim, const int* count, const int* tid, const float* params,
+                  const float* stream, const float* gblk, float* out_stream, float* flag,
+                  float* dep, int A, int T, int h, int cap, const int* tshape,
+                  const int* origin, void* cuda_stream) {
   const Geom g = make_geom(dim, A, T, h, cap, tshape, origin);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  if (dim == 2 && !fused) return launch_collect<2, false>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
-  if (dim == 2 && fused) return launch_collect<2, true>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
-  if (dim == 3 && !fused) return launch_collect<3, false>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
-  if (dim == 3 && fused) return launch_collect<3, true>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 2) return launch_collect<2>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 3) return launch_collect<3>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Halo passes [first, last) over windows [A, CH, E^dim], in one launch.
+// The dim halo passes over windows [A, CH, E^dim], in one launch.
 int fluid_halo_axes(const float* x, const int* count, const int* nbr, float* out, int A,
-                    int CH, int dim, int E, int T, int first, int last, void* cuda_stream) {
-  return launch_halo<false>(x, count, nbr, out, A, CH, dim, E, T, first, last,
+                    int CH, int dim, int E, int T, void* cuda_stream) {
+  return launch_halo<false>(x, count, nbr, out, A, CH, dim, E, T,
                             GridUpdate{nullptr, {0.0f, 0.0f, 0.0f}},
                             static_cast<cudaStream_t>(cuda_stream));
 }
@@ -1123,7 +1108,7 @@ int fluid_halo_axes(const float* x, const int* count, const int* nbr, float* out
 int fluid_halo_gblk(const float* x, const float* hs_m, const int* count, const int* nbr,
                     float* out, int A, int dim, int E, int T, float dtg0, float dtg1,
                     float dtg2, void* cuda_stream) {
-  return launch_halo<true>(x, count, nbr, out, A, dim, dim, E, T, 0, dim,
+  return launch_halo<true>(x, count, nbr, out, A, dim, dim, E, T,
                            GridUpdate{hs_m, {dtg0, dtg1, dtg2}},
                            static_cast<cudaStream_t>(cuda_stream));
 }

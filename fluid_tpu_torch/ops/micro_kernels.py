@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from . import cuda_build
 from .stream_kernels import _check, _launch, _on_cpu, _ptr
 
 G, CAP, E, R = 8, 128, 8, 12
@@ -48,6 +49,7 @@ PLAIN_CHUNK = 256
 
 KERNELS = ("micro_prefix_copy", "micro_bulk_copy", "micro_window_deposit", "micro_window_gather")
 LAUNCHES = {name: 0 for name in KERNELS}
+LIBRARY = cuda_build.Library("micro_kernels", ("micro_kernels.cu",))
 COPY_PB = (2, 4, 8, 16)
 DEPOSIT_FORMS = {"wide": 0, "zfac": 1, "onewindow": 2, "sep": 3}
 GATHER_KINDS = {"rho": 1, "g2p": 16}
@@ -122,7 +124,7 @@ def prefix_copy(src: torch.Tensor, rows: int, lanes: int, pb: int = 4) -> torch.
                          "must be multiples of 4, src 16-byte aligned")
     out = torch.empty((ng, rows, lanes), dtype=torch.float32, device=src.device)
     _launch("micro_prefix_copy", "fluid_micro_prefix_copy", pb, _ptr(src), per, _ptr(out), n, ng,
-            counts=LAUNCHES)
+            lib=LIBRARY, counts=LAUNCHES)
     return out
 
 
@@ -146,7 +148,7 @@ def bulk_copy(x: torch.Tensor, chunk: int) -> torch.Tensor:
         raise ValueError("the bulk copy moves 16-byte units: group bytes a multiple of 16")
     out = torch.empty_like(x)
     _launch("micro_bulk_copy", "fluid_micro_bulk_copy", _ptr(x), _ptr(out), group_bytes, ng, chunk,
-            counts=LAUNCHES)
+            lib=LIBRARY, counts=LAUNCHES)
     return out
 
 
@@ -218,7 +220,7 @@ def window_deposit(form: str, U, wx, wy, wz, part=None, part_scale: float = 1.0)
     _launch("micro_window_deposit", "fluid_micro_deposit", DEPOSIT_FORMS[form],
             _ptr(U), U.stride(0), _ptr(wx), wx.stride(0), _ptr(wy), wy.stride(0),
             _ptr(wz), wz.stride(0), _ptr(part), 0 if part is None else part.stride(0),
-            float(part_scale), _ptr(out), ng, counts=LAUNCHES)
+            float(part_scale), _ptr(out), ng, lib=LIBRARY, counts=LAUNCHES)
     return out
 
 
@@ -263,5 +265,5 @@ def window_gather(kind: str, form: str, x, wx, wy, wz) -> torch.Tensor:
     out = torch.empty((ng, 8 if kind == "rho" else 16, GL), dtype=torch.float32, device=dev)
     _launch("micro_window_gather", "fluid_micro_gather", GATHER_KINDS[kind], GATHER_FORMS[form],
             _ptr(x), x.stride(0), _ptr(wx), wx.stride(0), _ptr(wy), wy.stride(0),
-            _ptr(wz), wz.stride(0), _ptr(out), ng, counts=LAUNCHES)
+            _ptr(wz), wz.stride(0), _ptr(out), ng, lib=LIBRARY, counts=LAUNCHES)
     return out

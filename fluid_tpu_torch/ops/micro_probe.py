@@ -41,12 +41,14 @@ from typing import Callable, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import cuda_build
 from .stream_kernels import _check, _launch, _on_cpu, _ptr
 
 GL, E, CAP = 1024, 8, 128  # the script's GL, E, cap
 
 KERNELS = ("micro_probe_map", "micro_probe_contract", "micro_probe_roll_merge")
 LAUNCHES = {name: 0 for name in KERNELS}
+LIBRARY = cuda_build.Library("micro_probe", ("micro_probe.cu",))
 
 
 def reset_launches() -> None:
@@ -196,11 +198,11 @@ def probe(name: str, *xs: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         entry = "fluid_" + spec.kernel
         if spec.kernel == _ROLL:
-            _launch(_ROLL, entry, _ptr(xs[0]), _ptr(out), counts=LAUNCHES)
+            _launch(_ROLL, entry, _ptr(xs[0]), _ptr(out), lib=LIBRARY, counts=LAUNCHES)
         else:
             b = xs[1] if len(xs) > 1 else None
             _launch(spec.kernel, entry, spec.code, _ptr(xs[0]), _ptr(b), _ptr(out),
-                    counts=LAUNCHES, what=name)
+                    lib=LIBRARY, counts=LAUNCHES, what=name)
     return out
 
 
@@ -211,4 +213,4 @@ def empty_launch(device) -> None:
     if device.type != "cuda":
         raise ValueError(f"the empty kernel runs on cuda, not {device}")
     with torch.cuda.device(device):
-        _launch("micro_probe_empty", "fluid_micro_probe_empty", counts=None)
+        _launch("micro_probe_empty", "fluid_micro_probe_empty", lib=LIBRARY, counts=None)

@@ -51,11 +51,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import cuda_build
 from .stream_kernels import _ints, _launch, _on_cpu, _ptr
 
 KERNELS = ("micro_stage_fill", "micro_window_contract", "micro_p2g1_deposit",
            "micro_window_collect")
 LAUNCHES = {name: 0 for name in KERNELS}
+LIBRARY = cuda_build.Library("micro_stream", ("micro_stream.cu",))
 PLAIN_TILES = 512  # tiles a step of the plain versions, so W0 is never held for all
 MAX_VALUES = 16  # fill values a program (its tiles)
 DEPOSIT_FORMS = {"current": 0, "onewindow": 1, "raw": 2}
@@ -313,7 +315,8 @@ def stage_fill(src, view: Strided, *, tb: int, nval: int, nprog: int, out_shape,
     with torch.cuda.device(dev):
         _launch("micro_stage_fill", "fluid_micro_stage_fill", int(nodma), _ptr(src),
                 _ptr(view.starts), view.params(), ctypes.cast(offs_arr, ctypes.c_void_p), tb, nval,
-                nprog, nseg, seg_len, seg_stride, out_len, out.numel(), _ptr(out), counts=LAUNCHES)
+                nprog, nseg, seg_len, seg_stride, out_len, out.numel(), _ptr(out), lib=LIBRARY,
+                counts=LAUNCHES)
     return out
 
 
@@ -346,7 +349,7 @@ def window_contract(src, view: Strided, w: Window, A: int, N: int):
     with torch.cuda.device(dev):
         _launch("micro_window_contract", "fluid_micro_window_contract", w.E, N, _ptr(src),
                 _ptr(view.starts), view.params(), A, w.cap, w.T, _ints(w.tshape), _ptr(out),
-                counts=LAUNCHES, what=f"E = {w.E}, N = {N}")
+                lib=LIBRARY, counts=LAUNCHES, what=f"E = {w.E}, N = {N}")
     return out
 
 
@@ -406,7 +409,7 @@ def p2g1_deposit(src, view: Strided, count, tid, w: Window, *, form: str, A: int
         _launch("micro_p2g1_deposit", "fluid_micro_p2g1", w.E, DEPOSIT_FORMS[form], _ptr(src),
                 _ptr(view.starts), view.params(), _ptr(count), _ptr(tid), _ptr(out),
                 out_view.params(), max(ep, w.E3), A, written, tpc, w.cap, w.T, _ints(w.tshape),
-                counts=LAUNCHES, what=f"E = {w.E}, form {form}")
+                lib=LIBRARY, counts=LAUNCHES, what=f"E = {w.E}, form {form}")
     return out
 
 
@@ -479,6 +482,6 @@ def window_collect(src, view: Strided, v, v_view: Strided, m, m_view: Strided, w
     with torch.cuda.device(dev):
         _launch("micro_window_collect", "fluid_micro_collect", w.E, _ptr(src), _ptr(view.starts),
                 view.params(), _ptr(v), v_view.params(), _ptr(m), m_view.params(), _ptr(out),
-                out_view.params(), A, written, tpc, w.cap, w.T, _ints(w.tshape), counts=LAUNCHES,
-                what=f"E = {w.E}")
+                out_view.params(), A, written, tpc, w.cap, w.T, _ints(w.tshape), lib=LIBRARY,
+                counts=LAUNCHES, what=f"E = {w.E}")
     return out

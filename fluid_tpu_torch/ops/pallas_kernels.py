@@ -31,6 +31,7 @@ import itertools
 
 import torch
 
+from . import cuda_build
 from .bspline import quadratic_weights
 from .stream_kernels import (TileGeom, _check, _ints, _launch, _on_cpu, _particle_tail,
                              _pressure, _ptr, _tap_sum, _valid_slots)
@@ -38,6 +39,7 @@ from .tiled_transfer import _unflatten
 
 KERNELS = ("pallas_deposit_p2g1", "pallas_deposit_force", "pallas_p2g2", "pallas_collect")
 LAUNCHES = {name: 0 for name in KERNELS}
+LIBRARY = cuda_build.Library("pallas", ("pallas_kernels.cu",))
 _MODES = {"p2g1": 1, "force": 2}
 
 
@@ -231,7 +233,8 @@ def _launch_deposit(name, mode: int, ch: int, stream, mblocks, params,
     with torch.cuda.device(dev):
         _launch(name, "fluid_pallas_deposit", g.dim, mode, _ptr(act_start), _ptr(act_count),
                 _ptr(tile_id), _ptr(stream), _ptr(mblocks), _ptr(params), _ptr(out), A,
-                stream.shape[1], g.tile, g.cap, _ints(g.tshape), _ints(g.origin), counts=LAUNCHES)
+                stream.shape[1], g.tile, g.cap, _ints(g.tshape), _ints(g.origin), lib=LIBRARY,
+                counts=LAUNCHES)
     return out
 
 
@@ -278,5 +281,6 @@ def collect(stream, vblocks, mblocks, act_start, act_count, tile_id, params, g: 
     with torch.cuda.device(dev):
         _launch("pallas_collect", "fluid_pallas_collect", g.dim, _ptr(act_start), _ptr(act_count),
                 _ptr(tile_id), _ptr(params), _ptr(stream), _ptr(vblocks), _ptr(mblocks), _ptr(out),
-                A, stream.shape[1], g.tile, g.cap, _ints(g.tshape), _ints(g.origin), counts=LAUNCHES)
+                A, stream.shape[1], g.tile, g.cap, _ints(g.tshape), _ints(g.origin), lib=LIBRARY,
+                counts=LAUNCHES)
     return out

@@ -12,6 +12,10 @@ Each of the substep's ``deposit_p2g1``, ``deposit_p2g2``, ``collect``,
   raises if the launch reports an error.  There is no fallback from a CUDA
   tensor to the plain version.
 
+``LIBRARY`` builds those two sources into the stream library
+(``cuda_build``) at the first launch; ``_launch`` calls an entry point of
+it, or of the library another module's wrapper passes.
+
 ``LAUNCHES[name]`` counts the kernel launches of each wrapper (never the
 plain versions), one name per TPU kernel and per re-bin kernel, so a run
 can show that its main path went through every kernel; ``halo_axes``
@@ -40,11 +44,13 @@ import numpy as np
 import torch
 
 from ..utils.graph import device_const
+from . import cuda_build
 from .bspline import quadratic_weights, stencil_offsets
 
 KERNELS = ("deposit_p2g1", "deposit_p2g2", "collect", "halo_axis", "halo_gblk",
            "rebin_gather", "rebin_fill")
 LAUNCHES = {name: 0 for name in KERNELS}
+LIBRARY = cuda_build.Library("stream", ("stream_kernels.cu", "rebin_kernels.cu"))
 
 
 def reset_launches() -> None:
@@ -218,7 +224,7 @@ def deposit_p2g2_plain(count, tid, stream, hs_m, params, d1, g: TileGeom) -> tor
     return torch.where((count > 0)[:, None, None], out, 0.0)
 
 
-def collect_plain(count, tid, params, stream, gblk, g: TileGeom, fused: bool, out=None):
+def collect_plain(count, tid, params, stream, gblk, g: TileGeom, out=None):
     A, D, cap = count.shape[0], g.dim, g.cap
     a_idx, s_idx = _valid_slots(count, cap)
     tid_v = tid.long()[a_idx]
@@ -263,8 +269,6 @@ def collect_plain(count, tid, params, stream, gblk, g: TileGeom, fused: bool, ou
     stream_out, flag = out
     stream_out[a_idx, :, s_idx] = rows
     flag[a_idx, s_idx] = torch.where(bad, 2.0, 0.0)
-    if not fused:
-        return stream_out, flag
     pos_n = torch.stack(newpos, dim=-1)
     vel_n = torch.stack(v, dim=-1)
     C_n = torch.stack(newC, dim=-1).reshape(-1, D, D)
@@ -288,14 +292,13 @@ def halo_axis_plain(x, nbp, nbm, g: TileGeom, axis: int) -> torch.Tensor:
     return acc + torch.where(e_d < E - T, ys, 0.0)
 
 
-def halo_axes_plain(x, count, nbr, g: TileGeom, first: int, last: int,
-                    gate=None) -> torch.Tensor:
-    """Passes [first, last) of the separable halo, one after the other, on
-    the occupancy-gated input ``where(gate > 0, x, 0)`` (``gate`` defaults
-    to ``count``)."""
+def halo_axes_plain(x, count, nbr, g: TileGeom, gate=None) -> torch.Tensor:
+    """The D passes of the separable halo, one after the other, on the
+    occupancy-gated input ``where(gate > 0, x, 0)`` (``gate`` defaults to
+    ``count``)."""
     gate = count if gate is None else gate
     x = torch.where((gate > 0)[:, None, None], x, 0.0)
-    for d in range(first, last):
+    for d in range(g.dim):
         x = halo_axis_plain(x, nbr[2 * d], nbr[2 * d + 1], g, d)
     return x
 
@@ -305,7 +308,7 @@ def halo_gblk_plain(x, hs_m, count, nbr, dtg, g: TileGeom, gate=None) -> torch.T
     update: v = mf/m + dt g where m > 0 else 0, then m; zeros at tiles whose
     gate (default: count) is 0."""
     gate = count if gate is None else gate
-    mf = halo_axes_plain(x, gate, nbr, g, 0, g.dim)
+    mf = halo_axes_plain(x, gate, nbr, g)
     dtg = torch.as_tensor(dtg, dtype=torch.float32, device=x.device)
     v = torch.where(
         hs_m > 0.0, mf / torch.where(hs_m > 0.0, hs_m, 1.0) + dtg[None, :, None], 0.0
@@ -393,15 +396,14 @@ def _ints(vals):
     return ctypes.cast(arr, ctypes.c_void_p)
 
 
-def _launch(name: str, fn, *args, counts: Optional[dict] = LAUNCHES, what: str = "") -> None:
-    """Call a C entry point on the current stream; raise on its error code
-    (naming ``what``, the instantiation asked for, where given), else add
-    one to ``counts[name]`` (this module's ``LAUNCHES`` unless another
-    module's wrapper passes its own; ``None`` counts nothing)."""
-    from . import cuda_build
-
-    lib = cuda_build.load()
-    rc = getattr(lib, fn)(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+def _launch(name: str, fn, *args, lib: cuda_build.Library = LIBRARY,
+            counts: Optional[dict] = LAUNCHES, what: str = "") -> None:
+    """Call entry point ``fn`` of ``lib`` on the current stream; raise on its
+    error code (naming ``what``, the instantiation asked for, where given),
+    else add one to ``counts[name]``.  ``lib`` and ``counts`` are this
+    module's unless another module's wrapper passes its own (``counts``
+    ``None`` counts nothing)."""
+    rc = getattr(lib.load(), fn)(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}"
                            + (f" ({what})" if what else ""))
@@ -465,9 +467,9 @@ def deposit_p2g2(count, tid, stream, hs_m, params, d1, g: TileGeom) -> torch.Ten
     return out
 
 
-def collect(count, tid, params, stream, gblk, g: TileGeom, fused: bool, out=None):
-    """g2p + particle tail -> (next stream [A, F, cap], flag [A, cap]) and,
-    when ``fused``, the next substep's p2g1 windows [A, 1+D, E^D].
+def collect(count, tid, params, stream, gblk, g: TileGeom, out=None):
+    """g2p + particle tail -> (next stream [A, F, cap], flag [A, cap], the
+    next substep's p2g1 windows [A, 1+D, E^D]).
     params: see ``stream_transfer.collect_params``.
 
     With ``out`` = (stream', flag'), the live slots' new rows and flags are
@@ -482,22 +484,22 @@ def collect(count, tid, params, stream, gblk, g: TileGeom, fused: bool, out=None
         _check("out stream", out[0], stream.shape, torch.float32, dev)
         _check("out flag", out[1], (A, g.cap), torch.float32, dev)
     if _on_cpu(dev):
-        return collect_plain(count, tid, params, stream, gblk, g, fused, out)
+        return collect_plain(count, tid, params, stream, gblk, g, out)
     if out is None:
         out = (torch.zeros_like(stream),
                torch.zeros((A, g.cap), dtype=torch.float32, device=dev))
     out_s, flag = out
-    dep = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev) if fused else None
+    dep = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("collect", "fluid_collect", g.dim, int(fused), _ptr(count), _ptr(tid),
-                _ptr(params), _ptr(stream), _ptr(gblk), _ptr(out_s), _ptr(flag),
-                _ptr(dep), A, g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin))
-    return (out_s, flag, dep) if fused else (out_s, flag)
+        _launch("collect", "fluid_collect", g.dim, _ptr(count), _ptr(tid), _ptr(params),
+                _ptr(stream), _ptr(gblk), _ptr(out_s), _ptr(flag), _ptr(dep), A, g.tile,
+                g.halo, g.cap, _ints(g.tshape), _ints(g.origin))
+    return out_s, flag, dep
 
 
-def halo_axes(x, count, nbr, g: TileGeom, first: int, last: int, gate=None) -> torch.Tensor:
-    """Halo passes [first, last) over windows [A, CH, E^D] in one launch,
-    the input read as ``where(gate > 0, x, 0)``; ``nbr`` [2D, A] holds the
+def halo_axes(x, count, nbr, g: TileGeom, gate=None) -> torch.Tensor:
+    """The D halo passes over windows [A, CH, E^D] in one launch, the
+    input read as ``where(gate > 0, x, 0)``; ``nbr`` [2D, A] holds the
     active indices of each axis's +/- face neighbours (A = none).  ``gate``
     [A] int32 defaults to ``count``; the sharded backend passes count plus
     its ghost columns, whose windows the exchange fills.  Returns a new
@@ -508,15 +510,13 @@ def halo_axes(x, count, nbr, g: TileGeom, first: int, last: int, gate=None) -> t
     _check("x", x, (A, CH, g.ncell), torch.float32, dev)
     _check("gate", gate, (A,), torch.int32, dev)
     _check("nbr", nbr, (2 * g.dim, A), torch.int32, dev)
-    if not 0 <= first < last <= g.dim:
-        raise ValueError(f"passes [{first}, {last}): not a non-empty range in [0, {g.dim})")
     if _on_cpu(dev):
-        return halo_axes_plain(x, gate, nbr, g, first, last)
+        return halo_axes_plain(x, gate, nbr, g)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         # the kernel reads its count argument only as this gate
         _launch("halo_axis", "fluid_halo_axes", _ptr(x), _ptr(gate), _ptr(nbr), _ptr(out),
-                A, CH, g.dim, g.E, g.tile, first, last)
+                A, CH, g.dim, g.E, g.tile)
     return out
 
 
@@ -526,7 +526,7 @@ def gravity_step(dt: float, gravity) -> np.ndarray:
 
 
 def halo_gblk(x, hs_m, count, nbr, dtg: np.ndarray, g: TileGeom, gate=None) -> torch.Tensor:
-    """The whole momentum+force halo (passes [0, D) over the gated m+f
+    """The whole momentum+force halo (the D passes over the gated m+f
     windows ``x`` [A, D, E^D]) and the grid update, in one launch: grid
     values [A, 1+D, E^D] = (mf/m + dt g where m > 0 else 0, then m), with
     the halo'd masses ``hs_m`` [A, 1, E^D]; zeros at tiles whose gate

@@ -413,8 +413,7 @@ def collect_params(cfg: Config, mouse_pos, mouse_active, stride: float = 0.0,
     return torch.cat([head, device_const([stride], device, torch.float32)])
 
 
-def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
-                   fused: bool = False):
+def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device):
     """Stage closures of the stream substep, on ``device``::
 
       dep1(st[, out])            -> p2g_1 windows [A, 1+D, E^D] (into out)
@@ -423,10 +422,9 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
       halo_gblk(st, dep2v, hs_m) -> grid values [A, 1+D, E^D] (v rows, mass;
                                     zeros at zero-count tiles)
       collect(st, gblk, params[, out])
-                                 -> (stream', flag[, dep1_next if fused]);
-                                    with out = (st.stream, st.flag), in place
+                                 -> (stream', flag, dep1_next); with
+                                    out = (st.stream, st.flag), in place
     """
-    D = cfg.dim
     g = tile_geom(domain, spec)
     params6 = device_const([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
                             cfg.pressure_floor, cfg.dynamic_viscosity], device, torch.float32)
@@ -436,7 +434,7 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
         return sk.deposit_p2g1(st.count, st.tid, st.stream, g, out)
 
     def halo_m(st, dep1v):
-        return sk.halo_axes(dep1v[:, :1].contiguous(), st.count, st.nbr, g, 0, D)
+        return sk.halo_axes(dep1v[:, :1].contiguous(), st.count, st.nbr, g)
 
     def dep2(st, dep1v, hs_m):
         return sk.deposit_p2g2(st.count, st.tid, st.stream, hs_m, params6, dep1v, g)
@@ -445,7 +443,7 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
         return sk.halo_gblk(dep2v, hs_m, st.count, st.nbr, dtg, g)
 
     def collect(st, gblk, params, out=None):
-        return sk.collect(st.count, st.tid, params, st.stream, gblk, g, fused, out)
+        return sk.collect(st.count, st.tid, params, st.stream, gblk, g, out)
 
     return types.SimpleNamespace(
         dep1=dep1, halo_m=halo_m, dep2=dep2, halo_gblk=halo_gblk, collect=collect,
@@ -455,13 +453,11 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device,
 def _substep_core(st: StreamState, dep1, stages, params):
     """One substep given its p2g_1 windows, updating ``st``'s stream and
     flag in place (the collect writes each live slot over itself); returns
-    the next substep's p2g_1 windows (None when the stages are not
-    fused)."""
+    the next substep's p2g_1 windows."""
     hs_m = stages.halo_m(st, dep1)
     d2 = stages.dep2(st, dep1, hs_m)
     gblk = stages.halo_gblk(st, d2, hs_m)
-    outs = stages.collect(st, gblk, params, (st.stream, st.flag))
-    return outs[2] if len(outs) > 2 else None
+    return stages.collect(st, gblk, params, (st.stream, st.flag))[2]
 
 
 def needs_rebin(st: StreamState) -> torch.Tensor:
@@ -491,7 +487,7 @@ def frame_inplace(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec
     dev = st.stream.device
     n_sub = cfg.iterations if substeps is None else substeps
     n_c = spec.A * spec.cap if n is None else n
-    stages = substep_stages(cfg, domain, spec, dev, fused=True)
+    stages = substep_stages(cfg, domain, spec, dev)
     params = collect_params(cfg, mouse_pos, mouse_active, spec.scene_stride, dev)
     dep1 = stages.dep1(st)
     for _ in range(n_sub):
@@ -566,12 +562,12 @@ def substep(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_acti
         spec = default_spec(cfg, domain, p.n)
     dev = p.device
     st = bin_particles(p, domain, spec, dt=cfg.dt)
-    stages = substep_stages(cfg, domain, spec, dev, fused=False)
+    stages = substep_stages(cfg, domain, spec, dev)
     params = collect_params(cfg, mouse_pos, mouse_active, spec.scene_stride, dev)
     d1 = stages.dep1(st)
     hs_m = stages.halo_m(st, d1)
     d2 = stages.dep2(st, d1, hs_m)
-    stream2, _ = stages.collect(st, stages.halo_gblk(st, d2, hs_m), params)
+    stream2 = stages.collect(st, stages.halo_gblk(st, d2, hs_m), params)[0]
     st2 = dataclasses.replace(st, stream=stream2)
     m = windows_to_dense(d1[:, :1].contiguous(), st.tid, domain, spec)
     mf = windows_to_dense(d2, st.tid, domain, spec)

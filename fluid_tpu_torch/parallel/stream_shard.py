@@ -325,9 +325,9 @@ def _sharded_substep(states: List[ShardStreamState], dep1, stages: _Stages):
     """One substep on every shard, the exchanges between deposit and halo:
     K4 mass and K5 read the ghost windows through the ``gate``.  Returns
     (states, next substep's p2g_1 windows)."""
-    g, D = stages.g, stages.g.dim
+    g = stages.g
     m1 = _exchange_blocks([d1[:, :1].contiguous() for d1 in dep1], states)
-    hs_m = [sk.halo_axes(m, ss.st.count, ss.st.nbr, g, 0, D, gate=ss.gate)
+    hs_m = [sk.halo_axes(m, ss.st.count, ss.st.nbr, g, gate=ss.gate)
             for m, ss in zip(m1, states)]
     d2 = _exchange_blocks(
         [sk.deposit_p2g2(ss.st.count, ss.st.tid, ss.st.stream, h, p6, d1, g)
@@ -335,7 +335,7 @@ def _sharded_substep(states: List[ShardStreamState], dep1, stages: _Stages):
     out, dep1_next = [], []
     for ss, x, h, p in zip(states, d2, hs_m, stages.params):
         gblk = sk.halo_gblk(x, h, ss.st.count, ss.st.nbr, stages.dtg, g, gate=ss.gate)
-        stream, flag, dep = sk.collect(ss.st.count, ss.st.tid, p, ss.st.stream, gblk, g, True)
+        stream, flag, dep = sk.collect(ss.st.count, ss.st.tid, p, ss.st.stream, gblk, g)
         out.append(dataclasses.replace(ss, st=dataclasses.replace(ss.st, stream=stream, flag=flag)))
         dep1_next.append(dep)
     return out, dep1_next

@@ -24,8 +24,7 @@ Each call records host spans in the process's recorder
 ``replay`` and ``check``), ``render`` (``histogram``, ``read``,
 ``ascii``), ``sync`` (``block_until_ready``), ``restore``, ``particles``
 and ``snapshot``; the strict check also records the stream's ``fill_peak``
-watermark beside its cap as a counter sample, and a stream session, when
-it bins, its particles beside all its slots (``slot_live``).
+watermark beside its cap as a counter sample.
 """
 
 from __future__ import annotations
@@ -115,8 +114,6 @@ class Session:
                     f"fit the slot structure (raise spec.active/cap)"
                 )
             self._st = stx.bin_particles(p, domain, self.spec, dt=cfg.dt)
-            # the share of the slots the collect updates: its live ones
-            recorder().count("slot_live", self.n, self.spec.A * self.spec.cap)
             body = functools.partial(_stream_body, cfg, domain, self.spec, self._mouse, self.n)
             self.frame_graph = FrameGraph(body, self._st, self.device)
         elif self.backend in step.BACKENDS:

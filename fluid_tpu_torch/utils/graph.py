@@ -39,9 +39,12 @@ import time
 import numpy as np
 import torch
 
+from ..ops import cuda_build
 from . import timing
 from .platform import resolve_device
 
+# the IF node and the recorder's trace stamp (csrc/graph_if.cu)
+LIBRARY = cuda_build.Library("graph", ("graph_if.cu",))
 _CONSTS: dict = {}
 
 
@@ -96,8 +99,6 @@ def if_node(bodies: list, ring=None):
     frame runs them one after another.  With ``ring`` (the recorder's,
     ``timing.Recorder.ring``) a body's first and last nodes are the
     ``rebin_begin`` and ``rebin_end`` stamps."""
-    from ..ops import cuda_build
-
     side = capture_streams(torch.cuda.current_device())[1]
 
     def branch(pred: torch.Tensor, fn) -> None:
@@ -115,7 +116,7 @@ def if_node(bodies: list, ring=None):
             finally:
                 body.capture_end()
         bodies.append(body)
-        rc = cuda_build.load().fluid_graph_if(
+        rc = LIBRARY.load().fluid_graph_if(
             ctypes.c_void_p(pred.data_ptr()), ctypes.c_void_p(body.raw_cuda_graph()),
             ctypes.c_void_p(main.cuda_stream))
         if rc != 0:
@@ -161,6 +162,7 @@ class FrameGraph:
 
     def _capture(self) -> None:
         rec = timing.recorder()
+        LIBRARY.load()  # the IF node's and the stamps' kernels, loaded outside the capture
         with torch.cuda.device(self.device):
             ring = rec.ring(self.device)
             t0 = time.perf_counter_ns()

@@ -307,12 +307,12 @@ class _Ring:
     def stamp(self, tag: int, anchor: bool = False) -> None:
         """Launch the stamp kernel on the current stream (captured where it
         captures)."""
-        from ..ops import cuda_build
+        from .graph import LIBRARY
 
         times, tags, head, size = ((self.anchor_times, self.anchor_tags, self.anchor_head,
                                     ANCHOR_TRIES) if anchor
                                    else (self.times, self.tags, self.head, self.size))
-        rc = cuda_build.load().fluid_trace_stamp(
+        rc = LIBRARY.load().fluid_trace_stamp(
             ctypes.c_void_p(times.data_ptr()), ctypes.c_void_p(tags.data_ptr()),
             ctypes.c_void_p(head.data_ptr()), size - 1, tag,
             ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream))

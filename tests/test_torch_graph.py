@@ -66,7 +66,7 @@ def _host_loop_frame(st, cfg, dom, spec, mp, ma, substeps, n):
     tensors: the form the frame had before its re-bins ran in place over a
     state's own tensors."""
     tshape, nt = tstx._tile_geometry(dom, spec)
-    stages = tstx.substep_stages(cfg, dom, spec, "cpu", fused=True)
+    stages = tstx.substep_stages(cfg, dom, spec, "cpu")
     params = tstx.collect_params(cfg, mp, ma, spec.scene_stride, "cpu")
     dep1 = stages.dep1(st)
     for _ in range(substeps):

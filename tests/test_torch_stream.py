@@ -287,7 +287,7 @@ def test_rebin_in_place_equals_rebin_before(dim, case):
 
     want = _rebin_before(st, cfg, dom, spec, tshape, nt, n_arg)
     got = st.clone()
-    stages = tstx.substep_stages(cfg, dom, spec, "cpu", fused=True)
+    stages = tstx.substep_stages(cfg, dom, spec, "cpu")
     dep1 = torch.full((A, 1 + dim, spec.E**dim), 7.0)
     sk.reset_launches()
     tstx._rebin_into(got, dep1, cfg, dom, spec, tshape, nt, n_arg, stages)

@@ -133,16 +133,16 @@ def test_deposit_p2g2_matches_pallas(dim):
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("variant", ["plain", "fused", "walls"])
 def test_collect_matches_pallas(dim, variant):
-    """Collect, unfused and fused, and fused with the mouse on and x walls
-    shifted by a packed-scene stride."""
+    """Collect against the JAX collect: its stream and flag against the
+    unfused one ("plain"), also its p2g1 windows against the fused one, and
+    with the mouse on and x walls shifted by a packed-scene stride."""
     r = _reference(dim)
     st, cfg, A = r["tst"], r["cfg"], r["tspec"].A
     if variant == "walls":
         params = tstx.collect_params(cfg, *tstep.mouse(MOUSE_XY), STRIDE)
     else:
         params = tstx.collect_params(cfg, *tstep.no_mouse())
-    fused = variant != "plain"
-    got = sk.collect(st.count, st.tid, params, st.stream, r["gblk"], r["geom"], fused)
+    got = sk.collect(st.count, st.tid, params, st.stream, r["gblk"], r["geom"])
     want = r["collect"][variant]
     G = r["spec"].group
     ws = np.asarray(want[0])
@@ -151,11 +151,11 @@ def test_collect_matches_pallas(dim, variant):
     _close(got[0][:, :prs], ws[:, :prs], msg="stream rows")
     _close(got[0][:, prs], ws[:, prs], rtol=2e-5, msg="pressure row")
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]).reshape(A, -1))
-    if fused:
+    if variant != "plain":
         _close(got[2], _windows(want[2], A, 1 + dim, dim), msg="fused p2g1")
     if variant == "walls":  # non-vacuous: the mouse and the walls pushed particles
         calm = sk.collect(st.count, st.tid, tstx.collect_params(cfg, *tstep.no_mouse()),
-                          st.stream, r["gblk"], r["geom"], True)
+                          st.stream, r["gblk"], r["geom"])
         assert int((got[0][:, dim:2 * dim] != calm[0][:, dim:2 * dim]).sum()) > 10
 
 
@@ -166,7 +166,7 @@ def _gated(x, count):
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_halo_axis_matches_halo_pull(dim):
-    """The port's one-launch halo over passes [0, D) is bit-equal to
+    """The port's one-launch halo over the D passes is bit-equal to
     halo_pull on the same gated input."""
     r = _reference(dim)
     st, g, A = r["tst"], r["geom"], r["tspec"].A
@@ -174,24 +174,25 @@ def test_halo_axis_matches_halo_pull(dim):
     for CH in (1, dim):
         x = _gated(rng.uniform(-1, 1, (A, CH, g.ncell)).astype(np.float32), st.count)
         want = jstx.halo_pull(jnp.asarray(x.reshape(A, -1)), r["st"].nbr, g.tshape, 4, 8)
-        got = sk.halo_axes(torch.as_tensor(x), st.count, st.nbr, g, 0, dim)
+        got = sk.halo_axes(torch.as_tensor(x), st.count, st.nbr, g)
         np.testing.assert_array_equal(got.numpy().reshape(A, -1), np.asarray(want))
 
 
-def _halo_tree(x, count, nbr, g, first, last, update=None):
+def _halo_tree(x, gate, nbr, g, update=None):
     """The kernel's evaluation order written out: per output cell, the
-    nested sum of the chained passes, each leaf a raw read of the gated
-    input at the end of a route of neighbour tiles (A reads zero).  With
-    ``update`` = (hs_m, dtg), halo_gblk's epilogue: a zero-count tile reads
-    no mass (m = 0), v = mf/m + dtg where m > 0 else 0, then the m row."""
+    nested sum of the D chained passes, each leaf a raw read of the input
+    gated on ``gate`` at the end of a route of neighbour tiles (A reads
+    zero).  With ``update`` = (hs_m, dtg), halo_gblk's epilogue: a tile of
+    gate 0 reads no mass (m = 0), v = mf/m + dtg where m > 0 else 0, then
+    the m row."""
     A = x.shape[0]
     xp = torch.cat([x, torch.zeros_like(x[:1])])
     nbr = torch.cat([nbr.long(), torch.full_like(nbr[:, :1], A, dtype=torch.long)], dim=1)
     e = torch.arange(g.ncell)
-    occ = torch.cat([count > 0, torch.zeros(1, dtype=torch.bool)])
+    occ = torch.cat([gate > 0, torch.zeros(1, dtype=torch.bool)])
 
     def node(level, tiles, cells):  # tiles [A] (A = none), cells [ncell]
-        if level == first:
+        if level == 0:
             leaf = xp[tiles][:, :, cells]
             return torch.where(occ[tiles][:, None, None], leaf, 0.0)
         d = level - 1
@@ -204,7 +205,7 @@ def _halo_tree(x, count, nbr, g, first, last, update=None):
         ym = node(d, nbr[2 * d + 1][tiles], (cells + shift).clamp(0, g.ncell - 1))
         return acc + torch.where(e_d < g.E - g.tile, ym, 0.0)
 
-    mf = node(last, torch.arange(A), e)
+    mf = node(g.dim, torch.arange(A), e)
     if update is None:
         return mf
     hs_m, dtg = update
@@ -214,30 +215,50 @@ def _halo_tree(x, count, nbr, g, first, last, update=None):
     return torch.cat([torch.stack(rows, dim=1), m], dim=1)
 
 
+def _ghost_gate(count, nbr):
+    """count plus 1 at every other zero-count face neighbour of an occupied
+    tile: the sharded path's gate, whose ghost tiles hold no particle but
+    windows the exchange filled."""
+    A = count.shape[0]
+    near = torch.zeros(A + 1, dtype=torch.bool)
+    for row in nbr.long():
+        near[row[count > 0]] = True
+    ghost = (near[:A] & (count == 0)).nonzero()[::2, 0]
+    gate = count.clone()
+    gate[ghost] = 1
+    return gate
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("channels", ["mass", "momentum"])
-@pytest.mark.parametrize("passes", ["all", "all_but_last"])
-def test_halo_axes_matches_chained_plain_passes(dim, channels, passes):
-    """The one-launch halo over [0, D) (mass) or [0, D-1) (ahead of
-    halo_gblk) equals the same passes chained through halo_axis_plain on
-    the gated input, and so does the kernel's tree order, bit for bit; the
-    gate matters (zero-count tiles carry data here)."""
+@pytest.mark.parametrize("gate", ["count", "ghosts"])
+def test_halo_axes_matches_chained_plain_passes(dim, channels, gate):
+    """The one-launch halo over the D passes, gated on the count or on the
+    count plus ghost tiles, equals the D passes chained through
+    halo_axis_plain on the gated input, and so does the kernel's tree
+    order, bit for bit; the gate matters (tiles it shuts carry data here,
+    and the ghost tiles' data reaches their neighbours)."""
     r = _reference(dim)
     st, g, A = r["tst"], r["geom"], r["tspec"].A
     CH = 1 if channels == "mass" else dim
-    last = dim if passes == "all" else dim - 1
     rng = np.random.default_rng(10 * dim + CH)
     x = torch.as_tensor(rng.uniform(-1, 1, (A, CH, g.ncell)).astype(np.float32))
-    want = _gated(x.numpy(), st.count)
-    for d in range(last):
+    on = st.count if gate == "count" else _ghost_gate(st.count, st.nbr)
+    want = _gated(x.numpy(), on)
+    for d in range(dim):
         want = sk.halo_axis_plain(torch.as_tensor(want), st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
-    got = sk.halo_axes(x, st.count, st.nbr, g, 0, last)
+    kw = {} if gate == "count" else {"gate": on}
+    got = sk.halo_axes(x, st.count, st.nbr, g, **kw)
     assert torch.equal(got, want)
-    assert torch.equal(_halo_tree(x, st.count, st.nbr, g, 0, last), want)
+    assert torch.equal(_halo_tree(x, on, st.nbr, g), want)
     ungated = x
-    for d in range(last):
+    for d in range(dim):
         ungated = sk.halo_axis_plain(ungated, st.nbr[2 * d], st.nbr[2 * d + 1], g, d)
-    assert int((st.count == 0).sum()) > 0 and not torch.equal(ungated, want)
+    assert int((on == 0).sum()) > 0 and not torch.equal(ungated, want)
+    if gate == "ghosts":
+        assert int((on != st.count).sum()) > 0
+        occ = st.count > 0
+        assert not torch.equal(got[occ], sk.halo_axes(x, st.count, st.nbr, g)[occ])
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -280,7 +301,7 @@ def test_halo_gblk_matches_pallas_interpret(dim):
     assert int(torch.count_nonzero(got[torch.as_tensor(~occ)])) == 0
     for x in (torch.as_tensor(mf), torch.as_tensor(raw)):
         plain = sk.halo_gblk_plain(x, torch.as_tensor(m), st.count, st.nbr, dtg, g)
-        tree = _halo_tree(x, st.count, st.nbr, g, 0, D, update=(torch.as_tensor(m), dtg))
+        tree = _halo_tree(x, st.count, st.nbr, g, update=(torch.as_tensor(m), dtg))
         assert torch.equal(tree, plain)
     assert torch.equal(plain, got)
 
@@ -298,16 +319,15 @@ def test_collect_from_port_gblk_matches_pallas(dim):
     _close(gblk[occ], r["gblk"][occ], atol=1e-6, rtol=1e-6)
     assert not torch.equal(gblk, r["gblk"])  # the JAX chain fills zero-count tiles
     params = tstx.collect_params(cfg, *tstep.no_mouse())
-    got = sk.collect(st.count, st.tid, params, st.stream, gblk, g, True)
-    want = sk.collect(st.count, st.tid, params, st.stream, r["gblk"], g, True)
+    got = sk.collect(st.count, st.tid, params, st.stream, gblk, g)
+    want = sk.collect(st.count, st.tid, params, st.stream, r["gblk"], g)
     for a, b in zip(got, want):
         _close(a, b, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dim", [2, 3])
-@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
 @pytest.mark.parametrize("cap", [128, 256])
-def test_collect_in_place_writes_only_live_slots(dim, fused, cap):
+def test_collect_in_place_writes_only_live_slots(dim, cap):
     """The collect into the state's own stream and flag (``out``) gives the
     out-of-place collect's live rows, flags and p2g1 windows bit for bit,
     and leaves every slot past a tile's count as it found it (a sentinel
@@ -317,7 +337,7 @@ def test_collect_in_place_writes_only_live_slots(dim, fused, cap):
     dom = make_domain(cfg, halo_cells=4)
     spec = tstx.StreamSpec(cap=cap, active=math.prod(s // 4 for s in dom.shape))
     st = tstx.bin_particles(tstate.from_numpy(pos, vel, C, device="cpu"), dom, spec, dt=cfg.dt)
-    stages = tstx.substep_stages(cfg, dom, spec, "cpu", fused=fused)
+    stages = tstx.substep_stages(cfg, dom, spec, "cpu")
     d1 = stages.dep1(st)
     hs_m = stages.halo_m(st, d1)
     gblk = stages.halo_gblk(st, stages.dep2(st, d1, hs_m), hs_m)
@@ -336,29 +356,28 @@ def test_collect_in_place_writes_only_live_slots(dim, fused, cap):
     assert bool((got.stream.permute(0, 2, 1)[~live] == sentinel).all())
     assert bool((got.flag[~live] == sentinel).all())
     assert int(want[0].permute(0, 2, 1)[~live].count_nonzero()) == 0
-    if fused:
-        assert torch.equal(outs[2], want[2])
+    assert torch.equal(outs[2], want[2])
 
 
-@pytest.mark.parametrize("bad", ["count_dtype", "count_shape", "nbr_shape", "pass_range",
-                                 "empty_range"])
+@pytest.mark.parametrize("bad", ["count_dtype", "count_shape", "nbr_shape", "gate_dtype",
+                                 "gate_shape"])
 def test_halo_axes_rejects_bad_arguments(bad):
     r = _reference(2)
     st, g = r["tst"], r["geom"]
     x = r["d1"][:, :1].contiguous()
-    args = {"count": st.count, "nbr": st.nbr, "first": 0, "last": 2}
+    args = {"count": st.count, "nbr": st.nbr, "gate": None}
     if bad == "count_dtype":
         args["count"] = st.count.long()
     elif bad == "count_shape":
         args["count"] = torch.cat([st.count, st.count[:1]])
     elif bad == "nbr_shape":
         args["nbr"] = st.nbr[:2].contiguous()
-    elif bad == "pass_range":
-        args["last"] = 3
+    elif bad == "gate_dtype":
+        args["gate"] = st.count.float()
     else:
-        args["first"] = args["last"] = 1
-    with pytest.raises(TypeError if bad == "count_dtype" else ValueError):
-        sk.halo_axes(x, args["count"], args["nbr"], g, args["first"], args["last"])
+        args["gate"] = st.count[1:].contiguous()
+    with pytest.raises(TypeError if bad.endswith("dtype") else ValueError):
+        sk.halo_axes(x, args["count"], args["nbr"], g, gate=args["gate"])
 
 
 def test_wrappers_check_their_inputs():
@@ -371,7 +390,7 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         sk.deposit_p2g1(st.count, st.tid, st.stream[:, :-1].contiguous(), g)
     with pytest.raises(ValueError):
-        sk.halo_axes(r["d1"].transpose(0, 1), st.count, st.nbr, g, 0, 2)
+        sk.halo_axes(r["d1"].transpose(0, 1), st.count, st.nbr, g)
     with pytest.raises(ValueError):
         sk.deposit_p2g1(st.count.to("meta"), st.tid.to("meta"), st.stream.to("meta"), g)
     dtg = sk.gravity_step(0.1, (0.0, 1.0))

@@ -135,7 +135,7 @@ def test_gated_halos_equal_jax(dim):
             jnp.asarray(ss.st.nbr.numpy()), jnp.asarray(ss.st.count.numpy()), A, dim)
         want = np.asarray(jstx.halo_pull(xin.reshape(A, -1), tables, g.tshape, T, E)).reshape(x.shape)
         kw = {} if gate is ss.st.count else {"gate": gate}
-        got = sk.halo_axes(x, ss.st.count, ss.st.nbr, g, 0, dim, **kw)
+        got = sk.halo_axes(x, ss.st.count, ss.st.nbr, g, **kw)
         np.testing.assert_array_equal(got.numpy(), want)
         m = torch.as_tensor(np.abs(rng.normal(size=(A, 1, g.ncell))).astype(np.float32))
         dtg = sk.gravity_step(cfg.dt, cfg.gravity)

@@ -68,21 +68,6 @@ def test_session_spans_nest_and_close_in_order(sess, call):
         assert not before or before[-1][3] <= a, (name, before[-1])
 
 
-@pytest.mark.parametrize("dim", [2, 3])
-def test_stream_session_records_its_live_slots_once(dim):
-    """A stream Session records one ``slot_live`` sample when it bins: its
-    particles beside all its slots, A x cap; frames record none."""
-    build = scene.reference_scene_2d if dim == 2 else scene.reference_scene_3d
-    cfg, p, dom = build(n=256, device="cpu")
-    t0 = timing.time.perf_counter_ns()
-    s = Session(cfg.replace(iterations=2), dom, p, backend="stream", device="cpu")
-    s.frame()
-    t1 = timing.time.perf_counter_ns()
-    got = [(v, lim) for name, _, v, lim in timing.recorder().records(t0, t1).counts
-           if name == "slot_live"]
-    assert got == [(256, s.spec.A * s.spec.cap)]
-
-
 def test_full_ring_drops_the_oldest_and_counts_them():
     rec = timing.Recorder(spans=8)
     for k in range(12):
