@@ -122,6 +122,21 @@ counters over the same frame run eagerly (``replay_launches``).
             eager substep
 8. replay   3D reference scene (4096), stream and pallas: snapshot, frame,
             restore, frame -> bit-identical; then ms per frame at that scene
+   render   the console render's kernel (csrc/render_kernels.cu) bit-equal
+            to its plain version, histogram_xy, on the same card tensors, at
+            the app's view, a (70, 50) viewport at a 60x30 console, a 128x96
+            console (the largest shared-memory grid) and a 200x80 console
+            (past it), twice into one grid:
+            the 2D and 3D reference scenes after the centroid mouse frame
+            and 200 drag frames (and the Session's render lines), the 2D
+            scene with garbage in its dead slots and with x shifted (the
+            sharded render), points on every console cell edge and the
+            viewport's far edge, the 1M dam after 40 frames; a replayed
+            render's device events counted (one memset, one kernel, one
+            copy); then untraced, the host ms of one render and its parts
+            (histogram, read, ascii), the launch and read against one replay
+            of a captured graph of both, and the kernel's and the plain
+            version's ms
 9. app      the app through its entry points, no device argument: the 3D
             reference scene on the default (stream) backend for 3 headless
             frames, plain and with the timing overlay, every stream kernel
@@ -200,7 +215,9 @@ counters over the same frame run eagerly (``replay_launches``).
             lines with its sums, each of M9-M11 launched there
 
 The last lines are the kernel table as JSON (the five stream kernels, the
-re-bin's two and the four pallas kernels, then the micro kernels: time,
+re-bin's two and the four pallas kernels, the console histogram (on_path
+"app render", its launches a render counted by the profiler), then the
+micro kernels: time,
 plain time, the least
 time the card could take, launches in one replayed frame of the main path
 (slice, pallas slice) with how they were counted (launches_from) and the
@@ -236,7 +253,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from fluid_tpu_torch import app, checkpoint, diagnostics, scene, state, step  # noqa: E402
+from fluid_tpu_torch import app, checkpoint, diagnostics, render, scene, state, step  # noqa: E402
 from fluid_tpu_torch.config import default_2d, default_3d  # noqa: E402
 from fluid_tpu_torch.domain import make_domain  # noqa: E402
 from fluid_tpu_torch.micro import micro_dma, micro_pb, micro_sep, micro_zfac  # noqa: E402
@@ -2085,6 +2102,245 @@ def phase_replay(device, card: str) -> None:
               f"particle-steps/s rebins={sess.rebins()}  [{card}]")
 
 
+# (viewport, console) of the render checks: the app's; a viewport whose
+# sides are no powers of two, so that a division and a product with the
+# reciprocal can bin a point differently; a console of exactly the kernel's
+# largest shared-memory grid (SMEM_BINS, csrc/render_kernels.cu: 12,288
+# bins, 48 KB) and one past it
+RENDER_VIEWS = (((64.0, 64.0), (80, 40)), ((70.0, 50.0), (60, 30)), ((64.0, 64.0), (128, 96)),
+                ((64.0, 64.0), (200, 80)))
+
+
+def render_check(x, y, count, what: str, card: str, x_shift: float = 0.0) -> None:
+    """console_histogram against histogram_xy (the plain version) on the
+    same card tensors, bit for bit, at each of RENDER_VIEWS, twice into one
+    grid (the second call zeroes what the first wrote)."""
+    valid = (torch.ones(x.shape, dtype=torch.bool, device=x.device) if count is None
+             else torch.arange(x.shape[-1], device=x.device)[None, :] < count[:, None])
+    for viewport, console in RENDER_VIEWS:
+        out = torch.full((console[1], console[0]), 7, dtype=torch.int32, device=x.device)
+        want = render.histogram_xy(x + x_shift if x_shift else x, y, valid, viewport, console)
+        for k in range(2):
+            got = render.console_histogram(x, y, count, viewport, console, out, x_shift=x_shift)
+            check(torch.equal(got, want), f"render {what} {viewport} {console}: launch {k + 1} "
+                                          f"bit-equal to histogram_xy ({int((got != want).sum())} bins differ)")
+    print(f"[render] {what}: console_histogram bit-equal to histogram_xy at {len(RENDER_VIEWS)} "
+          f"views, twice into one grid, {int(want.sum())} points in the last  [{card}]")
+
+
+def edge_points(viewport, console, device) -> torch.Tensor:
+    """[N, 2] points on every console cell edge in x and y (the float32
+    value of k * side / cells, k = 0 .. cells, the last on the viewport's
+    far edge), each beside its float32 neighbours, and -0.0, all crossed."""
+    axes = []
+    for side, cells in zip(viewport, console):
+        e = np.float32(np.arange(cells + 1)) * np.float32(side) / np.float32(cells)
+        axes.append(torch.from_numpy(np.concatenate([
+            e, np.nextafter(e, np.float32(-np.inf)), np.nextafter(e, np.float32(np.inf)),
+            np.float32([-0.0])])))
+    xs, ys = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1).to(device)
+
+
+def render_parts_ms(sess: Session, viewport, console, frames: int) -> dict:
+    """Median host ms of the render and its parts (the recorder's spans
+    ``render``, ``histogram``, ``read``, ``ascii``) over ``frames`` renders
+    of ``sess``, back to back, untraced."""
+    t0 = time.perf_counter_ns()
+    for _ in range(frames):
+        sess.render(viewport, console)
+    spans = recorder().records(t0, time.perf_counter_ns()).spans
+    parts = {}
+    for name in ("render", "histogram", "read", "ascii"):
+        parts[name] = float(np.median([(b - a) * 1e-6 for n, _, a, b in spans if n == name]))
+    return parts
+
+
+def render_device_ops(sess: Session, viewport, console, device, renders: int = 5) -> dict:
+    """name -> count of the device events (kernels, copies, memsets) of
+    ``renders`` renders of ``sess`` under torch.profiler, the console
+    kernel's as "console_histogram"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(renders):
+            sess.render(viewport, console)
+        sync(device)
+    ops: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = "console_histogram" if "console_histogram_kernel" in e.name else e.name
+            ops[name] = ops.get(name, 0) + 1
+    return dict(sorted(ops.items()))
+
+
+def graph_render_ms(sess: Session, viewport, console, device, frames: int) -> tuple:
+    """Median host ms of the histogram and the read done two ways, in
+    turns: one call of the kernel's entry point (memset and launch), then
+    the copy into pinned memory and a wait (the alternative); one replay of
+    a CUDA graph of the memset, the launch and the copy, then the wait
+    (``Session.render``'s, ``render.ConsoleView``)."""
+    grid = torch.empty((console[1], console[0]), dtype=torch.int32, device=device)
+    host = torch.empty(grid.shape, dtype=torch.int32, pin_memory=True)
+    x, y, count = sess._points
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        render.console_histogram(x, y, count, viewport, console, grid)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        render.console_histogram(x, y, count, viewport, console, grid)
+        host.copy_(grid, non_blocking=True)
+    stream = torch.cuda.current_stream(device)
+    launch, replay = [], []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        render.console_histogram(x, y, count, viewport, console, grid)
+        host.copy_(grid, non_blocking=True)
+        stream.synchronize()
+        t1 = time.perf_counter()
+        graph.replay()
+        stream.synchronize()
+        t2 = time.perf_counter()
+        launch.append(t1 - t0)
+        replay.append(t2 - t1)
+    want = sess.histogram(viewport, console).cpu()
+    check(torch.equal(host, want), "render: the graph's replay reads the kernel's grid")
+    return float(np.median(launch)) * 1e3, float(np.median(replay)) * 1e3
+
+
+def phase_render(device, card: str, frames: int = 200, reps: int = 20) -> dict:
+    """The console render's kernel (csrc/render_kernels.cu) against its
+    plain version, histogram_xy, bit for bit on the same card tensors: the
+    2D and 3D reference scenes (strict stream Sessions) after the centroid
+    mouse frame and ``frames`` frames of a drag, the 1M dam at the
+    benchmark's layout after 40 frames, the 2D scene with garbage (in-view
+    xy and NaN) written into the slots past each tile's count, the sharded
+    path's shifted x, and points on every console cell edge and on the
+    viewport's far edge, each at RENDER_VIEWS; a Session's render lines
+    equal the plain grid's.  Then, untraced, the host ms of a render and of
+    its parts (recorder spans) at the reference scenes, the launch-and-read
+    against one replay of a captured graph of both, and the kernel's and
+    the plain version's device ms beside the byte bound.  Returns the
+    kernel's table entry."""
+    render.LAUNCHES["console_histogram"] = 0
+    viewport, console = RENDER_VIEWS[0]
+    out, launches_per_render = {}, {}
+    for dim, make in ((2, scene.reference_scene_2d), (3, scene.reference_scene_3d)):
+        cfg, p, dom = make(seed=0, device=device)
+        sess = Session(cfg, dom, p, backend="stream", device=device)
+        sess.frame(step.mouse([float(v) for v in p.pos[:, :2].mean(dim=0)]))
+        for k in range(frames):
+            t = k / (frames - 1)
+            sess.frame(step.mouse((8.0 + 48.0 * t, 56.0 - 40.0 * t)))
+        sync(device)
+        check(sess.live_count() == p.n, f"render {dim}D: conservation after the drag")
+        st = sess.stream_state()
+        x, y, _ = sess._points
+        what = f"{dim}D reference scene after the mouse frame and {frames} drag frames"
+        render_check(x, y, st.count, what, card)
+        for vp, con in RENDER_VIEWS:
+            valid = torch.arange(x.shape[-1], device=device)[None, :] < st.count[:, None]
+            want = render.ascii_frame(render.histogram_xy(x, y, valid, vp, con).cpu())
+            check(sess.render(vp, con) == want and sess.render(vp, con) == want,
+                  f"render {what}: Session.render's lines at {vp} {con}, eager then replayed")
+        if dim == 2:
+            render_check(x, y, st.count, f"{what}, x shifted by 3.25", card, x_shift=3.25)
+            junk = st.stream.clone()
+            dead = torch.arange(junk.shape[-1], device=device)[None, :] >= st.count[:, None]
+            gen = torch.Generator(device=device).manual_seed(5)
+            junk[:, 0, :][dead] = torch.rand(int(dead.sum()), generator=gen, device=device) * 64.0
+            junk[:, 1, :][dead] = torch.rand(int(dead.sum()), generator=gen, device=device) * 64.0
+            junk[:, 0, -1][dead[:, -1]] = float("nan")
+            render_check(junk[:, 0, :], junk[:, 1, :], st.count,
+                         f"{what}, garbage in the {int(dead.sum())} dead slots", card)
+            clean = render.console_histogram(junk[:, 0, :], junk[:, 1, :], st.count, viewport, console)
+            check(torch.equal(clean, sess.histogram(viewport, console)),
+                  "render: the dead slots' garbage adds nothing")
+            del junk
+        before = render.LAUNCHES["console_histogram"]
+        parts = render_parts_ms(sess, viewport, console, 300)
+        check(render.LAUNCHES["console_histogram"] == before,
+              f"render {dim}D: Session.render replays its graph (no wrapper call)")
+        renders = 5
+        ops = render_device_ops(sess, viewport, console, device, renders)
+        kinds = {"console_histogram": 0, "memcpy": 0, "memset": 0}
+        for name, n in ops.items():
+            kind = ("console_histogram" if name == "console_histogram" else
+                    "memcpy" if name.startswith("Memcpy DtoH") else
+                    "memset" if name.lower().startswith("memset") else name)
+            kinds[kind] = kinds.get(kind, 0) + n
+        check(kinds == {k: renders for k in ("console_histogram", "memcpy", "memset")},
+              f"render {dim}D: each of {renders} replayed renders runs one memset, one kernel and "
+              f"one copy to pinned memory, nothing else: {ops}")
+        launches_per_render[dim] = kinds["console_histogram"] / renders
+        print(f"[render] {dim}D: {renders} replayed renders ran {ops} on the card (profiler)  "
+              f"[{card}]")
+        launch_ms, replay_ms = graph_render_ms(sess, viewport, console, device, 300)
+        live, rows = p.n, x.shape[0]
+        bound_ms, bound_by = bound(live * 2 * F32 + rows * 4 + console[0] * console[1] * 4, 0)
+        grid = torch.empty((console[1], console[0]), dtype=torch.int32, device=device)
+        kern = lambda: render.console_histogram(x, y, st.count, viewport, console, grid)  # noqa: E731
+        kern_ms, kern_graph_ms = time_ms(kern, reps, device), graph_ms(kern, device)
+        plain_ms = time_ms(lambda: render.histogram_xy(  # the valid mask inside, as it was
+            x, y, torch.arange(x.shape[-1], device=device)[None, :] < st.count[:, None], viewport,
+            console), reps, device)
+        print(f"[render] {dim}D reference scene (n={live}, A={rows}, cap={x.shape[-1]}), untraced, "
+              f"median of 300 renders: render {parts['render']:.4f} ms = histogram "
+              f"{parts['histogram']:.4f} + read {parts['read']:.4f} + ascii {parts['ascii']:.4f}; "
+              f"a graph replay of the launch and the copy, then the wait (Session.render's) "
+              f"{replay_ms:.4f} ms against launch, copy and wait {launch_ms:.4f} ms; "
+              f"kernel {kern_ms:.4f} ms eager, {kern_graph_ms:.4f} ms in a graph, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})  [{card}]")
+        out[f"ref{dim}d"] = {"ms": kern_ms, "graph_ms": kern_graph_ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by, "render_ms": parts,
+                             "launch_read_ms": launch_ms, "graph_replay_read_ms": replay_ms}
+        del sess, grid
+    for vp, con in RENDER_VIEWS[:2]:
+        pts = edge_points(vp, con, device)
+        render_check(pts[:, 0], pts[:, 1], None, f"{pts.shape[0]} points on the cell edges of {con}",
+                     card)
+        true_div = torch.floor(pts / torch.tensor(vp, device=device) * torch.tensor(con, device=device))
+        plain = torch.floor(torch.stack([pts[:, 0] / vp[0] * con[0], pts[:, 1] / vp[1] * con[1]], -1))
+        print(f"[render] {vp} {con}: {int((true_div != plain).any(-1).sum())} of the edge points "
+              f"bin otherwise by a true division than by PyTorch's product with the reciprocal  [{card}]")
+    cfg1, p1, dom1 = dam_1m(device)
+    nt1 = int(np.prod([s // 4 for s in dom1.shape]))
+    sess = Session(cfg1, dom1, p1, backend="stream", device=device,
+                   spec=stx.StreamSpec(tile=4, cap=256, halo=2, active=nt1))
+    sess.run(40)
+    sync(device)
+    st = sess.stream_state()
+    x, y, _ = sess._points
+    render_check(x, y, st.count, "1M dam (T=4, cap 256, every tile) after 40 frames", card)
+    grid = torch.empty((console[1], console[0]), dtype=torch.int32, device=device)
+    kern_ms = time_ms(lambda: render.console_histogram(x, y, st.count, viewport, console, grid), reps,
+                      device)
+    plain_ms = time_ms(lambda: render.histogram_xy(
+        x, y, torch.arange(x.shape[-1], device=device)[None, :] < st.count[:, None], viewport,
+        console), reps, device)
+    bound_ms, bound_by = bound(N_1M * 2 * F32 + x.shape[0] * 4 + console[0] * console[1] * 4, 0)
+    print(f"[render] 1M dam: kernel {kern_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})  [{card}]")
+    launches = render.LAUNCHES["console_histogram"]
+    check(launches > 0, "render: the kernel launched")
+    del sess, st, x, y, grid
+    torch.cuda.empty_cache()
+    ref = out["ref2d"]
+    return {"ms": ref["ms"], "graph_ms": ref["graph_ms"], "plain_ms": ref["plain_ms"],
+            "bound_ms": ref["bound_ms"], "bound_by": ref["bound_by"],
+            "launches_per_frame": launches_per_render[2],
+            "launches_from": "profiler: kernel events over 5 replayed renders (Session.render), "
+                             f"2D {launches_per_render[2]:g}, 3D {launches_per_render[3]:g} a render",
+            "on_path": "app render",
+            "kinds": {"ref3d": out["ref3d"], "1M": {"ms": kern_ms, "plain_ms": plain_ms,
+                                                     "bound_ms": bound_ms, "bound_by": bound_by}},
+            "render_ms": ref["render_ms"], "launch_read_ms": ref["launch_read_ms"],
+            "graph_replay_read_ms": ref["graph_replay_read_ms"]}
+
+
 def big_tile_spec(cfg, dom, pos):
     """bench.py's big-tile stream spec (``_stream_spec_big``, :231-266), the
     `3d-1m` race candidate: T=8, cap=1024, halo 2, A twice the needed-relay
@@ -3042,6 +3298,7 @@ def main() -> int:
     run(phase_big_tile, device, card)
     run(phase_backends, card)
     run(phase_replay, device, card)
+    render_kernel = run(phase_render, device, card)
     run(phase_app, card)
     run(phase_trace, device, card)
     run(phase_batch, device, card)
@@ -3061,6 +3318,10 @@ def main() -> int:
          **launches[name], **results[name]}
         for name in (*sk.KERNELS, *pk.KERNELS)
     ]
+    kernels.append({"name": "console_histogram", "route": "cuda",
+                    "source": "fluid_tpu_torch/csrc/render_kernels.cu",
+                    "replaces": "none: an XLA scatter-add (fluid_tpu/render.py:34 histogram)",
+                    **render_kernel})
     kernels += [{"name": name, "route": "cuda", "source": MICRO_SOURCE[name],
                  "replaces": MICRO_REPLACES[name], **micro[name]} for name in micro]
     print(card)

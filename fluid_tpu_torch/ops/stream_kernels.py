@@ -12,9 +12,10 @@ Each of the substep's ``deposit_p2g1``, ``deposit_p2g2``, ``collect``,
   raises if the launch reports an error.  There is no fallback from a CUDA
   tensor to the plain version.
 
-``LIBRARY`` builds those two sources into the stream library
-(``cuda_build``) at the first launch; ``_launch`` calls an entry point of
-it, or of the library another module's wrapper passes.
+``LIBRARY`` builds those two sources and the console render's
+(``csrc/render_kernels.cu``, launched by ``render.console_histogram``) into
+the stream library (``cuda_build``) at the first launch; ``_launch`` calls
+an entry point of it, or of the library another module's wrapper passes.
 
 ``LAUNCHES[name]`` counts the kernel launches of each wrapper (never the
 plain versions), one name per TPU kernel and per re-bin kernel, so a run
@@ -50,7 +51,7 @@ from .bspline import quadratic_weights, stencil_offsets
 KERNELS = ("deposit_p2g1", "deposit_p2g2", "collect", "halo_axis", "halo_gblk",
            "rebin_gather", "rebin_fill")
 LAUNCHES = {name: 0 for name in KERNELS}
-LIBRARY = cuda_build.Library("stream", ("stream_kernels.cu", "rebin_kernels.cu"))
+LIBRARY = cuda_build.Library("stream", ("stream_kernels.cu", "rebin_kernels.cu", "render_kernels.cu"))
 
 
 def reset_launches() -> None:

@@ -612,16 +612,15 @@ class ShardedSession:
         return gather_stream(self._ss, self.cfg, self.sspec, self.n)
 
     def histogram(self, viewport_size, console_size) -> torch.Tensor:
-        """(H, W) int32 console counts: each shard bins its valid slots in
+        """(H, W) int32 console counts: each shard bins its live slots in
         global x on its device; the first shard's device sums them."""
         dev0 = self._ss[0].device
         total = None
         for d, ss in enumerate(self._ss):
             st = ss.st
-            valid = torch.arange(self.sspec.spec.cap, device=ss.device)[None, :] < st.count[:, None]
-            h = render_mod.histogram_xy(st.stream[:, 0, :] + float(self.sspec.shift(d)),
-                                        st.stream[:, 1, :], valid, viewport_size,
-                                        tuple(console_size)).to(dev0)
+            h = render_mod.console_histogram(st.stream[:, 0, :], st.stream[:, 1, :], st.count,
+                                             viewport_size, console_size,
+                                             x_shift=float(self.sspec.shift(d))).to(dev0)
             total = h if total is None else total + h
         return total
 

@@ -105,6 +105,7 @@ class Session:
         # the mouse the graph reads: (active, x, y)
         self._mouse = torch.zeros((3,), dtype=torch.float32, device=self.device)
         self._staged = None
+        self._views: dict = {}  # (viewport, console) -> render_mod.ConsoleView
         if self.backend == "stream":
             self.spec = spec if spec is not None else stx.default_spec(cfg, domain, p.n)
             over = int(stx.overflow_count(p.pos, domain, self.spec, vel=p.vel, dt=cfg.dt))
@@ -114,11 +115,14 @@ class Session:
                     f"fit the slot structure (raise spec.active/cap)"
                 )
             self._st = stx.bin_particles(p, domain, self.spec, dt=cfg.dt)
+            # the render's points: the live slots' x and y rows
+            self._points = (self._st.stream[:, 0, :], self._st.stream[:, 1, :], self._st.count)
             body = functools.partial(_stream_body, cfg, domain, self.spec, self._mouse, self.n)
             self.frame_graph = FrameGraph(body, self._st, self.device)
         elif self.backend in step.BACKENDS:
             self.spec = spec
             self._p = p
+            self._points = (p.pos[:, 0], p.pos[:, 1], None)  # the render's points: one row
             body = functools.partial(_particle_body, cfg, domain, self.backend, spec, self._mouse)
             self.frame_graph = FrameGraph(body, self._p, self.device)
         else:
@@ -260,26 +264,33 @@ class Session:
                 return stx.unbin(self._st, self.domain, self.spec, self.n, self.dim)
             return self._p.clone()
 
+    def _view(self, viewport_size, console_size) -> render_mod.ConsoleView:
+        """The session's render at ``viewport_size`` and ``console_size``,
+        made at its first use and kept (on the card: its buffers and its
+        captured graph)."""
+        key = (tuple(viewport_size), tuple(console_size))
+        view = self._views.get(key)
+        if view is None:
+            x, y, count = self._points
+            view = self._views[key] = render_mod.ConsoleView(x, y, count, *key)
+        return view
+
     def histogram(self, viewport_size, console_size) -> torch.Tensor:
-        """(H, W) int32 console counts, reduced on the device; the stream
-        backend bins straight from the valid slots, without un-binning."""
-        if self.backend == "stream":
-            st = self._st
-            cap = self.spec.cap
-            valid = torch.arange(cap, device=self.device)[None, :] < st.count[:, None]
-            return render_mod.histogram_xy(
-                st.stream[:, 0, :], st.stream[:, 1, :], valid,
-                viewport_size, tuple(console_size),
-            )
-        return render_mod.histogram(self._p.pos, viewport_size, tuple(console_size))
+        """(H, W) int32 console counts, reduced on the device into the
+        session's own grid (the next render or histogram writes over it;
+        clone to keep); the stream backend bins straight from the live
+        slots, without un-binning."""
+        return self._view(viewport_size, console_size).histogram()
 
     def render(self, viewport_size, console_size) -> list:
-        """Console lines of the state: the histogram on the device, the
-        count grid read to the host, then the ramp."""
+        """Console lines of the state: the histogram on the device (on the
+        card one graph replay: the kernel and the grid's copy into pinned
+        memory), the wait for the grid on the host, then the ramp."""
         with span("render"):
+            view = self._view(viewport_size, console_size)
             with span("histogram"):
-                counts = self.histogram(viewport_size, console_size)
+                view.histogram()
             with span("read"):
-                counts = counts.cpu()
+                counts = view.read()
             with span("ascii"):
                 return render_mod.ascii_frame(counts)

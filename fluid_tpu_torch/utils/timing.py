@@ -16,7 +16,8 @@ program itself does, on one clock:
 * host spans, ``with span(name):`` around the ``Session``'s calls and their
   parts and the frame graph's capture, timed by ``time.perf_counter_ns``
   and written when they close into preallocated ring arrays (name, depth,
-  start, end); a full ring drops its oldest records and counts them;
+  start, end); a full ring drops its oldest records and counts them, and
+  a window that starts before the oldest it holds reads as lost;
 * device stamps, (tag, ``%globaltimer``) written on the card by a one-thread
   kernel of ``csrc/graph_if.cu`` into a ring of the recorder's on that
   device: the frame graph captures one as its first and one as its last
@@ -122,7 +123,7 @@ class PhaseTimer:
 FRAME_BEGIN, FRAME_END, REBIN_BEGIN, REBIN_END, ANCHOR = range(5)
 DEVICE_SPANS = (("frame", FRAME_BEGIN, FRAME_END), ("rebin", REBIN_BEGIN, REBIN_END))
 BETWEEN = "between calls"
-SPANS = 1 << 17  # host records: 50 s of the app loop, ~10k frames of 9 spans
+SPANS = 1 << 18  # host records: ~29,000 app frames of 9 spans; older ones read as lost
 STAMPS = 1 << 17  # device stamps a device: 2 a frame and 2 a re-bin
 COUNTS = 1 << 15  # counter samples: one a strict check, ~12k in 50 s of the 2D app loop
 ANCHOR_TRIES = 8  # eager stamps an anchor takes the tightest of
@@ -182,6 +183,9 @@ class Records:
         lie from the host time it is given
     counts : (name, time, value, limit) of the counter samples taken in
         the window, by time
+    lost : a full ring may have lost records of the window (host spans,
+        counter samples or device stamps): it starts before the oldest one
+        its ring still holds, and that ring has dropped some
     """
 
     spans: list
@@ -193,6 +197,7 @@ class Records:
     anchors: int = 0
     anchor_ns: float = 0.0
     counts: list = dataclasses.field(default_factory=list)
+    lost: bool = False
 
 
 def fit_clock(anchors) -> Tuple[Callable, float]:
@@ -375,6 +380,7 @@ class Recorder:
         self._spans: dict = {}
         self._rings: dict = {}
         self._counts: deque = deque(maxlen=COUNTS)  # (name, time, value, limit)
+        self._counted = 0  # samples taken, the ring's dropped ones too
 
     # -- host spans ---------------------------------------------------------
 
@@ -403,6 +409,18 @@ class Recorder:
     def dropped(self) -> int:
         return max(0, self._written - self._mask - 1)
 
+    def _spans_lost(self, t0: int) -> bool:
+        """Whether the full host ring may have lost spans that end after
+        ``t0``: it has dropped some, and the oldest it holds (the first to
+        end of those it holds, as spans are written as they close) ends
+        after ``t0``."""
+        return self.dropped > 0 and t0 < self._t1[self._written & self._mask]
+
+    def _counts_lost(self, t0: int) -> bool:
+        """Whether the full counter ring may have lost samples taken at or
+        after ``t0``."""
+        return self._counted > len(self._counts) and t0 <= self._counts[0][1]
+
     def _host_spans(self, t0: int, t1: int) -> list:
         n = min(self._written, self._mask + 1)
         order = np.arange(self._written - n, self._written) % (self._mask + 1)
@@ -425,6 +443,7 @@ class Recorder:
         if self.on:
             self._counts.append((name, time.perf_counter_ns() if at is None else int(at),
                                  int(value), int(limit)))
+            self._counted += 1
 
     # -- device stamps ------------------------------------------------------
 
@@ -461,6 +480,15 @@ class Recorder:
         out.sort(key=lambda s: s[1])
         return out, held, dropped, residual, anchors, half
 
+    def _stamps_lost(self, t0: int) -> bool:
+        """Whether a full stamp ring may have lost stamps written after
+        ``t0``: it has dropped some, and the oldest it held at its last pull
+        comes after ``t0``."""
+        for r in self._rings.values():
+            if r.seen > r.size and t0 < fit_clock(r.anchors)[0](r.host_times[r.seen % r.size]):
+                return True
+        return False
+
     def stamps(self) -> int:
         """Device stamps written so far, on every device (synchronizes)."""
         return sum(int(r.head.cpu()) for r in self._rings.values())
@@ -473,20 +501,27 @@ class Recorder:
         t0 = -(1 << 62) if t0 is None else int(t0)
         t1 = 1 << 62 if t1 is None else int(t1)
         device, *stamps = self._device_records(t0, t1)
+        lost = self._spans_lost(t0) or self._counts_lost(t0) or self._stamps_lost(t0)
         return Records(self._host_spans(t0, t1), device, self.dropped, *stamps,
-                       counts=[c for c in self._counts if t0 <= c[1] <= t1])
+                       counts=[c for c in self._counts if t0 <= c[1] <= t1], lost=lost)
 
     def idle_by_span(self, t0: int, t1: int) -> Optional[dict]:
         """path -> seconds of [t0, t1] with no frame graph on the device, by
         the innermost host span in flight (``split_idle``); None where the
-        recorder holds no device stamp."""
+        recorder holds no device stamp, or where its rings may have lost
+        records of the window (``Records.lost``)."""
         rec = self.records(t0, t1)
-        return split_idle(rec.spans, rec.device, int(t0), int(t1)) if rec.stamps else None
+        if not rec.stamps or rec.lost:
+            return None
+        return split_idle(rec.spans, rec.device, int(t0), int(t1))
 
     def gap_after(self, name: str, after: int) -> Optional[Tuple[int, int]]:
         """(end, start): the end of the first top-level span ``name`` that
         starts after ``after`` (ns) and the start of the next one; None
-        without two."""
+        without two, or where the full ring may have lost spans after
+        ``after`` (the first two it holds need not be the first two)."""
+        if self._spans_lost(int(after)):
+            return None
         found = [(a, b) for n, d, a, b in self._host_spans(int(after), 1 << 62)
                  if n == name and d == 0 and a >= after]
         return (found[0][1], found[1][0]) if len(found) > 1 else None

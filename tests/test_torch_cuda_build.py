@@ -15,7 +15,7 @@ from pathlib import Path
 
 import pytest
 
-from fluid_tpu_torch import scene
+from fluid_tpu_torch import render, scene
 from fluid_tpu_torch.ops import cuda_build
 from fluid_tpu_torch.ops import micro_kernels, micro_probe, micro_stream, pallas_kernels
 from fluid_tpu_torch.ops import stream_kernels
@@ -25,7 +25,7 @@ from fluid_tpu_torch.utils import graph, timing
 # library owner -> the modules that launch its entry points
 LAUNCHERS = {
     "graph": (graph, (graph, timing)),
-    "stream": (stream_kernels, (stream_kernels,)),
+    "stream": (stream_kernels, (stream_kernels, render)),
     "pallas": (pallas_kernels, (pallas_kernels,)),
     "micro_kernels": (micro_kernels, (micro_kernels,)),
     "micro_stream": (micro_stream, (micro_stream,)),

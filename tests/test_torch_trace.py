@@ -9,6 +9,7 @@ import importlib.util
 import sys
 import tracemalloc
 import types
+from collections import deque
 from pathlib import Path
 
 import numpy as np
@@ -78,6 +79,28 @@ def test_full_ring_drops_the_oldest_and_counts_them():
     with rec.span("last"):
         pass
     assert rec.records().spans[-1][0] == "last" and rec.dropped == 5
+
+
+def test_a_window_older_than_the_full_ring_reads_as_lost():
+    """A window that starts before the oldest span (or counter sample) a
+    full ring holds reads as lost, and ``gap_after`` finds nothing there:
+    the first two spans of a name the ring holds need not be the first two
+    after the window's start."""
+    rec = timing.Recorder(spans=8)
+    for k in range(12):  # 0-3 dropped (the last ends at 350), 4-11 held
+        rec.record("particles" if k in (1, 2, 9, 10) else "frame", 100 * k, 100 * k + 50)
+    assert rec.records(0, 2000).lost and rec.records(449, 2000).lost
+    assert not rec.records(450, 2000).lost and not rec.records(450).lost
+    assert rec.gap_after("particles", 0) is None
+    assert rec.gap_after("particles", 500) == (950, 1000)
+    rec = timing.Recorder(spans=8)
+    rec._counts = deque(maxlen=4)
+    for k in range(6):  # samples at 0 and 100 dropped
+        rec.count("fill_peak", k, 8, at=100 * k)
+    assert rec.records(0, 600).lost and rec.records(200, 600).lost
+    got = rec.records(201, 600)
+    assert not got.lost and [c[2] for c in got.counts] == [3, 4, 5]
+    assert not timing.Recorder().records().lost
 
 
 def test_tracing_off_records_nothing_and_allocates_nothing(sess):
