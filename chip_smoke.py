@@ -158,11 +158,14 @@ counters over the same frame run eagerly (``replay_launches``).
             residual; whether an IF body takes an event record node
 10. batch   64 scenes of 4,096 particles (bench.py's batch-64), packed side
             by side into one 4608x72x72 domain (stride 72, 373,248 tiles,
-            A = 110,000): a strict Session(stream) with the scene stride,
-            one warm frame (the capture) and 3 timed frames, conservation,
-            shell_drop 0,
-            finite state, each scene inside its own walls and falling; one
-            substep of 8 scenes against dense on each scene alone; then each
+            A = 110,000), each particle in its own scene's coordinates: a
+            strict Session(stream) on the packed domain with its default
+            spec, one warm frame (the capture) and 3 timed frames,
+            conservation, shell_drop 0, need_peak against A, finite state,
+            each scene inside its own walls and falling; K1-K3 and the
+            re-bin's gather at the packed geometry against their plain
+            versions; one substep of 8 scenes against dense on each scene
+            alone (x, y and z within 1e-4); then each
             kernel timed on the packed state and on the state cut to the
             entries that hold or relay particles (the share of kernel time
             spent on the unused, zero-count entries); a profiled frame, every
@@ -525,7 +528,7 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
         D = dim
         nbr = st.nbr
         params6 = deposit_params(cfg, device)
-        params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+        params = stx.collect_params(cfg, *step.no_mouse(), device)
         dtg = sk.gravity_step(cfg.dt, cfg.gravity)
 
         d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
@@ -566,16 +569,16 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                 again = kern()
                 check(all(torch.equal(a, b) for a, b in zip(again, got)),
                       f"{dim}D collect bitwise equal across two launches")
-                # mouse on at the box centre, packed-scene x walls every 64 cells
+                # mouse on at the box centre
                 centre = cfg.boundary_clip[1][0] / 2
-                pw = stx.collect_params(cfg, *step.mouse((centre, centre)), 64.0, device)
+                pw = stx.collect_params(cfg, *step.mouse((centre, centre)), device)
                 gw = sk.collect(st.count, st.tid, pw, st.stream, gblk, g)
                 ww = sk.collect_plain(st.count, st.tid, pw, st.stream, gblk, g)
                 walls_err = float((gw[0] - ww[0]).abs().max())
                 check(walls_err <= 1e-5 and torch.equal(gw[1], ww[1]),
-                      f"{dim}D collect with mouse + scene stride: rows {walls_err} <= 1e-5, flag equal")
+                      f"{dim}D collect with the mouse: rows {walls_err} <= 1e-5, flag equal")
                 extra = (f" flag_equal=True fused_p2g1_err={dep_err:.3e} (scale {scale:.3e})"
-                         f" mouse+stride_err={walls_err:.3e} repeat_bit_equal=True"
+                         f" mouse_err={walls_err:.3e} repeat_bit_equal=True"
                          " (timed in place)")
                 del again, gw, ww
             elif name.startswith("deposit"):
@@ -660,7 +663,7 @@ def collect_in_place(device, card: str, what: str, state, reps: int = 10) -> dic
     D, cap = g.dim, spec.cap
     what = f"{what} in-place collect"
     params6 = deposit_params(cfg, device)
-    params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+    params = stx.collect_params(cfg, *step.no_mouse(), device)
     d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
     m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g)
     d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
@@ -797,7 +800,7 @@ def phase_rebin(device, card: str, reps: int = 10) -> dict:
         tshape, nt = stx._tile_geometry(dom, spec)
         g = stx.tile_geom(dom, spec)
         stages = stx.substep_stages(cfg, dom, spec, device)
-        params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+        params = stx.collect_params(cfg, *step.no_mouse(), device)
         st = sess.stream_state().clone()
         dep1 = stages.dep1(st)
         subs = 0
@@ -906,7 +909,7 @@ def phase_deposit_geometries(device, card: str, reps: int = 10) -> dict:
     for tile, cap, keep, n in DEPOSIT_GEOMETRIES:
         cfg, spec, st, g = stream_state(device, n, 3, tile=tile, cap=cap, keep=keep)
         params6 = deposit_params(cfg, device)
-        params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+        params = stx.collect_params(cfg, *step.no_mouse(), device)
         d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
         m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g)
         d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
@@ -995,7 +998,7 @@ def kernel_digests(device, tile: int, cap: int, n: int) -> dict:
     "inputs" digests the binned state they read."""
     cfg, spec, st, g = stream_state(device, n, 3, tile=tile, cap=cap, rng_device="cpu")
     params6 = deposit_params(cfg, device)
-    params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+    params = stx.collect_params(cfg, *step.no_mouse(), device)
     d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
     m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g)
     d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
@@ -1724,7 +1727,7 @@ def rebin_check_cost_ms(sess: Session, device, substeps: int = 8, rounds: int = 
     read (no re-bin is taken either way), in alternating order."""
     cfg, dom, spec = sess.cfg, sess.domain, sess.spec
     stages = stx.substep_stages(cfg, dom, spec, device)
-    params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+    params = stx.collect_params(cfg, *step.no_mouse(), device)
     st0 = sess.stream_state()
 
     def run(read: bool) -> float:
@@ -2603,7 +2606,7 @@ def zero_tile_share(cfg, spec, dom, st, device, card: str, reps: int = 5) -> Non
     check(bool((tables[tables != A] < used).all()), "batch: face tables name only used entries")
     tables = torch.where(tables == A, used, tables).contiguous()
     params6 = deposit_params(cfg, device)
-    params = stx.collect_params(cfg, *step.no_mouse(), spec.scene_stride, device)
+    params = stx.collect_params(cfg, *step.no_mouse(), device)
     dtg = sk.gravity_step(cfg.dt, cfg.gravity)
     d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
     m1 = d1[:, :1].contiguous()
@@ -2644,19 +2647,72 @@ def zero_tile_share(cfg, spec, dom, st, device, card: str, reps: int = 5) -> Non
           f"substep's kernel time on zero-count entries  [{card}]")
 
 
+def packed_kernel_check(cfg, spec, dom, st, device, card: str) -> None:
+    """K1-K3 and the re-bin's gather at the packed geometry (each tile's
+    scene offset folded into its corner) against their plain versions, on
+    the Session's binned state: the deposits within 1e-4 of the largest
+    window, the collect's rows within 1e-5 with an equal flag, each kernel
+    bit-equal across two launches, the gather's rows and keys bit-equal."""
+    g = stx.tile_geom(dom, spec)
+    check(g.scene_cells == spec.scene_stride > 0, f"batch: the packed geometry's scene "
+          f"columns {g.scene_cells} are the spec's stride {spec.scene_stride}")
+    params6 = deposit_params(cfg, device)
+    params = stx.collect_params(cfg, *step.no_mouse(), device)
+    dtg = sk.gravity_step(cfg.dt, cfg.gravity)
+    out = []
+    d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
+    m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g)
+    d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
+    for name, got, again, want in (
+            ("deposit_p2g1", d1, sk.deposit_p2g1(st.count, st.tid, st.stream, g),
+             sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
+            ("deposit_p2g2", d2, sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
+             sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6, d1, g))):
+        scale, err = float(want.abs().max()), float((got - want).abs().max())
+        check(err <= 1e-4 * scale and torch.equal(got, again),
+              f"batch {name} at the packed geometry: max|err| {err} <= 1e-4 * {scale}, "
+              "bit-equal across two launches")
+        out.append(f"{name} {err:.3e} (of {scale:.3e})")
+    gblk = sk.halo_gblk(d2, m, st.count, st.nbr, dtg, g)
+    got = sk.collect(st.count, st.tid, params, st.stream, gblk, g)
+    again = sk.collect(st.count, st.tid, params, st.stream, gblk, g)
+    want = sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g)
+    err = float((got[0] - want[0]).abs().max())
+    dep = float((got[2] - want[2]).abs().max())
+    check(err <= 1e-5 and torch.equal(got[1], want[1]) and dep <= 1e-4 * float(want[2].abs().max())
+          and all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"batch collect at the packed geometry: rows {err} <= 1e-5, flag equal, fused p2g1 "
+          f"{dep}, bit-equal across two launches")
+    out.append(f"collect rows {err:.3e}, fused p2g1 {dep:.3e}, flag equal")
+    n = int(st.count.sum())
+    step_t = stx._LOOKAHEAD * cfg.dt
+    rows, keys = sk.rebin_gather(st.stream, st.count, n, g, step_t, st.tid)
+    rows_p, keys_p = sk.rebin_gather_plain(st.stream, st.count, n, g, step_t, st.tid)
+    check(torch.equal(rows, rows_p) and torch.equal(keys, keys_p),
+          "batch rebin_gather at the packed geometry: rows and keys bit-equal to its plain version")
+    out.append("rebin_gather rows and keys bit-equal")
+    print(f"[batch] kernels at the packed geometry (scene columns {g.scene_cells}) against their "
+          f"plain versions: {'; '.join(out)}  [{card}]")
+
+
 def phase_batch(device, card: str, batch: int = 64, n: int = scene.REFERENCE_N, frames: int = 3,
                 check_scenes: int = 8) -> None:
     """bench.py's batch-64 (``:630``): 64 randomized 3D dam breaks of 4,096
-    particles, packed along x into one domain with per-scene walls."""
+    particles in one packed domain on the Session's own path, with no
+    hand-built spec: each scene in its own coordinates against its own
+    walls."""
     cfg = default_3d()
     stack, _ = scene.batched_dam_break(torch.Generator().manual_seed(0), cfg, batch, n, device=device)
-    packed, dom, stride = scene.pack_scenes(stack, cfg)
-    spec = dataclasses.replace(stx.default_spec(cfg, dom, packed.n), scene_stride=stride)
-    nt = int(np.prod([s // spec.tile for s in dom.shape]))
-    print(f"[batch] {batch} scenes x {n} = {packed.n} particles, domain {dom.shape} (stride "
-          f"{stride:g}, {nt} tiles), A={spec.A} cap={spec.cap}  [{card}]")
+    _, dom, stride = scene.pack_scenes(stack, cfg)
+    rows = scene.batch_rows(stack)
     y0 = stack.pos[..., 1].mean(dim=1)
-    sess = Session(cfg, dom, packed, backend="stream", spec=spec)
+    sess = Session(cfg, dom, rows, backend="stream")
+    spec = sess.spec
+    check(spec.scene_stride == stride and spec == stx.default_spec(cfg, dom, rows.n),
+          "batch: the Session's default spec takes the packed domain's stride")
+    nt = int(np.prod([s // spec.tile for s in dom.shape]))
+    print(f"[batch] {batch} scenes x {n} = {rows.n} particles, domain {dom.shape} ({dom.scenes} "
+          f"scenes, stride {dom.scene_stride}, {nt} tiles), A={spec.A} cap={spec.cap}  [{card}]")
     sess.frame()  # warm: the capture, and strict checks included
     sync(device)
     sk.reset_launches()
@@ -2665,35 +2721,35 @@ def phase_batch(device, card: str, batch: int = 64, n: int = scene.REFERENCE_N, 
     sync(device)
     wall = time.perf_counter() - t0
     check(not any(sk.LAUNCHES.values()), f"batch: replays call no wrapper: {sk.LAUNCHES}")
-    check(sess.live_count() == packed.n and sess.shell_drop() == 0, "batch: conservation, shell_drop 0")
+    check(sess.live_count() == rows.n and sess.shell_drop() == 0, "batch: conservation, shell_drop 0")
     q = sess.particles()
     for f in state.FIELDS:
         check(bool(torch.isfinite(getattr(q, f)).all()), f"batch: finite {f}")
-    u = scene.unpack_scenes(q, batch, n, stride)
+    u = state.ParticleState(**{f: getattr(q, f).reshape(batch, n, *getattr(q, f).shape[1:])
+                               for f in state.FIELDS})
     lo, hi = cfg.boundary_clip
-    x = u.pos[..., 0]
-    check(bool(((x >= lo[0]) & (x <= hi[0])).all()), "batch: every scene inside its own walls")
+    check(all(bool(((u.pos[..., d] >= lo[d]) & (u.pos[..., d] <= hi[d])).all()) for d in range(3)),
+          "batch: every scene inside its own walls, in its own coordinates")
     y1 = u.pos[..., 1].mean(dim=1)
     check(bool((y1 > y0).all()), "batch: every scene's mean y rose (+y is down)")
     steps = (frames + 1) * cfg.iterations
     print(f"[batch] {wall * 1e3 / frames:.1f} ms/frame, "
-          f"{packed.n * cfg.iterations * frames / wall:.4e} particle-steps/s over {frames} frames; "
-          f"rebins={sess.rebins()} in {steps} substeps, need_peak={sess.need_peak()} of A={spec.A}  "
+          f"{rows.n * cfg.iterations * frames / wall:.4e} particle-steps/s over {frames} frames; "
+          f"rebins={sess.rebins()} in {steps} substeps, need_peak={sess.need_peak()} of A={spec.A} "
+          f"({sess.need_peak() / spec.A:.1%}), fill_peak={sess.fill_peak()} of cap={spec.cap}  "
           f"[{card}]")
+    packed_kernel_check(cfg, spec, dom, sess.stream_state(), device, card)
 
     # one substep of the packed state against dense on each scene alone
     mp, ma = step.no_mouse()
-    after = scene.unpack_scenes(stx.frame(q, cfg, dom, mp, ma, spec=spec, substeps=1), batch, n, stride)
+    after = stx.frame(q, cfg, dom, mp, ma, substeps=1)
     sdom = make_domain(cfg, halo_cells=4)
     worst = []
     for k in np.linspace(0, batch - 1, check_scenes).round().astype(int).tolist():
         alone = state.ParticleState(**{f: getattr(u, f)[k].contiguous() for f in state.FIELDS})
         want, _ = step.substep(alone, cfg, sdom, mp, ma, backend="dense")
-        d = (after.pos[k] - want.pos).abs().amax(dim=0)
-        # packed x carries k * stride: its float32 rounding is half an ulp there
-        ulp = float(torch.finfo(torch.float32).eps) * 2.0 ** np.floor(np.log2(k * stride + hi[0]))
-        check(float(d[1:].max()) <= 1e-4 and float(d[0]) <= 1e-4 + ulp / 2,
-              f"batch scene {k}: max|dpos| (x, y, z) {d.tolist()} <= 1e-4 (x: + {ulp / 2:.3e})")
+        d = (after.pos[k * n:(k + 1) * n] - want.pos).abs().amax(dim=0)
+        check(float(d.max()) <= 1e-4, f"batch scene {k}: max|dpos| (x, y, z) {d.tolist()} <= 1e-4")
         worst.append(f"{k}: {float(d[0]):.2e}/{float(d[1:].max()):.2e}")
     print(f"[batch] one substep, packed stream vs dense per scene, max|dpos| x/(y,z) by scene: "
           f"{'; '.join(worst)}  [{card}]")

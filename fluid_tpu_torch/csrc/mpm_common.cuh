@@ -17,11 +17,31 @@ __device__ __forceinline__ int tile_coord(int tid, int d, int D, const int* tsha
   return (tid / div) % tshape[d];
 }
 
-// Cell of floor(x) (cf) on axis d relative to the corner of tile `tid`,
+// Cell of the corner of tile `tid` on axis d: origin + coord * T.
+__device__ __forceinline__ int tile_corner(int tid, int d, int D, int T, const int* tshape,
+                                           const int* origin) {
+  return origin[d] + tile_coord(tid, d, D, tshape) * T;
+}
+
+// The corner of tile `tid` on every axis in its scene's coordinates: a
+// packed domain lays scenes of sx grid cells side by side along x, and a
+// tile of scene k = (coord_0 * T) / sx holds its particles in that scene's
+// coordinates, so its corner on axis 0 drops the scene's offset k * sx.
+// One scene: sx spans the grid, the offset is 0 and the corner is
+// tile_corner's.  Taken once a tile, not once a particle.
+template <int D>
+__device__ __forceinline__ void scene_corner(int tid, int T, const int* tshape, const int* origin,
+                                             int sx, int* corner) {
+  for (int d = 0; d < D; ++d) {
+    const int c = tile_coord(tid, d, D, tshape) * T;
+    corner[d] = origin[d] + c - (d == 0 ? c / sx * sx : 0);
+  }
+}
+
+// Cell of floor(x) (cf) relative to a tile's corner on the same axis,
 // unclipped.
-__device__ __forceinline__ int local_cell(float cf, int d, int D, int tid, int T,
-                                          const int* tshape, const int* origin) {
-  return static_cast<int>(cf) - (origin[d] + tile_coord(tid, d, D, tshape) * T);
+__device__ __forceinline__ int local_cell(float cf, int corner) {
+  return static_cast<int>(cf) - corner;
 }
 
 // Quadratic B-spline weights of the three taps at offset dv = x - floor(x)
@@ -41,12 +61,12 @@ __device__ __forceinline__ float tait_pressure(float rho, float rest, float k_eo
 // Particle tail after advection, in place on the advected position and the
 // grid velocity: the mouse impulse in the xy plane after advection (quirk
 // Q3), then the clamp and the soft wall with the un-scaled lookahead (quirk
-// Q2), the x walls shifted by x_shift (a packed scene's offset, else 0).
+// Q2).  A packed scene's particles are in its own coordinates, so its walls
+// are the configuration's.
 // params: [.., mouse_radius (5), damp (6), mouse_active (7), mouse_x (8),
 //          mouse_y (9), lo[D] (10..), hi[D] (10+D..)].
 template <int D>
-__device__ __forceinline__ void particle_tail(float* pos, float* v, const float* params,
-                                              float x_shift) {
+__device__ __forceinline__ void particle_tail(float* pos, float* v, const float* params) {
   const float mouse_r = params[5], damp = params[6], m_active = params[7];
   const float dx = pos[0] - params[8];
   const float dy = pos[1] - params[9];
@@ -58,9 +78,8 @@ __device__ __forceinline__ void particle_tail(float* pos, float* v, const float*
   v[1] = v[1] + (hit ? dy * inv : 0.0f);
 
   for (int d = 0; d < D; ++d) {
-    const float off = d == 0 ? x_shift : 0.0f;
-    const float lo = params[10 + d] + off;
-    const float hi = params[10 + D + d] + off;
+    const float lo = params[10 + d];
+    const float hi = params[10 + D + d];
     const float p_cl = fminf(fmaxf(pos[d], lo), hi);
     const float nxt = p_cl + v[d];
     const float wmin = lo + damp;

@@ -99,7 +99,7 @@ __device__ __forceinline__ void stencil(const PGeom& g, int tid, const float* po
                                         int* base, float* dvec, float (*w)[D]) {
   for (int d = 0; d < D; ++d) {
     const float cf = floorf(pos[d]);
-    const int lc = mpm::local_cell(cf, d, D, tid, g.T, g.tshape, g.origin);
+    const int lc = mpm::local_cell(cf, mpm::tile_corner(tid, d, D, g.T, g.tshape, g.origin));
     const float dv = (pos[d] - cf) - 0.5f;
     base[d] = lc < 0 ? 0 : (lc > g.T - 1 ? g.T - 1 : lc);
     dvec[d] = dv;
@@ -456,7 +456,7 @@ __global__ void collect_kernel(PGeom g, const int* __restrict__ act_start,
     const float pressure = mpm::tait_pressure(rho, params[1], params[2], params[3], params[4]);
     for (int i = 0; i < D; ++i)
       for (int j = 0; j < D; ++j) newC[i * D + j] = 4.0f * (v[i] * (-dvec[j]) + Md[j][i]);
-    mpm::particle_tail<D>(newpos, v, params, 0.0f);
+    mpm::particle_tail<D>(newpos, v, params);
 
     for (int d = 0; d < D; ++d) oblk[d * cap + s] = newpos[d];
     for (int d = 0; d < D; ++d) oblk[(D + d) * cap + s] = v[d];

@@ -11,7 +11,8 @@
 //
 //   rebin_gather_kernel<D>  live slots of stream [A, F, cap] -> rows [n, F]
 //                           in slot order, each row's predictive tile key
-//                           (stream_transfer._keys_from_pos's arithmetic)
+//                           (stream_transfer._keys_from_pos's arithmetic;
+//                           packed scenes: in the tile's scene, below)
 //   rebin_fill_kernel<D>    rows in sorted order -> stream [A, F, cap]
 //                           (empty slots 0) and a zeroed flag [A, cap]
 //
@@ -28,6 +29,13 @@
 // Built with -fmad=false (ops/cuda_build.py); the key's multiply and add
 // are written as __fmul_rn and __fadd_rn besides, so they round one at a
 // time as PyTorch's do and the keys equal the plain version's bit for bit.
+//
+// Packed scenes (a grid of scenes of sx cells side by side along x): a
+// particle is in its scene's coordinates, so the gather keys it in the
+// scene of the tile it sits in, read from tid, as stream_kernels.tile_keys
+// does with its scene offset: its x cell is clipped to the scene's sx
+// columns and moved by the scene's offset.  The fill copies rows and takes
+// no geometry.
 //
 // Each C entry point launches on the given stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
@@ -56,35 +64,38 @@ __host__ __device__ constexpr int stage_stride() {
 struct KeyGeom {
   int tshape[3];   // tiles per axis
   int origin[3];   // domain origin, in cells
+  int sx;          // grid cells of one scene along axis 0 (one scene: the grid's)
   int T, h;        // tile edge, halo reach
   int nt;          // tiles in the grid: the key of no tile
   int predictive;  // key by pos + clip(step * vel, +-1) where that keeps the cell in the window
   float step;      // the look-ahead LOOKAHEAD * dt, rounded to float32
 };
 
-// min(max(floor(x) - origin, 0), shape - 1) on axis d, floor(x) converted
-// to a 64-bit integer as PyTorch's .to(torch.int64) converts it.
-__device__ __forceinline__ long long clip_cell(float x, int d, const KeyGeom& k) {
+// min(max(floor(x) - origin, 0), shape - 1) on axis d (axis 0: the
+// scene's sx columns), plus the scene's offset xoff on axis 0, floor(x)
+// converted to a 64-bit integer as PyTorch's .to(torch.int64) converts it.
+__device__ __forceinline__ long long clip_cell(float x, int d, const KeyGeom& k, int xoff) {
   long long c = static_cast<long long>(floorf(x)) - k.origin[d];
   c = c < 0 ? 0 : c;
-  const long long hi = static_cast<long long>(k.tshape[d]) * k.T - 1;
-  return c < hi ? c : hi;
+  const long long hi = (d == 0 ? static_cast<long long>(k.sx) : static_cast<long long>(k.tshape[d]) * k.T) - 1;
+  return (c < hi ? c : hi) + (d == 0 ? xoff : 0);
 }
 
-// The tile key of one particle, axis by axis: the tile of pos + clip(step
-// * vel, -1, 1) where the particle's current cell lies in that tile's drift
-// window, else the tile of the current cell.
+// The tile key of one particle of the scene at offset xoff, axis by axis:
+// the tile of pos + clip(step * vel, -1, 1) where the particle's current
+// cell lies in that tile's drift window, else the tile of the current cell.
 template <int D>
-__device__ __forceinline__ int tile_key(const float* pos, const float* vel, const KeyGeom& k) {
+__device__ __forceinline__ int tile_key(const float* pos, const float* vel, const KeyGeom& k,
+                                        int xoff) {
   int key = 0;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    const long long cell = clip_cell(pos[d], d, k);
+    const long long cell = clip_cell(pos[d], d, k, xoff);
     long long kt = cell / k.T;
     if (k.predictive) {
       float s = __fmul_rn(vel[d], k.step);
       s = isnan(s) ? s : fminf(fmaxf(s, -1.0f), 1.0f);  // torch.clamp keeps a NaN
-      const long long ct = clip_cell(__fadd_rn(pos[d], s), d, k) / k.T;
+      const long long ct = clip_cell(__fadd_rn(pos[d], s), d, k, xoff) / k.T;
       const long long lc = cell - ct * k.T;
       if (lc >= 1 - k.h && lc <= k.T - 2 + k.h) kt = ct;
     }
@@ -94,13 +105,15 @@ __device__ __forceinline__ int tile_key(const float* pos, const float* vel, cons
 }
 
 // One block per tile a: its count[a] live slots become rows cum[a] -
-// count[a] + s of `rows`, s in slot order, each with its key; rows past
-// the live count (cum[A - 1]) up to n are zeros with the key nt, written by
-// all blocks together.  Rows past n are dropped.
+// count[a] + s of `rows`, s in slot order, each with its key in the scene
+// of tile tidv[a] (tidv null: one scene); rows past the live count
+// (cum[A - 1]) up to n are zeros with the key nt, written by all blocks
+// together.  Rows past n are dropped.
 template <int D>
 __global__ void __launch_bounds__(CHUNK) rebin_gather_kernel(
     const float* __restrict__ stream, const int* __restrict__ count, const int* __restrict__ cum,
-    float* __restrict__ rows, int* __restrict__ keys, int A, int cap, int n, KeyGeom k) {
+    const int* __restrict__ tidv, float* __restrict__ rows, int* __restrict__ keys, int A,
+    int cap, int n, KeyGeom k) {
   constexpr int F = rows_of<D>(), FP = stage_stride<D>();
   __shared__ float stage[CHUNK * FP];
   const int a = blockIdx.x, t = threadIdx.x, chunk = blockDim.x;
@@ -114,6 +127,13 @@ __global__ void __launch_bounds__(CHUNK) rebin_gather_kernel(
   const int cnt = count[a];
   const int start = cum[a] - cnt;
   const float* tile = stream + static_cast<long long>(a) * F * cap;
+  int xoff = 0;  // the tile's scene's offset on axis 0
+  if (tidv != nullptr && cnt > 0) {
+    int div = 1;
+    for (int d = 1; d < D; ++d) div *= k.tshape[d];
+    const int c = tidv[a] / div % k.tshape[0] * k.T;
+    xoff = c / k.sx * k.sx;
+  }
   for (int c0 = 0; c0 < cnt && start + c0 < n; c0 += chunk) {
     const int ns = min(chunk, cnt - c0);
     const int row0 = start + c0;
@@ -126,7 +146,7 @@ __global__ void __launch_bounds__(CHUNK) rebin_gather_kernel(
         if (f < D) pos[f] = v;
         else if (f < 2 * D) vel[f - D] = v;
       }
-      if (row0 + t < n) keys[row0 + t] = tile_key<D>(pos, vel, k);
+      if (row0 + t < n) keys[row0 + t] = tile_key<D>(pos, vel, k, xoff);
     }
     __syncthreads();
     const int m = min(ns, n - row0) * F;
@@ -189,12 +209,14 @@ extern "C" {
 
 // Compact and key the live slots: rows [n, F] and keys [n] int32 from
 // stream [A, F, cap], count [A] and its inclusive prefix sum cum [A].
-// tshape and origin: host int[3] (dim entries used).
+// tshape and origin: host int[3] (dim entries used).  Packed scenes of sx
+// grid cells along axis 0: tid [A], each tile's id; one scene: tid null,
+// sx = tshape[0] * T.
 int fluid_rebin_gather(int dim, const float* stream, const int* count, const int* cum,
-                       float* rows, int* keys, int A, int cap, int n, int T, int h,
-                       const int* tshape, const int* origin, int predictive, float step,
-                       void* cuda_stream) {
-  if (bad_cap(cap) || A < 1 || n < 1 || (dim != 2 && dim != 3))
+                       const int* tid, float* rows, int* keys, int A, int cap, int n, int T,
+                       int h, const int* tshape, const int* origin, int sx, int predictive,
+                       float step, void* cuda_stream) {
+  if (bad_cap(cap) || A < 1 || n < 1 || (dim != 2 && dim != 3) || sx < T || sx % T)
     return static_cast<int>(cudaErrorInvalidValue);
   KeyGeom k{};
   k.nt = 1;
@@ -203,6 +225,7 @@ int fluid_rebin_gather(int dim, const float* stream, const int* count, const int
     k.origin[d] = origin[d];
     k.nt *= tshape[d];
   }
+  k.sx = sx;
   k.T = T;
   k.h = h;
   k.predictive = predictive;
@@ -210,9 +233,9 @@ int fluid_rebin_gather(int dim, const float* stream, const int* count, const int
   const int threads = cap < CHUNK ? cap : CHUNK;
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   if (dim == 2)
-    rebin_gather_kernel<2><<<A, threads, 0, st>>>(stream, count, cum, rows, keys, A, cap, n, k);
+    rebin_gather_kernel<2><<<A, threads, 0, st>>>(stream, count, cum, tid, rows, keys, A, cap, n, k);
   else
-    rebin_gather_kernel<3><<<A, threads, 0, st>>>(stream, count, cum, rows, keys, A, cap, n, k);
+    rebin_gather_kernel<3><<<A, threads, 0, st>>>(stream, count, cum, tid, rows, keys, A, cap, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -85,16 +85,18 @@ struct Geom {
   int F;          // stream rows
   int tshape[3];  // tiles per axis
   int origin[3];  // domain origin, cells
+  int sx;         // grid cells of one scene along axis 0 (one scene: the grid's)
   FastDiv divE, divN;  // / E, / ncell
   int wstride[3];      // shared deposit window: cell stride of each axis
   int wch;             // shared deposit window: floats per channel
 };
 
-// Local stencil of one particle: the window row base per axis (local cell +
-// h - 1, clipped to the drift window exactly like _kernel_profiles_from),
-// dvec, the three per-axis quadratic B-spline weights w[o][d], and the
-// base's offset in the shared deposit window.  floorf before the int
-// conversion: positions and local cells can be negative.
+// Local stencil of one particle of a tile with corner `corner` (the tile's
+// scene_corner): the window row base per axis (local cell + h - 1, clipped
+// to the drift window exactly like _kernel_profiles_from), dvec, the three
+// per-axis quadratic B-spline weights w[o][d], and the base's offset in the
+// shared deposit window.  floorf before the int conversion: positions and
+// local cells can be negative.
 template <int D>
 struct Stencil {
   int base[D];
@@ -104,13 +106,14 @@ struct Stencil {
 };
 
 template <int D>
-__device__ __forceinline__ Stencil<D> stencil_of(const Geom& g, int tid, const float* pos) {
+__device__ __forceinline__ Stencil<D> stencil_of(const Geom& g, const int* corner,
+                                                 const float* pos) {
   Stencil<D> st;
   st.cell = 0;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const float cf = floorf(pos[d]);
-    const int lc = mpm::local_cell(cf, d, D, tid, g.T, g.tshape, g.origin);
+    const int lc = mpm::local_cell(cf, corner[d]);
     int b = lc + g.h - 1;
     b = b < 0 ? 0 : (b > g.E - 3 ? g.E - 3 : b);
     st.base[d] = b;
@@ -491,7 +494,8 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
     for (int i = threadIdx.x; i < CH * g.ncell; i += blockDim.x) tile_out[i] = 0.0f;
     return;
   }
-  const int tid = tidv[a];
+  int corner[D];
+  mpm::scene_corner<D>(tidv[a], g.T, g.tshape, g.origin, g.sx, corner);
   const Stage<D> sh(smem);
   float* win = smem + Stage<D>::words_per_slot() * g.chunk;
   const float* blk = stream + static_cast<int64_t>(a) * g.F * cap;
@@ -502,7 +506,7 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
       float pos[D], C[D * D];
       for (int d = 0; d < D; ++d) pos[d] = blk[d * cap + s];
       for (int ij = 0; ij < D * D; ++ij) C[ij] = blk[(2 * D + ij) * cap + s];
-      const Stencil<D> st = stencil_of<D>(g, tid, pos);
+      const Stencil<D> st = stencil_of<D>(g, corner, pos);
       const float mass = blk[(2 * D + D * D) * cap + s];
       if (!P2G2) {
         float v[D];
@@ -556,9 +560,11 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 // count: g2p from the tile's grid-value window gblk [1+D, E^D] (v rows,
 // then mass): v = sum w gv, B = sum w gv (x) dpos, C = 4B, rho = sum w m;
 // pressure; then the particle tail: advect, the mouse impulse after
-// advection (quirk Q3), clamp and the un-scaled soft wall (quirk Q2) with x
-// walls shifted by the packed-scene stride, and the drift flag (2.0 when
-// the new cell leaves [1-h, T-2+h]).  A live slot's thread reads its
+// advection (quirk Q3), clamp and the un-scaled soft wall (quirk Q2) at the
+// configuration's walls, and the drift flag (2.0 when the new cell leaves
+// [1-h, T-2+h]).  A packed scene's particles are in its own coordinates:
+// its walls are the configuration's, and its offset is in the tile's
+// corner (scene_corner).  A live slot's thread reads its
 // slot's fields, then writes the new ones and the flag into out_stream and
 // flag.  out_stream may be stream itself: the frame updates its state in
 // place, and no other thread touches the slot.  Slots past the count are
@@ -596,7 +602,7 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 // issues, as in deposit_kernel.
 //
 // params: [dt, rest, k, gamma, floor, mouse_radius, damp, mouse_active,
-//          mouse_x, mouse_y, lo[D], hi[D], scene_stride].
+//          mouse_x, mouse_y, lo[D], hi[D]].
 template <int D>
 __global__ void collect_kernel(Geom g, const int* __restrict__ count,
                                const int* __restrict__ tidv,
@@ -618,7 +624,8 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
   const float* blk = stream + static_cast<int64_t>(a) * F * cap;
   float* oblk = out_stream + static_cast<int64_t>(a) * F * cap;
   float* tflag = flag + static_cast<int64_t>(a) * cap;
-  const int tid = tidv[a];
+  int corner[D];
+  mpm::scene_corner<D>(tidv[a], g.T, g.tshape, g.origin, g.sx, corner);
   const Stage<D> sh(smem);
   float* win = smem + Stage<D>::words_per_slot() * g.chunk;
   for (int c0 = 0; c0 < cnt; c0 += g.chunk) {  // blockDim.x == g.chunk
@@ -629,7 +636,7 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
     if (valid) {
       float pos[D];
       for (int d = 0; d < D; ++d) pos[d] = blk[d * cap + s];
-      const Stencil<D> st = stencil_of<D>(g, tid, pos);
+      const Stencil<D> st = stencil_of<D>(g, corner, pos);
       const float* gw = gblk + static_cast<int64_t>(a) * (1 + D) * g.ncell;
       float B[D][D];
       for (int i = 0; i < D; ++i) {
@@ -649,17 +656,14 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
         for (int j = 0; j < D; ++j) newC[i * D + j] = 4.0f * B[i][j];
 
       const float dt = params[0];
-      const float stride = params[10 + 2 * D];
       const float pressure = mpm::tait_pressure(rho, params[1], params[2], params[3], params[4]);
       for (int d = 0; d < D; ++d) newpos[d] = pos[d] + v[d] * dt;
-      // packed scenes shift the x walls by the owning scene's offset
-      const float sbase = stride > 0.0f ? floorf(newpos[0] / fmaxf(stride, 1.0f)) * stride : 0.0f;
-      mpm::particle_tail<D>(newpos, v, params, sbase);
+      mpm::particle_tail<D>(newpos, v, params);
 
       // drift flag: the next deposit must stay inside the tile's window
       float fl = 0.0f;
       for (int d = 0; d < D; ++d) {
-        const int lcn = mpm::local_cell(floorf(newpos[d]), d, D, tid, g.T, g.tshape, g.origin);
+        const int lcn = mpm::local_cell(floorf(newpos[d]), corner[d]);
         if (lcn < 1 - g.h || lcn > g.T - 2 + g.h) fl = 2.0f;
       }
       mass = blk[(2 * D + D * D) * cap + s];
@@ -674,7 +678,7 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
       tflag[s] = fl;
     }
     // stage the chunk's updated particles, then walk them
-    if (valid) sh.store(threadIdx.x, stencil_of<D>(g, tid, newpos), mass, v, newC);
+    if (valid) sh.store(threadIdx.x, stencil_of<D>(g, corner, newpos), mass, v, newC);
     __syncthreads();
     if (cnt <= g.chunk) {  // the whole tile in one chunk
       deposit_window<D, false>(sh, g, cnt, win, tile_dep, nullptr);
@@ -942,7 +946,8 @@ __global__ void __launch_bounds__(128) halo_axes_any_kernel(
   }
 }
 
-Geom make_geom(int dim, int A, int T, int h, int cap, const int* tshape, const int* origin) {
+Geom make_geom(int dim, int A, int T, int h, int cap, const int* tshape, const int* origin,
+               int sx) {
   Geom g;
   g.A = A;
   g.T = T;
@@ -957,6 +962,7 @@ Geom make_geom(int dim, int A, int T, int h, int cap, const int* tshape, const i
     g.tshape[d] = d < dim ? tshape[d] : 1;
     g.origin[d] = d < dim ? origin[d] : 0;
   }
+  g.sx = sx;
   g.divE = fast_div(g.E);
   g.divN = fast_div(g.ncell);
   // padded window strides: lines E + 1 apart, planes and channels 3 banks
@@ -1070,12 +1076,14 @@ int launch_collect(Geom g, cudaStream_t st, Args... args) {
 
 extern "C" {
 
-// mode 1: p2g1 (hs_m, d1, params unused); mode 2: p2g2.
+// mode 1: p2g1 (hs_m, d1, params unused); mode 2: p2g2.  sx: grid cells
+// of one scene along axis 0 (one scene: tshape[0] * T).
 int fluid_deposit(int dim, int mode, const int* count, const int* tid,
                   const float* stream, const float* hs_m, const float* d1,
                   const float* params, float* out, int A, int T, int h, int cap,
-                  const int* tshape, const int* origin, void* cuda_stream) {
-  const Geom g = make_geom(dim, A, T, h, cap, tshape, origin);
+                  const int* tshape, const int* origin, int sx, void* cuda_stream) {
+  if (sx < T || sx % T) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = make_geom(dim, A, T, h, cap, tshape, origin, sx);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   if (dim == 2 && mode == 1) return launch_deposit<2, false>(g, st, count, tid, stream, hs_m, d1, params, out);
   if (dim == 2 && mode == 2) return launch_deposit<2, true>(g, st, count, tid, stream, hs_m, d1, params, out);
@@ -1087,8 +1095,9 @@ int fluid_deposit(int dim, int mode, const int* count, const int* tid,
 int fluid_collect(int dim, const int* count, const int* tid, const float* params,
                   const float* stream, const float* gblk, float* out_stream, float* flag,
                   float* dep, int A, int T, int h, int cap, const int* tshape,
-                  const int* origin, void* cuda_stream) {
-  const Geom g = make_geom(dim, A, T, h, cap, tshape, origin);
+                  const int* origin, int sx, void* cuda_stream) {
+  if (sx < T || sx % T) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = make_geom(dim, A, T, h, cap, tshape, origin, sx);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   if (dim == 2) return launch_collect<2>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
   if (dim == 3) return launch_collect<3>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);

@@ -1,7 +1,9 @@
 """Static domain geometry — the analog of ``set_rect`` (PyTorch port).
 
 A verbatim copy of ``fluid_tpu/domain.py`` (which imports no JAX itself,
-but is reached only through ``fluid_tpu/__init__.py``, which does).
+but is reached only through ``fluid_tpu/__init__.py``, which does), plus
+``PackedDomain``, the domain of a batch of scenes laid side by side along
+x (``scene.pack_scenes``), which states its scene count and stride.
 
 The reference (``2d_multi.rs:79-102`` / ``3d_multi.rs:79-102``) derives, from a
 world-space rectangle, an *active* chunk rect ``a_rect``, a *padded* chunk rect
@@ -55,6 +57,29 @@ class Domain:
     @property
     def num_cells(self) -> int:
         return math.prod(self.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedDomain(Domain):
+    """A batch of ``scenes`` scenes laid side by side along x in one grid:
+    scene k owns the ``scene_stride`` grid columns from ``k * scene_stride``
+    on, and a particle of scene k keeps its own scene's coordinates (the
+    stream backend adds ``k * scene_stride`` where a position becomes a
+    cell)."""
+
+    scenes: int
+    scene_stride: int  # cells, along x
+
+    def __post_init__(self):
+        if self.scenes < 1 or self.scene_stride * self.scenes != self.shape[0]:
+            raise ValueError(f"{self.scenes} scenes of {self.scene_stride} cells do not "
+                             f"tile the grid's {self.shape[0]} along x")
+
+
+def packing(domain) -> Tuple[int, int]:
+    """(scenes, scene stride in cells) of a domain: (1, 0) for one scene,
+    whichever package's Domain it is."""
+    return getattr(domain, "scenes", 1), getattr(domain, "scene_stride", 0)
 
 
 def make_domain(cfg: Config, rect_min=None, rect_max=None, halo_cells=None) -> Domain:

@@ -32,6 +32,12 @@ a cell's particles in slot order and the plain versions with
 Layouts (see ``csrc/stream_kernels.cu``): stream ``[A, F, cap]``, windows
 ``[A, CH, E^D]`` in flat cell order ``(e_0, ..., e_{D-1})``, flag
 ``[A, cap]``, count / tid / neighbour rows ``[A]`` int32.
+
+Packed scenes (``TileGeom.scene_cells``): a tile of scene k holds its
+particles in that scene's coordinates, and every kernel that turns a
+position into a cell adds the integer ``k * scene_cells`` on axis 0, folded
+into the tile's corner (``_tile_corner``) once a tile; the collect keeps
+each particle inside its own scene's walls, which are the configuration's.
 """
 
 from __future__ import annotations
@@ -69,6 +75,13 @@ class TileGeom:
     cap: int  # slots per tile
     tshape: Tuple[int, ...]  # tiles per axis
     origin: Tuple[int, ...]  # domain origin, in cells
+    # packed scenes: grid cells of one scene along axis 0 (0: one scene)
+    scene_cells: int = 0
+
+    @property
+    def sx(self) -> int:
+        """Grid cells of one scene along axis 0: the grid's for one scene."""
+        return self.scene_cells or self.tshape[0] * self.tile
 
     @property
     def E(self) -> int:
@@ -94,16 +107,30 @@ def _valid_slots(count: torch.Tensor, cap: int):
     return (s[None, :] < count[:, None]).nonzero(as_tuple=True)
 
 
+def _scene_offset(corner0: torch.Tensor, g: TileGeom) -> torch.Tensor:
+    """The x offset ``k * sx`` of the scene that owns grid column ``corner0``
+    (0 for one scene)."""
+    return corner0 // g.sx * g.sx
+
+
+def _tile_corner(tid: torch.Tensor, g: TileGeom) -> torch.Tensor:
+    """[V, D] int64 cell of each tile's corner in its scene's coordinates:
+    ``origin + coord * T``, less the scene's offset on axis 0."""
+    coord = torch.stack(
+        [(tid // math.prod(g.tshape[d + 1:])) % g.tshape[d] for d in range(g.dim)],
+        dim=-1,
+    ) * g.tile
+    corner = torch.as_tensor(g.origin, device=tid.device) + coord
+    if g.scene_cells:
+        corner[:, 0] -= _scene_offset(coord[:, 0], g)
+    return corner
+
+
 def _stencil(pos: torch.Tensor, tid: torch.Tensor, g: TileGeom):
     """Window row base [V, D] (clipped to the drift window), dvec [V, D] and
     per-axis weights [V, 3, D] of particles at ``pos`` in tiles ``tid``."""
     cf = torch.floor(pos)
-    coord = torch.stack(
-        [(tid // math.prod(g.tshape[d + 1:])) % g.tshape[d] for d in range(g.dim)],
-        dim=-1,
-    )
-    org = torch.as_tensor(g.origin, device=pos.device)
-    lc = cf.to(torch.int64) - (org + coord * g.tile)
+    lc = cf.to(torch.int64) - _tile_corner(tid, g)
     base = (lc + g.halo - 1).clamp(0, g.E - 3)
     dvec = (pos - cf) - 0.5
     return base, dvec, quadratic_weights(dvec)
@@ -162,7 +189,9 @@ def _particle_tail(newpos, v, params, x_shift):
     """Per-axis lists of advected positions and grid velocities [V], in
     place: the mouse impulse after advection (quirk Q3, xy plane), then the
     clamp and the un-scaled soft wall (quirk Q2) with the x walls shifted by
-    ``x_shift``.  ``mpm::particle_tail`` of ``csrc/mpm_common.cuh``."""
+    ``x_shift``.  ``mpm::particle_tail`` of ``csrc/mpm_common.cuh``, which
+    has no shift: both collects pass 0, a packed scene's particles being in
+    its own coordinates."""
     D = len(newpos)
     mouse_r, damp, m_active, mx, my = params[5], params[6], params[7], params[8], params[9]
     dx = newpos[0] - mx
@@ -248,19 +277,15 @@ def collect_plain(count, tid, params, stream, gblk, g: TileGeom, out=None):
     rho = _tap_sum(w, gw[a_idx[:, None], D, e])
     newC = [4.0 * B[i][j] for i in range(D) for j in range(D)]
 
-    dt, stride = params[0], params[10 + 2 * D]
+    dt = params[0]
     pressure = _pressure(rho, *params[1:5])
     newpos = [pos[:, d] + v[d] * dt for d in range(D)]
-    # packed scenes shift the x walls by the owning scene's offset
-    sbase = torch.where(
-        stride > 0.0, torch.floor(newpos[0] / torch.clamp_min(stride, 1.0)) * stride, 0.0
-    )
-    _particle_tail(newpos, v, params, sbase)
+    _particle_tail(newpos, v, params, 0.0)
 
     bad = torch.zeros_like(rho, dtype=torch.bool)
+    corner = _tile_corner(tid_v, g)
     for d in range(D):
-        coord = (tid_v // math.prod(g.tshape[d + 1:])) % g.tshape[d]
-        lcn = torch.floor(newpos[d]).to(torch.int64) - (g.origin[d] + coord * g.tile)
+        lcn = torch.floor(newpos[d]).to(torch.int64) - corner[:, d]
         bad = bad | (lcn < 1 - g.halo) | (lcn > g.tile - 2 + g.halo)
 
     rows = torch.stack(newpos + v + newC + [mass, pid, rho, pressure], dim=-1)
@@ -317,17 +342,22 @@ def halo_gblk_plain(x, hs_m, count, nbr, dtg, g: TileGeom, gate=None) -> torch.T
     return torch.where((gate > 0)[:, None, None], torch.cat([v, hs_m], dim=1), 0.0)
 
 
-def tile_keys(pos, g: TileGeom, vel=None, step: float = 0.0) -> torch.Tensor:
+def tile_keys(pos, g: TileGeom, vel=None, step: float = 0.0, xoff=None) -> torch.Tensor:
     """Tile key per particle (int64).  With ``vel`` and a look-ahead
     ``step`` (in time), bins PREDICTIVELY by ``pos + clip(step vel, +-1
     cell)`` on each axis where that keeps the current cell in the chosen
-    tile's drift window (``fluid_tpu`` ``_keys_from_pos``)."""
+    tile's drift window (``fluid_tpu`` ``_keys_from_pos``).  Packed scenes:
+    ``xoff`` [n] int64 is each particle's scene offset ``k * sx``, added to
+    its x cell, which is clipped to its scene's columns."""
     dev = pos.device
-    shape = device_const([t * g.tile for t in g.tshape], dev)
+    shape = device_const([g.sx] + [t * g.tile for t in g.tshape[1:]], dev)
     origin = device_const(g.origin, dev)
 
     def _cell(x):
-        return torch.minimum((torch.floor(x).to(torch.int64) - origin).clamp_min(0), shape - 1)
+        c = torch.minimum((torch.floor(x).to(torch.int64) - origin).clamp_min(0), shape - 1)
+        if xoff is not None:
+            c[..., 0] += xoff
+        return c
 
     T, h = g.tile, g.halo
     cell = _cell(pos)
@@ -342,7 +372,7 @@ def tile_keys(pos, g: TileGeom, vel=None, step: float = 0.0) -> torch.Tensor:
     return key
 
 
-def rebin_gather_plain(stream, count, n: int, g: TileGeom, step: float):
+def rebin_gather_plain(stream, count, n: int, g: TileGeom, step: float, tid=None):
     A, F, cap = stream.shape
     a_idx, s_idx = _valid_slots(count, cap)
     live = stream[a_idx, :, s_idx][:n]
@@ -350,7 +380,11 @@ def rebin_gather_plain(stream, count, n: int, g: TileGeom, step: float):
     rows = torch.zeros((n, F), dtype=torch.float32, device=stream.device)
     rows[:m] = live
     keys = torch.full((n,), math.prod(g.tshape), dtype=torch.int32, device=stream.device)
-    keys[:m] = tile_keys(live[:, :D], g, live[:, D:2 * D], step).to(torch.int32)
+    xoff = None
+    if g.scene_cells:
+        t = tid.long()[a_idx[:m]]
+        xoff = _scene_offset((t // math.prod(g.tshape[1:])) % g.tshape[0] * g.tile, g)
+    keys[:m] = tile_keys(live[:, :D], g, live[:, D:2 * D], step, xoff).to(torch.int32)
     return rows, keys
 
 
@@ -446,7 +480,7 @@ def deposit_p2g1(count, tid, stream, g: TileGeom, out=None) -> torch.Tensor:
     with torch.cuda.device(dev):
         _launch("deposit_p2g1", "fluid_deposit", g.dim, 1, _ptr(count), _ptr(tid),
                 _ptr(stream), _ptr(None), _ptr(None), _ptr(None), _ptr(out), A,
-                g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin))
+                g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin), g.sx)
     return out
 
 
@@ -464,7 +498,7 @@ def deposit_p2g2(count, tid, stream, hs_m, params, d1, g: TileGeom) -> torch.Ten
     with torch.cuda.device(dev):
         _launch("deposit_p2g2", "fluid_deposit", g.dim, 2, _ptr(count), _ptr(tid),
                 _ptr(stream), _ptr(hs_m), _ptr(d1), _ptr(params), _ptr(out), A,
-                g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin))
+                g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin), g.sx)
     return out
 
 
@@ -480,7 +514,7 @@ def collect(count, tid, params, stream, gblk, g: TileGeom, out=None):
     count."""
     A, dev = _check_tiles(count, tid, stream, g)
     _check("gblk", gblk, (A, 1 + g.dim, g.ncell), torch.float32, dev)
-    _check("params", params, (11 + 2 * g.dim,), torch.float32, dev)
+    _check("params", params, (10 + 2 * g.dim,), torch.float32, dev)
     if out is not None:
         _check("out stream", out[0], stream.shape, torch.float32, dev)
         _check("out flag", out[1], (A, g.cap), torch.float32, dev)
@@ -494,7 +528,7 @@ def collect(count, tid, params, stream, gblk, g: TileGeom, out=None):
     with torch.cuda.device(dev):
         _launch("collect", "fluid_collect", g.dim, _ptr(count), _ptr(tid), _ptr(params),
                 _ptr(stream), _ptr(gblk), _ptr(out_s), _ptr(flag), _ptr(dep), A, g.tile,
-                g.halo, g.cap, _ints(g.tshape), _ints(g.origin))
+                g.halo, g.cap, _ints(g.tshape), _ints(g.origin), g.sx)
     return out_s, flag, dep
 
 
@@ -549,27 +583,32 @@ def halo_gblk(x, hs_m, count, nbr, dtg: np.ndarray, g: TileGeom, gate=None) -> t
     return out
 
 
-def rebin_gather(stream, count, n: int, g: TileGeom, step: float):
+def rebin_gather(stream, count, n: int, g: TileGeom, step: float, tid=None):
     """The re-bin's compaction: the live slots of ``stream`` [A, F, cap]
     (``count`` [A] of each tile) as rows [n, F] in slot order, and each
     row's tile key [n] int32 (``tile_keys`` with the look-ahead ``step``;
     0 keys by position alone).  Rows past the live count are zeros with the
-    key ``nt``, of no tile; live rows past ``n`` are dropped."""
+    key ``nt``, of no tile; live rows past ``n`` are dropped.  Packed scenes
+    (``g.scene_cells``) key a row in its tile's scene, from ``tid`` [A]."""
     A, dev = count.shape[0], stream.device
     _check("count", count, (A,), torch.int32, dev)
     _check("stream", stream, (A, g.F, g.cap), torch.float32, dev)
     if n < 1:
         raise ValueError(f"rebin_gather: n={n} rows, expected at least 1")
+    if g.scene_cells:
+        if tid is None:
+            raise ValueError("rebin_gather: packed scenes key by the tiles' ids, tid is needed")
+        _check("tid", tid, (A,), torch.int32, dev)
     if _on_cpu(dev):
-        return rebin_gather_plain(stream, count, n, g, step)
+        return rebin_gather_plain(stream, count, n, g, step, tid)
     check_cap(g.cap)
     rows = torch.empty((n, g.F), dtype=torch.float32, device=dev)
     keys = torch.empty((n,), dtype=torch.int32, device=dev)
     cum = torch.cumsum(count, 0, dtype=torch.int32)
     with torch.cuda.device(dev):
         _launch("rebin_gather", "fluid_rebin_gather", g.dim, _ptr(stream), _ptr(count), _ptr(cum),
-                _ptr(rows), _ptr(keys), A, g.cap, n, g.tile, g.halo, _ints(g.tshape),
-                _ints(g.origin), int(step != 0.0), step)
+                _ptr(tid if g.scene_cells else None), _ptr(rows), _ptr(keys), A, g.cap, n,
+                g.tile, g.halo, _ints(g.tshape), _ints(g.origin), g.sx, int(step != 0.0), step)
     return rows, keys
 
 

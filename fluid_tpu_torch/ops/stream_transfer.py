@@ -23,10 +23,14 @@ ported operation by operation from the JAX module so that binning is
 bit-identical to it.
 
 Kept ``StreamSpec`` knobs: ``tile``, ``cap``, ``halo``, ``active`` and
-``scene_stride``.  The TPU's block-geometry knobs (``group``, ``pair``,
-``wchunk``, ``mhalo``, ``interpret``, ``rebin_margin``, ``dyn`` and the
-``ZFAC_*`` toggles) have no counterpart: every kernel launches over all A
-tiles and a tile with no particles writes zeros and returns.
+``scene_stride``, which must be the domain's (``domain.PackedDomain``: a
+batch of scenes side by side along x, each particle in its own scene's
+coordinates; the tile's scene adds its offset where a position becomes a
+cell, ``stream_kernels.TileGeom.scene_cells``).  The TPU's block-geometry
+knobs (``group``, ``pair``, ``wchunk``, ``mhalo``, ``interpret``,
+``rebin_margin``, ``dyn`` and the ``ZFAC_*`` toggles) have no counterpart:
+every kernel launches over all A tiles and a tile with no particles writes
+zeros and returns.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..domain import Domain
+from ..domain import Domain, packing
 from ..state import GridState, ParticleState
 from ..utils.graph import device_const, eager_branch
 from . import pallas_transfer as ptx
@@ -58,8 +62,8 @@ class StreamSpec:
     cap: int = 128  # particle slots per tile (a multiple of 32: the kernels walk whole warps)
     halo: int = 2  # h: window reach beyond the tile; E = T + 2h
     active: int = 64  # A: active-tile budget
-    # packed-scene stride along x: per-scene walls at
-    # [k*stride + clip_lo_x, k*stride + clip_hi_x]; 0 = single scene
+    # packed scenes: grid cells of one scene along x, the domain's
+    # scene_stride (0: one scene)
     scene_stride: float = 0.0
 
     def __post_init__(self):
@@ -90,13 +94,15 @@ def default_spec(cfg: Config, domain: Domain, n: int) -> StreamSpec:
     scene, 256 for the 2D one, whose tiles have a quarter of the cells.
     Active budget like ``fluid_tpu``'s: 32x the rest-density tile
     estimate, capped by the tile count.  The 110k cap exists for the TPU's
-    scalar memory; it is kept only so both packages size A alike."""
+    scalar memory; it is kept only so both packages size A alike.  The
+    scene stride is the domain's."""
     T = 4
     per_tile = cfg.rest_density * T**cfg.dim
     occupied = max(2048, int(n / max(per_tile, 1.0)) * 32)
     nt = math.prod(s // T for s in domain.shape)
     cap = 32 * math.ceil(cfg.rest_density * (T**cfg.dim + _CAP_HEADROOM_CELLS) / 32)
-    return StreamSpec(tile=T, cap=cap, halo=2, active=min(occupied, nt, 110_000))
+    return StreamSpec(tile=T, cap=cap, halo=2, active=min(occupied, nt, 110_000),
+                      scene_stride=float(packing(domain)[1]))
 
 
 def _id_row(D: int) -> int:
@@ -185,6 +191,12 @@ def _tile_geometry(domain: Domain, spec: StreamSpec):
     T = spec.tile
     if any(s % T for s in domain.shape):
         raise ValueError(f"grid shape {domain.shape} not divisible by tile={T}")
+    scenes, stride = packing(domain)
+    if spec.scene_stride != stride:
+        raise ValueError(f"spec.scene_stride {spec.scene_stride:g} contradicts the domain's "
+                         f"{stride} ({scenes} scene(s))")
+    if stride % T:
+        raise ValueError(f"scene stride {stride} not divisible by tile={T}")
     tshape = tuple(s // T for s in domain.shape)
     return tshape, math.prod(tshape)
 
@@ -194,7 +206,20 @@ def tile_geom(domain: Domain, spec: StreamSpec) -> sk.TileGeom:
     return sk.TileGeom(
         dim=len(tshape), tile=spec.tile, halo=spec.halo, cap=spec.cap,
         tshape=tshape, origin=tuple(int(o) for o in domain.origin),
+        scene_cells=packing(domain)[1],
     )
+
+
+def scene_offsets(n: int, domain: Domain, device) -> Optional[torch.Tensor]:
+    """[n] int64 x offset ``k * scene_stride`` of each row of a packed
+    domain's particles, scene-major, ``n / scenes`` a scene (None for one
+    scene)."""
+    scenes, stride = packing(domain)
+    if scenes == 1:
+        return None
+    if n % scenes:
+        raise ValueError(f"{n} particles do not split into {scenes} scenes")
+    return torch.arange(n, device=device) // (n // scenes) * stride
 
 
 def _flatten_coords(c: torch.Tensor, shape) -> torch.Tensor:
@@ -207,10 +232,13 @@ def _flatten_coords(c: torch.Tensor, shape) -> torch.Tensor:
 def _keys_from_pos(pos, domain: Domain, spec: StreamSpec, tshape, vel=None, dt=0.0):
     """Tile key per particle (int64).  With ``vel``, bins PREDICTIVELY by
     ``pos + clip(6 dt vel, +-1 cell)`` when that keeps the current cell in
-    the chosen tile's drift window (``stream_kernels.tile_keys``)."""
+    the chosen tile's drift window (``stream_kernels.tile_keys``); a packed
+    domain's rows key in their own scenes (``scene_offsets``)."""
     g = sk.TileGeom(dim=len(tshape), tile=spec.tile, halo=spec.halo, cap=spec.cap,
-                    tshape=tuple(tshape), origin=tuple(int(o) for o in domain.origin))
-    return sk.tile_keys(pos, g, vel, _LOOKAHEAD * dt)
+                    tshape=tuple(tshape), origin=tuple(int(o) for o in domain.origin),
+                    scene_cells=packing(domain)[1])
+    return sk.tile_keys(pos, g, vel, _LOOKAHEAD * dt,
+                        scene_offsets(pos.shape[0], domain, pos.device))
 
 
 def _active_index(tid_act, nt: int, A: int) -> torch.Tensor:
@@ -350,7 +378,7 @@ def bin_particles(p: ParticleState, domain: Domain, spec: StreamSpec,
 
 def unbin(st: StreamState, domain: Domain, spec: StreamSpec, n: int, D: int) -> ParticleState:
     """Stream -> ParticleState in the original particle order (id row)."""
-    rows, _ = sk.rebin_gather(st.stream, st.count, n, tile_geom(domain, spec), 0.0)
+    rows, _ = sk.rebin_gather(st.stream, st.count, n, tile_geom(domain, spec), 0.0, st.tid)
     out = rows[torch.argsort(rows[:, _id_row(D)].to(torch.int64), stable=True)]
     return ParticleState(
         pos=out[:, 0:D].contiguous(),
@@ -369,7 +397,7 @@ def _rebin_full(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec,
     ``out``'s tensors where given (``st`` itself: the compaction has read
     the stream before the fill writes it)."""
     rows, keys = sk.rebin_gather(st.stream, st.count, n, tile_geom(domain, spec),
-                                 _LOOKAHEAD * cfg.dt)
+                                 _LOOKAHEAD * cfg.dt, st.tid)
     return _bin_rows(rows, keys, spec, nt, tshape, out=out)
 
 
@@ -402,15 +430,14 @@ def overflow_count(pos, domain: Domain, spec: StreamSpec, vel=None, dt: float = 
 # ---------------------------------------------------------------------------
 
 
-def collect_params(cfg: Config, mouse_pos, mouse_active, stride: float = 0.0,
-                   device=None) -> torch.Tensor:
-    """[11 + 2D] f32: dt, rest_density, eos_stiffness, eos_power,
+def collect_params(cfg: Config, mouse_pos, mouse_active, device=None) -> torch.Tensor:
+    """[10 + 2D] f32: dt, rest_density, eos_stiffness, eos_power,
     pressure_floor, mouse_radius, boundary_damp_dist, mouse_active, mouse_x,
-    mouse_y, clip_lo[D], clip_hi[D], scene_stride: the pallas collect's
-    parameters plus the stride.  The mouse tensors are copied on the device,
-    never read on the host."""
-    head = ptx.collect_params(cfg, mouse_pos, mouse_active, device)
-    return torch.cat([head, device_const([stride], device, torch.float32)])
+    mouse_y, clip_lo[D], clip_hi[D]: the pallas collect's parameters.  The
+    walls and the mouse are in a scene's own coordinates, so a packed batch
+    has the walls of one scene and the mouse acts on every scene alike.
+    The mouse tensors are copied on the device, never read on the host."""
+    return ptx.collect_params(cfg, mouse_pos, mouse_active, device)
 
 
 def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device):
@@ -488,7 +515,7 @@ def frame_inplace(st: StreamState, cfg: Config, domain: Domain, spec: StreamSpec
     n_sub = cfg.iterations if substeps is None else substeps
     n_c = spec.A * spec.cap if n is None else n
     stages = substep_stages(cfg, domain, spec, dev)
-    params = collect_params(cfg, mouse_pos, mouse_active, spec.scene_stride, dev)
+    params = collect_params(cfg, mouse_pos, mouse_active, dev)
     dep1 = stages.dep1(st)
     for _ in range(n_sub):
         dep1 = _substep_core(st, dep1, stages, params)
@@ -563,7 +590,7 @@ def substep(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_acti
     dev = p.device
     st = bin_particles(p, domain, spec, dt=cfg.dt)
     stages = substep_stages(cfg, domain, spec, dev)
-    params = collect_params(cfg, mouse_pos, mouse_active, spec.scene_stride, dev)
+    params = collect_params(cfg, mouse_pos, mouse_active, dev)
     d1 = stages.dep1(st)
     hs_m = stages.halo_m(st, d1)
     d2 = stages.dep2(st, d1, hs_m)

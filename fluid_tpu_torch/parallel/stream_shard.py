@@ -52,7 +52,7 @@ import torch
 from .. import render as render_mod
 from .. import step as step_mod
 from ..config import Config
-from ..domain import Domain
+from ..domain import Domain, packing
 from ..ops import stream_kernels as sk
 from ..ops import stream_transfer as stx
 from ..ops.stream_transfer import StreamSpec, StreamState
@@ -85,7 +85,7 @@ class StreamShardSpec:
             raise ValueError("global x extent not tile-aligned")
         if self.spec.halo > T:
             raise ValueError("ghost-column halo requires halo <= tile")
-        if self.spec.scene_stride:
+        if self.spec.scene_stride or packing(self.domain)[0] > 1:
             raise ValueError("packed scenes are not sharded")
 
     @property
@@ -312,7 +312,7 @@ class _Stages:
             self.params6.append(torch.tensor(
                 [cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
                  cfg.pressure_floor, cfg.dynamic_viscosity], dtype=torch.float32, device=dev))
-            p = stx.collect_params(cfg, mouse_pos, mouse_active, 0.0, dev)
+            p = stx.collect_params(cfg, mouse_pos, mouse_active, dev)
             for i in (8, 10, 10 + D):  # mouse x, clip_lo x, clip_hi x
                 p[i] -= sspec.shift(d)
             self.params.append(p)

@@ -9,8 +9,10 @@ compare the two packages build their inputs in numpy.  The particles land on
 a seed's draw the same on every host, and the draw is then moved).
 
 ``batched_dam_break`` builds a stack of scenes and ``pack_scenes`` lays it
-out as one domain for the stream backend (per-scene walls through
-``StreamSpec.scene_stride``), as ``fluid_tpu/scene.py`` does.
+out as one domain for the stream backend, as ``fluid_tpu/scene.py`` does;
+its ``PackedDomain`` states the scene count and stride.  A ``Session`` on
+that domain takes the stack as ``batch_rows``: every scene in its own
+coordinates, so each computes at float32 where it is.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from .config import Config, default_2d, default_3d
-from .domain import Domain, make_domain
+from .domain import Domain, PackedDomain, make_domain
 from .state import FIELDS, ParticleState
 from .utils.platform import resolve_device
 
@@ -111,12 +113,15 @@ def reference_scene_3d(seed: int = 0, n: int = REFERENCE_N, device=None):
 
 
 def pack_scenes(state: ParticleState, cfg: Config,
-                halo_cells: int = 4) -> Tuple[ParticleState, Domain, float]:
+                halo_cells: int = 4) -> Tuple[ParticleState, PackedDomain, float]:
     """Lay a [batch, N, D] stack of scenes side by side along x in one
-    domain.  Scene k moves by ``k * stride`` in x; the stream collect keeps
-    it inside its own walls ``[k stride, k stride + world]`` when the spec's
-    ``scene_stride`` is ``stride``.  Neighbouring grids are ``2 halo_cells``
-    unused cells apart, so scenes never interact.
+    domain: scene k owns the grid columns ``[k stride, (k + 1) stride)``,
+    the world ``[k stride, k stride + world]`` and ``halo_cells`` on each
+    side, so neighbouring grids are ``2 halo_cells`` unused cells apart and
+    scenes never interact.  The packed particles are ``fluid_tpu``'s: x of
+    scene k moved by ``k * stride``.  The stream ``Session`` takes the
+    stack in scene coordinates instead (``batch_rows``) and keeps each
+    scene inside its own walls.
 
     Returns (packed particles [batch * N], packed domain, stride)."""
     if state.pos.ndim != 3:
@@ -136,9 +141,21 @@ def pack_scenes(state: ParticleState, cfg: Config,
     shape = (batch * int(stride),) + tuple(
         -(-(int(math.ceil(hi[d])) + 2 * halo_cells) // 8) * 8 for d in range(1, D)
     )
-    dom = Domain(origin=(-halo_cells,) * D, shape=shape,
-                 a_rect=((0,) * D, (1,) * D), p_rect=((-1,) * D, (2,) * D))
+    dom = PackedDomain(origin=(-halo_cells,) * D, shape=shape,
+                       a_rect=((0,) * D, (1,) * D), p_rect=((-1,) * D, (2,) * D),
+                       scenes=batch, scene_stride=int(stride))
     return packed, dom, stride
+
+
+def batch_rows(state: ParticleState) -> ParticleState:
+    """A [batch, N, ...] stack as [batch * N] rows, scene-major, each
+    particle in its own scene's coordinates: what a ``Session`` on
+    ``pack_scenes``' domain takes and what its ``particles()`` returns."""
+    if state.pos.ndim != 3:
+        raise ValueError("batch_rows expects a [batch, N, D] particle stack")
+    batch, n = state.pos.shape[:2]
+    return ParticleState(**{f: getattr(state, f).reshape(batch * n, *getattr(state, f).shape[2:])
+                            for f in FIELDS})
 
 
 def unpack_scenes(packed: ParticleState, batch: int, n: int, stride: float) -> ParticleState:

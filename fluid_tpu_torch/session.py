@@ -24,7 +24,14 @@ Each call records host spans in the process's recorder
 ``replay`` and ``check``), ``render`` (``histogram``, ``read``,
 ``ascii``), ``sync`` (``block_until_ready``), ``restore``, ``particles``
 and ``snapshot``; the strict check also records the stream's ``fill_peak``
-watermark beside its cap as a counter sample.
+watermark beside its cap and its ``need_peak`` beside the active budget as
+counter samples.
+
+A batch of scenes runs on the stream backend in one ``PackedDomain``
+(``scene.pack_scenes``): ``p`` holds the scenes' rows one scene after the
+other, each in its own scene's coordinates, and ``particles()``,
+``snapshot()`` and ``restore()`` keep that layout; each scene stays inside
+its own walls.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import torch
 from . import render as render_mod
 from . import step
 from .config import Config
-from .domain import Domain
+from .domain import Domain, packing
 from .ops import stream_transfer as stx
 from .ops import tiled_transfer as tt
 from .state import FIELDS, ParticleState
@@ -81,12 +88,15 @@ class Session:
 
     cfg, domain : static setup;  p : initial particles (moved to ``device``)
     backend : one of ``step.BACKENDS``; None -> ``default_backend(device)``
+        (a packed domain of several scenes runs on "stream" alone)
     spec : layout override: a StreamSpec for "stream", a TileSpec for
         "tiled"; None is the backend's default ("pallas" always uses
-        ``tiled_transfer.default_spec``, as in JAX)
+        ``tiled_transfer.default_spec``, as in JAX); a StreamSpec whose
+        ``scene_stride`` is not the domain's raises ValueError
     strict : after every frame check particle conservation and the
         active-budget watermark (stream only; one small device read, which
-        also fetches the tile-fill watermark for the recorder)
+        also fetches the tile-fill and budget-demand watermarks for the
+        recorder)
     device : where the state lives (None: ``default_device()``, the card)
     """
 
@@ -98,6 +108,10 @@ class Session:
         self.cfg = cfg
         self.domain = domain
         self.backend = backend or default_backend(self.device)
+        scenes = packing(domain)[0]
+        if scenes > 1 and self.backend != "stream":
+            raise ValueError(f"{scenes} packed scenes run on the stream backend, "
+                             f"not {self.backend!r}")
         self.n = p.n
         self.dim = p.dim
         self.strict = strict
@@ -159,9 +173,10 @@ class Session:
 
     def _check(self, where: str) -> None:
         st = self._st
-        live, drops, fill = torch.cat([st.count.sum(dtype=torch.int32).reshape(1),
-                                       st.shell_drop, st.fill_peak]).tolist()
+        live, drops, fill, need = torch.cat([st.count.sum(dtype=torch.int32).reshape(1),
+                                             st.shell_drop, st.fill_peak, st.need_peak]).tolist()
         recorder().count("fill_peak", fill, self.spec.cap)
+        recorder().count("need_peak", need, self.spec.A)
         if live != self.n:
             raise RuntimeError(
                 f"particle loss at {where}: sum(count)={live} != n={self.n} — "

@@ -67,7 +67,7 @@ def _host_loop_frame(st, cfg, dom, spec, mp, ma, substeps, n):
     state's own tensors."""
     tshape, nt = tstx._tile_geometry(dom, spec)
     stages = tstx.substep_stages(cfg, dom, spec, "cpu")
-    params = tstx.collect_params(cfg, mp, ma, spec.scene_stride, "cpu")
+    params = tstx.collect_params(cfg, mp, ma, "cpu")
     dep1 = stages.dep1(st)
     for _ in range(substeps):
         dep1 = tstx._substep_core(st, dep1, stages, params)

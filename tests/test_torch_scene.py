@@ -55,8 +55,9 @@ def test_create_takes_a_stack_like_jax_vmap(dim):
 @pytest.mark.parametrize("dim", [2, 3])
 def test_pack_and_unpack_scenes_bit_equal_jax(dim):
     """Packed positions, domain and stride equal ``fluid_tpu.scene``'s bit
-    for bit, every field follows, and unpacking gives JAX's unpacked stack
-    (and the input back, to rounding)."""
+    for bit (the port's domain also states the scene count and stride),
+    every field follows, and unpacking gives JAX's unpacked stack (and the
+    input back, to rounding)."""
     cfg = default_2d() if dim == 2 else default_3d()
     jcfg = jconfig.default_2d() if dim == 2 else jconfig.default_3d()
     pos, vel, C = _stack(dim, 3, 40, seed=10 + dim, lo=16.0, hi=48.0)
@@ -64,7 +65,7 @@ def test_pack_and_unpack_scenes_bit_equal_jax(dim):
     jp, jdom, jstride = jscene.pack_scenes(j, jcfg)
     tp, tdom, tstride = tscene.pack_scenes(t, cfg)
     assert tstride == jstride == 72.0
-    assert dataclasses.asdict(tdom) == dataclasses.asdict(jdom)
+    assert dataclasses.asdict(tdom) == dataclasses.asdict(jdom) | {"scenes": 3, "scene_stride": 72}
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(tp, f).numpy(), np.asarray(getattr(jp, f)), err_msg=f)
     ju = jscene.unpack_scenes(jp, 3, 40, jstride)
@@ -102,21 +103,25 @@ def test_batched_dam_break_and_add_particles():
 
 
 def test_packed_stream_frame_matches_per_scene_dense():
-    """Two scenes packed side by side run 3 substeps of the port's stream
-    path (per-scene walls through ``scene_stride``) and match each scene run
-    alone through ``fluid_tpu``'s dense substep to 1e-3, the tolerance of
+    """Two scenes packed side by side (each particle in its own scene's
+    coordinates, ``batch_rows``; the packed domain's stride) run 3
+    substeps of the port's stream path and match each scene run alone
+    through ``fluid_tpu``'s dense substep to 1e-3, the tolerance of
     tests/test_stream.py::test_packed_scenes_match_per_scene_dense (12-unit
     worlds, B=2, n=96)."""
     B, n = 2, 96
     cfg = default_3d().replace(boundary_clip=((0.0,) * 3, (12.0,) * 3), grid_res=12)
     jcfg = jdefault_3d().replace(boundary_clip=((0.0,) * 3, (12.0,) * 3), grid_res=12)
     pos, vel, _ = _stack(3, B, n, seed=5)
-    packed, dom, stride = tscene.pack_scenes(ParticleState.create(pos, vel=vel, device="cpu"), cfg)
+    stack = ParticleState.create(pos, vel=vel, device="cpu")
+    _, dom, stride = tscene.pack_scenes(stack, cfg)
+    rows = tscene.batch_rows(stack)
     nt = (dom.shape[0] // 4) * (dom.shape[1] // 4) * (dom.shape[2] // 4)
     spec = tstx.StreamSpec(tile=4, cap=128, halo=2, active=nt, scene_stride=stride)
-    assert int(tstx.overflow_count(packed.pos, dom, spec)) == 0
-    out = tstx.frame(packed, cfg, dom, *tstep.no_mouse(), spec, substeps=3)
-    got = tscene.unpack_scenes(out, B, n, stride)
+    assert int(tstx.overflow_count(rows.pos, dom, spec)) == 0
+    out = tstx.frame(rows, cfg, dom, *tstep.no_mouse(), spec, substeps=3)
+    got = ParticleState(**{f: getattr(out, f).reshape(B, n, *getattr(out, f).shape[1:])
+                           for f in FIELDS})
     assert bool((got.pos[..., 0] >= 0.0).all() and (got.pos[..., 0] <= 12.0).all())
 
     sdom = jmake_domain(jcfg, halo_cells=4)

@@ -172,11 +172,11 @@ def test_collect_params_stay_on_the_device():
     read would raise.  On the CPU the values are the expected row."""
     cfg = default_2d()
     mp, ma = step.mouse((3.0, 4.0))
-    meta = stx.collect_params(cfg, mp.to("meta"), ma.to("meta"), 72.0, "meta")
-    assert meta.device.type == "meta" and meta.shape == (15,)
-    got = stx.collect_params(cfg, mp, ma, 72.0, "cpu")
+    meta = stx.collect_params(cfg, mp.to("meta"), ma.to("meta"), "meta")
+    assert meta.device.type == "meta" and meta.shape == (14,)
+    got = stx.collect_params(cfg, mp, ma, "cpu")
     want = [cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power, cfg.pressure_floor,
-            cfg.mouse_radius, cfg.boundary_damp_dist, 1.0, 3.0, 4.0, 0.0, 0.0, 64.0, 64.0, 72.0]
+            cfg.mouse_radius, cfg.boundary_damp_dist, 1.0, 3.0, 4.0, 0.0, 0.0, 64.0, 64.0]
     assert torch.equal(got, torch.tensor(want, dtype=torch.float32))
 
 

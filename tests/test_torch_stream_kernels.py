@@ -18,19 +18,21 @@ every comparison isolates one kernel.  Tolerances:
   multiplies by 1/m), and exact zeros at zero-count tiles.
 """
 
-import dataclasses
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from fluid_tpu import scene as jscene
 from fluid_tpu import step as jstep
 from fluid_tpu.config import default_2d, default_3d
 from fluid_tpu.domain import make_domain
 from fluid_tpu.ops import stream_transfer as jstx
 from fluid_tpu.state import ParticleState as JParticles
+from fluid_tpu_torch import scene as tscene
 from fluid_tpu_torch import state as tstate
 from fluid_tpu_torch import step as tstep
 from fluid_tpu_torch.ops import stream_kernels as sk
@@ -39,8 +41,9 @@ from fluid_tpu_torch.ops import stream_transfer as tstx
 torch.set_num_threads(1)
 
 STATE_KEYS = ("stream", "count", "tid", "flag", "nbr", "shell_drop", "need_peak", "rebins")
-# the collect variant with the mouse on and packed-scene x walls every 8 cells
-MOUSE_XY, STRIDE = (8.0, 8.0), 8.0
+# the collect variant with the mouse on, on two packed scenes (each scene's
+# mouse at its own (8, 8)); packed positions spread to the walls
+MOUSE_XY = (8.0, 8.0)
 _CACHE = {}
 
 
@@ -87,9 +90,6 @@ def _reference(dim):
     hs_m = stages.halo_m(st, d1)
     d2 = stages.dep2(st, d1, hs_m)
     gblk = stages.halo_gblk(st, d2, hs_m)
-    wall_spec = dataclasses.replace(spec, scene_stride=STRIDE)
-    wall_collect = jstx.substep_stages(cfg, dom, wall_spec, fused=True).collect(
-        st, gblk, *jstep.mouse(MOUSE_XY))
     A, D = spec.A, dim
     tspec = tstx.StreamSpec(active=A)
     ref = dict(
@@ -101,9 +101,55 @@ def _reference(dim):
         d2=_windows(d2, A, D, D),
         gblk=_windows(gblk, A, 1 + D, D),
         collect={"plain": stages.collect(st, gblk, mp, ma),
-                 "fused": fstages.collect(st, gblk, mp, ma), "walls": wall_collect},
+                 "fused": fstages.collect(st, gblk, mp, ma)},
     )
     _CACHE[dim] = ref
+    return ref
+
+
+def _packed_reference(dim, n=256, seed=7):
+    """Two 16-unit scenes side by side as ``fluid_tpu`` packs them
+    (``pack_scenes``, stride 24, x of scene 1 moved by 24), binned and run
+    to the grid values by the JAX stages; its collect with the scene's
+    ``scene_stride``, the mouse on at (8, 8) of scene 0 in one call and of
+    scene 1 (x + 24) in another (a mouse radius of 10 reaches one scene).
+    The port gets the same binned state with each particle in its own
+    scene's coordinates (x - 24 in scene 1, exact) and the packed geometry.
+    Cached per dim for this file."""
+    key = ("packed", dim)
+    if key in _CACHE:
+        return _CACHE[key]
+    cfg, _, _, _ = _scene(dim)
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.5, 15.5, (2, n, dim)).astype(np.float32)
+    vel = (rng.normal(size=(2, n, dim)) * 0.4).astype(np.float32)
+    C = (rng.normal(size=(2, n, dim, dim)) * 0.05).astype(np.float32)
+    jp, dom, stride = jscene.pack_scenes(
+        jax.vmap(JParticles.create)(jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(C)), cfg)
+    _, tdom, _ = tscene.pack_scenes(tstate.ParticleState.create(pos, vel=vel, C=C, device="cpu"),
+                                    cfg)
+    nt = math.prod(s // 4 for s in dom.shape)
+    spec = jstx.StreamSpec(tile=4, cap=128, halo=2, group=2, active=nt, interpret=True,
+                           dyn=False, scene_stride=stride)
+    st = jstx.bin_particles(jp, dom, spec, dt=cfg.dt)
+    stages = jstx.substep_stages(cfg, dom, spec, fused=True)
+    d1 = stages.dep1(st)
+    hs_m = stages.halo_m(st, d1)
+    gblk = stages.halo_gblk(st, stages.dep2(st, d1, hs_m), hs_m)
+    collects = [stages.collect(st, gblk, *jstep.mouse((MOUSE_XY[0] + k * stride, MOUSE_XY[1])))
+                for k in range(2)]
+    tspec = tstx.StreamSpec(active=nt, scene_stride=stride)
+    tst = tstx.stream_state_from_numpy({k: np.asarray(getattr(st, k)) for k in STATE_KEYS}, tspec)
+    geom = tstx.tile_geom(tdom, tspec)
+    assert geom.scene_cells == 24
+    # each tile's scene offset, and its live slots' x in scene coordinates
+    col = (tst.tid.long() // math.prod(geom.tshape[1:])) % geom.tshape[0] * 4
+    off = (col // 24 * 24).to(torch.float32)
+    live = torch.arange(128)[None, :] < tst.count[:, None]
+    tst.stream[:, 0] -= torch.where(live, off[:, None], 0.0)
+    ref = dict(cfg=cfg, A=nt, G=spec.group, tst=tst, geom=geom, gblk=_windows(gblk, nt, 1 + dim, dim),
+               off=off, scene=(col // 24).numpy(), collects=collects)
+    _CACHE[key] = ref
     return ref
 
 
@@ -130,33 +176,56 @@ def test_deposit_p2g2_matches_pallas(dim):
     _close(got, r["d2"])
 
 
+def _tile_major(x, A, G):
+    """A JAX grouped stream [NG, F, G*cap] -> the port's [A, F, cap]."""
+    x = np.asarray(x)
+    return x.reshape(x.shape[0], x.shape[1], G, -1).transpose(0, 2, 1, 3).reshape(A, x.shape[1], -1)
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("variant", ["plain", "fused", "walls"])
 def test_collect_matches_pallas(dim, variant):
     """Collect against the JAX collect: its stream and flag against the
     unfused one ("plain"), also its p2g1 windows against the fused one, and
-    with the mouse on and x walls shifted by a packed-scene stride."""
-    r = _reference(dim)
-    st, cfg, A = r["tst"], r["cfg"], r["tspec"].A
+    with the mouse on, on two packed scenes ("walls"): the port's tiles of
+    scene 1 hold their particles in that scene's coordinates, and its x rows
+    plus the scene's offset match JAX's packed collect, whose x walls shift
+    with the scene (``_packed_reference``)."""
+    r = _packed_reference(dim) if variant == "walls" else _reference(dim)
+    st, cfg = r["tst"], r["cfg"]
+    A, G = (r["A"], r["G"]) if variant == "walls" else (r["tspec"].A, r["spec"].group)
     if variant == "walls":
-        params = tstx.collect_params(cfg, *tstep.mouse(MOUSE_XY), STRIDE)
+        params = tstx.collect_params(cfg, *tstep.mouse(MOUSE_XY))
     else:
         params = tstx.collect_params(cfg, *tstep.no_mouse())
     got = sk.collect(st.count, st.tid, params, st.stream, r["gblk"], r["geom"])
-    want = r["collect"][variant]
-    G = r["spec"].group
-    ws = np.asarray(want[0])
-    ws = ws.reshape(ws.shape[0], ws.shape[1], G, -1).transpose(0, 2, 1, 3).reshape(A, ws.shape[1], -1)
+    if variant == "walls":
+        # each scene's tiles from the JAX collect with that scene's mouse
+        one, (c0, c1) = r["scene"] == 1, r["collects"]
+        ws = np.where(one[:, None, None], _tile_major(c1[0], A, G), _tile_major(c0[0], A, G))
+        want = (ws, np.where(one[:, None], np.asarray(c1[1]).reshape(A, -1),
+                             np.asarray(c0[1]).reshape(A, -1)),
+                torch.where(torch.as_tensor(one)[:, None, None], _windows(c1[2], A, 1 + dim, dim),
+                            _windows(c0[2], A, 1 + dim, dim)))
+        live = torch.arange(128)[None, :] < st.count[:, None]
+        got = (got[0].clone(), got[1], got[2])
+        got[0][:, 0] += torch.where(live, r["off"][:, None], 0.0)  # back to packed x
+    else:
+        want = r["collect"][variant]
+        ws = _tile_major(want[0], A, G)
     prs = ws.shape[1] - 1
     _close(got[0][:, :prs], ws[:, :prs], msg="stream rows")
     _close(got[0][:, prs], ws[:, prs], rtol=2e-5, msg="pressure row")
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]).reshape(A, -1))
     if variant != "plain":
-        _close(got[2], _windows(want[2], A, 1 + dim, dim), msg="fused p2g1")
-    if variant == "walls":  # non-vacuous: the mouse and the walls pushed particles
+        wp1 = want[2] if variant == "walls" else _windows(want[2], A, 1 + dim, dim)
+        _close(got[2], wp1, msg="fused p2g1")
+    if variant == "walls":  # non-vacuous: both scenes, the mouse and the walls pushed particles
+        assert set(r["scene"][st.count.numpy() > 0].tolist()) == {0, 1}
         calm = sk.collect(st.count, st.tid, tstx.collect_params(cfg, *tstep.no_mouse()),
                           st.stream, r["gblk"], r["geom"])
         assert int((got[0][:, dim:2 * dim] != calm[0][:, dim:2 * dim]).sum()) > 10
+        assert float(calm[0][:, 0].max()) <= 16.0  # every scene inside its own walls
 
 
 def _gated(x, count):
@@ -341,7 +410,7 @@ def test_collect_in_place_writes_only_live_slots(dim, cap):
     d1 = stages.dep1(st)
     hs_m = stages.halo_m(st, d1)
     gblk = stages.halo_gblk(st, stages.dep2(st, d1, hs_m), hs_m)
-    params = tstx.collect_params(cfg, *tstep.mouse(MOUSE_XY), STRIDE)
+    params = tstx.collect_params(cfg, *tstep.mouse(MOUSE_XY))
     want = stages.collect(st, gblk, params)
     live = torch.arange(cap)[None, :] < st.count[:, None]
     assert live.any() and (~live).any()  # non-vacuous
