@@ -333,32 +333,34 @@ def particle_ops(kind: str, D: int, valid: int, taps: int | None = None) -> int:
     return (valid * 3**D if taps is None else taps) * per[0] + valid * per[1]
 
 
-def stream_bounds(st, g, D: int) -> dict:
-    """(bytes, ops) of each stream kernel on this state: each input read
-    once (only the valid slots of the stream, only the windows of occupied
-    tiles where an empty tile reads none), each output written once (the
-    collect's stream and flag: only the valid slots, in place).  The
-    mass halo (CH = 1, the D passes) reads the count, the face tables and
-    the occupied input windows (the gate), and adds two terms per pass to
-    every output value.  halo_gblk reads the
-    count, the face tables and the occupied m+f and mass windows, writes
-    every grid-value window, and at occupied tiles adds two terms per pass
-    and divides and adds once per v value."""
-    A, nc = st.count.shape[0], g.ncell
+def stream_bounds(st, g, D: int, entries: int) -> dict:
+    """(bytes, ops) of each stream kernel on this state, launched over its
+    first ``entries`` entries (the state's ``occupied`` as the frame
+    launches them, or A with no count): each input read once (only the
+    valid slots of the stream, only the windows of occupied tiles where an
+    empty tile reads none; the count, the tile id and the face tables of
+    the entries launched), each output written once (the windows of the
+    entries launched; the collect's stream and flag: only the valid slots,
+    in place).  The mass halo (CH = 1, the D passes) reads the occupied
+    input windows (the gate) and adds two terms per pass to each output
+    value.  halo_gblk reads the occupied m+f and mass windows, writes each
+    grid-value window launched, and at occupied tiles adds two terms per
+    pass and divides and adds once per v value."""
+    n, nc = entries, g.ncell
     valid = int(st.count.sum())
     occ = int((st.count > 0).sum())
-    tiles = 2 * A * F32
+    tiles = 2 * n * F32
     return {
-        "deposit_p2g1": (valid * (2 * D + D * D + 1) * F32 + tiles + A * (1 + D) * nc * F32,
+        "deposit_p2g1": (valid * (2 * D + D * D + 1) * F32 + tiles + n * (1 + D) * nc * F32,
                          particle_ops("p2g1", D, valid)),
         "deposit_p2g2": (valid * (D + D * D + 1) * F32 + occ * (2 + D) * nc * F32 + tiles
-                         + A * D * nc * F32,
+                         + n * D * nc * F32,
                          particle_ops("p2g2", D, valid) + occ * D * nc),
         "collect": (valid * (D + 2) * F32 + occ * (1 + D) * nc * F32 + tiles
-                    + (valid * (g.F + 1) + A * (1 + D) * nc) * F32,
+                    + (valid * (g.F + 1) + n * (1 + D) * nc) * F32,
                     particle_ops("collect", D, valid) + particle_ops("p2g1", D, valid)),
-        "halo_mass": ((occ + A) * nc * F32 + (1 + 2 * D) * A * F32, 2 * D * A * nc),
-        "halo_gblk": ((occ * (D + 1) * nc + A * (1 + D) * nc + (1 + 2 * D) * A) * F32,
+        "halo_mass": ((occ + n) * nc * F32 + (1 + 2 * D) * n * F32, 2 * D * n * nc),
+        "halo_gblk": ((occ * (D + 1) * nc + n * (1 + D) * nc + (1 + 2 * D) * n) * F32,
                       occ * D * nc * (2 * D + 2)),
     }
 
@@ -517,48 +519,60 @@ def check_gblk(got, want, count, what: str) -> float:
 def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D))):
     """Each stream kernel against its plain version on one binned state at
     the main path's shapes: the 3D 1M dam (whose times go into the kernel
-    table) and a 2D dam of 100,000 (the D=2 instantiations).  The mass
-    halo is bit-equal to the gated chain of plain passes, also through the
-    general kernel at E != 2T with 1 and D channels, and halo_gblk matches
-    its plain version (check_gblk); the deposits and the collect give
-    bit-equal outputs when launched twice on the same inputs."""
+    table) and a 2D dam of 100,000 (the D=2 instantiations), both as the
+    frame launches them, bounded by the state's ``occupied`` and compared
+    below it (the windows past it are undefined).  The mass halo is
+    bit-equal to the gated chain of plain passes, also through the general
+    kernel at E != 2T with 1 and D channels, and halo_gblk matches its
+    plain version (check_gblk); the deposits and the collect give bit-equal
+    outputs when launched twice on the same inputs."""
     results = {}
     for dim, n in sizes:
         cfg, spec, st, g = stream_state(device, n, dim)
         D = dim
-        nbr = st.nbr
+        nbr, o = st.nbr, st.occupied
+        occ = int(o[0])
         params6 = deposit_params(cfg, device)
         params = stx.collect_params(cfg, *step.no_mouse(), device)
         dtg = sk.gravity_step(cfg.dt, cfg.gravity)
 
-        d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g)
+        d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g, occupied=o)
         m1 = d1[:, :1].contiguous()
-        m = sk.halo_axes(m1, st.count, nbr, g)
-        d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g)
-        gblk = sk.halo_gblk(d2, m, st.count, nbr, dtg, g)
-        print(f"[kernels] {dim}D n={n} A={spec.A} occupied={int((st.count > 0).sum())} "
+        m = sk.halo_axes(m1, st.count, nbr, g, occupied=o)
+        d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g, occupied=o)
+        gblk = sk.halo_gblk(d2, m, st.count, nbr, dtg, g, occupied=o)
+        print(f"[kernels] {dim}D n={n} A={spec.A} occupied={occ} "
               f"need={int(st.need_peak[0])} windows={tuple(d1.shape)} stream={tuple(st.stream.shape)}")
         cases = {
-            "deposit_p2g1": (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g),
-                             lambda: sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
-            "halo_mass": (lambda: sk.halo_axes(m1, st.count, nbr, g),
-                          lambda: sk.halo_axes_plain(m1, st.count, nbr, g)),
-            "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
-                             lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6, d1, g)),
-            "halo_gblk": (lambda: sk.halo_gblk(d2, m, st.count, nbr, dtg, g),
-                          lambda: sk.halo_gblk_plain(d2, m, st.count, nbr, dtg, g)),
-            "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g),
-                        lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g)),
+            "deposit_p2g1": (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g, occupied=o),
+                             lambda: sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g, o)),
+            "halo_mass": (lambda: sk.halo_axes(m1, st.count, nbr, g, occupied=o),
+                          lambda: sk.halo_axes_plain(m1, st.count, nbr, g, occupied=o)),
+            "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g,
+                                                     occupied=o),
+                             lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6,
+                                                           d1, g, o)),
+            "halo_gblk": (lambda: sk.halo_gblk(d2, m, st.count, nbr, dtg, g, occupied=o),
+                          lambda: sk.halo_gblk_plain(d2, m, st.count, nbr, dtg, g, occupied=o)),
+            "collect": (lambda: sk.collect(st.count, st.tid, params, st.stream, gblk, g,
+                                           occupied=o),
+                        lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g,
+                                                 occupied=o)),
         }
-        bounds = stream_bounds(st, g, D)
+        bounds = stream_bounds(st, g, D, occ)
         # K3 timed as the frame launches it: into the state's own stream and
         # flag, here those of a copy that each launch advances by a substep
         scr = st.clone()
         timed = {"collect": lambda: sk.collect(scr.count, scr.tid, params, scr.stream, gblk, g,
-                                               out=(scr.stream, scr.flag))}
+                                               out=(scr.stream, scr.flag), occupied=o)}
         for name, (kern, plain) in cases.items():
             got, want = kern(), plain()
             sync(device)
+            # the windows past the count are undefined: compare below it
+            if name == "collect":
+                got, want = (got[0], got[1], got[2][:occ]), (want[0], want[1], want[2][:occ])
+            else:
+                got, want = got[:occ], want[:occ]
             if name == "collect":
                 err = float((got[0] - want[0]).abs().max())
                 check(err <= 1e-5, f"{dim}D collect rows max|err| {err} <= 1e-5")
@@ -567,13 +581,13 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                 dep_err = float((got[2] - want[2]).abs().max())
                 check(dep_err <= 1e-4 * scale, f"{dim}D fused p2g1 {dep_err} <= 1e-4 * {scale}")
                 again = kern()
-                check(all(torch.equal(a, b) for a, b in zip(again, got)),
+                check(all(torch.equal(a[:occ], b[:occ]) for a, b in zip(again, got)),
                       f"{dim}D collect bitwise equal across two launches")
                 # mouse on at the box centre
                 centre = cfg.boundary_clip[1][0] / 2
                 pw = stx.collect_params(cfg, *step.mouse((centre, centre)), device)
-                gw = sk.collect(st.count, st.tid, pw, st.stream, gblk, g)
-                ww = sk.collect_plain(st.count, st.tid, pw, st.stream, gblk, g)
+                gw = sk.collect(st.count, st.tid, pw, st.stream, gblk, g, occupied=o)
+                ww = sk.collect_plain(st.count, st.tid, pw, st.stream, gblk, g, occupied=o)
                 walls_err = float((gw[0] - ww[0]).abs().max())
                 check(walls_err <= 1e-5 and torch.equal(gw[1], ww[1]),
                       f"{dim}D collect with the mouse: rows {walls_err} <= 1e-5, flag equal")
@@ -585,11 +599,11 @@ def phase_kernels(device, card: str, reps: int = 10, sizes=((3, N_1M), (2, N_2D)
                 scale = float(want.abs().max())
                 err = float((got - want).abs().max())
                 check(err <= 1e-4 * scale, f"{dim}D {name} max|err| {err} <= 1e-4 * max|window| {scale}")
-                check(torch.equal(kern(), got), f"{dim}D {name} bitwise equal across two launches")
+                check(torch.equal(kern()[:occ], got), f"{dim}D {name} bitwise equal across two launches")
                 extra = f" max|window|={scale:.4e} repeat_bit_equal=True"
             elif name == "halo_gblk":
                 err = float((got - want).abs().max())
-                rel = check_gblk(got, want, st.count, f"{dim}D")
+                rel = check_gblk(got, want, st.count[:occ], f"{dim}D")
                 extra = f" max_rel={rel:.3e} mass_row_equal=True zero_tiles_equal=True"
             else:
                 err = float((got - want).abs().max())
@@ -698,7 +712,7 @@ def collect_in_place(device, card: str, what: str, state, reps: int = 10) -> dic
     del runs, b, dep_b, fresh, want, rows, flags, d1, m, d2
     ms = time_ms(lambda: sk.collect(a.count, a.tid, params, a.stream, gblk, g,
                                     out=(a.stream, a.flag)), reps, device)
-    bound_ms, bound_by = bound(*stream_bounds(st, g, D)["collect"])
+    bound_ms, bound_by = bound(*stream_bounds(st, g, D, spec.A)["collect"])
     top = int(st.count.max())
     print(f"[kernels] {what}: A={spec.A} occupied={int((st.count > 0).sum())} max count="
           f"{top} ({-(-top // 128)} chunk(s) of 128), {dead} slots past the count seeded with {SENTINEL}: rows "
@@ -766,7 +780,9 @@ def phase_rebin(device, card: str, reps: int = 10) -> dict:
     nothing else of csrc; the next replayed frame equals the same frame
     run eagerly, bit for bit.  Then each kernel, its plain version and the
     whole body (eagerly and as 20 bodies in one graph) timed beside the
-    kernels' byte bounds.  Returns the 1M dam's kernel numbers."""
+    kernels' byte bounds.  On each session's state first, K1-K5 bounded by
+    ``occupied`` against the launch over all A (``zero_tile_share``).
+    Returns the 1M dam's kernel numbers."""
     results = {}
     gen = torch.Generator(device=device).manual_seed(0)
     cfg1, p1, dom1 = scene.scaled_dam_break(gen, N_1M, dim=3, device=device)
@@ -780,6 +796,7 @@ def phase_rebin(device, card: str, reps: int = 10) -> dict:
         sess.run(frames)
         sync(device)
         check(sess.live_count() == n and sess.shell_drop() == 0, f"rebin {what}: conservation")
+        zero_tile_share(what, cfg, spec, dom, sess.stream_state(), device, card)
         fg = sess.frame_graph
         bodies = [graph_kernel_nodes(b.raw_cuda_graph())[0] for b in fg.bodies]
         one = dict.fromkeys((*sk.KERNELS, *pk.KERNELS), 0)
@@ -824,9 +841,12 @@ def phase_rebin(device, card: str, reps: int = 10) -> dict:
             stx._rebin_into(want, torch.empty_like(dep1), cfg, dom, spec, tshape, nt, n, stages)
         want_d1 = sk.deposit_p2g1(want.count, want.tid, want.stream, g)
         sync(device)
-        check(differ(got, want) == [] and torch.equal(got_d1, want_d1),
+        occ = int(got.occupied[0])  # p2g_1 past it is undefined
+        d1_equal = torch.equal(got_d1[:occ], want_d1[:occ])
+        check(differ(got, want) == [] and d1_equal and occ == int((got.count > 0).sum()),
               f"rebin {what}: the re-bin through the kernels bit-equal to the plain versions' "
-              f"(fields that differ: {differ(got, want)}, p2g_1 equal: {torch.equal(got_d1, want_d1)})")
+              f"(fields that differ: {differ(got, want)}, p2g_1 of the {occ} occupied entries "
+              f"equal: {d1_equal})")
         check(int(got.count.sum()) == n and int(got.rebins[0]) == int(st.rebins[0]) + 1,
               f"rebin {what}: every particle binned, the re-bin counted")
         flagged = int((st.flag >= 2.0).sum())
@@ -875,7 +895,8 @@ def phase_rebin(device, card: str, reps: int = 10) -> dict:
               f"{st.stream.numel() * F32 / 1e6:.0f} MB) after {frames} frames + {subs} substeps, "
               f"{flagged} drift flags, {moved} particles keyed ahead of their cell's tile: "
               f"rebin_gather bit-equal to plain; the re-bin in place bit-equal to the plain "
-              f"versions' (stream, count, tid, flag, nbr, watermarks, counter, p2g_1); IF bodies "
+              f"versions' (stream, count, tid, flag, nbr, occupied, watermarks, counter, p2g_1 "
+              f"below occupied); IF bodies "
               f"{len(bodies)} x (K1, rebin_gather, rebin_fill); replayed frame {frames + 1} "
               f"({fired} re-bins) bit-equal to eager; {'; '.join(line)}; whole body "
               f"{body_ms:.4f} ms eager, {body_graph_ms:.4f} ms in a graph (K1 {k1_ms:.4f}; the "
@@ -947,16 +968,19 @@ def phase_deposit_geometries(device, card: str, reps: int = 10) -> dict:
               f"halo_gblk max_rel={rel:.3e}, mass row and zero tiles equal  [{card}]")
         del got, want, again
         if (tile, cap) == TIMED_GEOMETRY:
-            bounds = stream_bounds(st, g, 3)
-            scr = st.clone()  # K3 timed in place, as the frame launches it
+            # timed as the frame launches them: in place (K3), bounded by occupied
+            o = st.occupied
+            bounds = stream_bounds(st, g, 3, int(o[0]))
+            scr = st.clone()
             cases = {
-                "deposit_p2g1": (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g),
+                "deposit_p2g1": (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g, occupied=o),
                                  lambda: sk.deposit_p2g1_plain(st.count, st.tid, st.stream, g)),
-                "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g),
+                "deposit_p2g2": (lambda: sk.deposit_p2g2(st.count, st.tid, st.stream, m, params6, d1, g,
+                                                         occupied=o),
                                  lambda: sk.deposit_p2g2_plain(st.count, st.tid, st.stream, m, params6,
                                                                d1, g)),
                 "collect": (lambda: sk.collect(scr.count, scr.tid, params, scr.stream, gblk, g,
-                                               out=(scr.stream, scr.flag)),
+                                               out=(scr.stream, scr.flag), occupied=o),
                             lambda: sk.collect_plain(st.count, st.tid, params, st.stream, gblk, g)),
             }
             for name, (kern, plain) in cases.items():
@@ -2588,23 +2612,27 @@ def phase_app(card: str, frames: int = 3) -> None:
     print(f"[app] main --dim 3 --shards 1: ms/frame {frame_ms}; launches={launches}  [{card}]")
 
 
-def zero_tile_share(cfg, spec, dom, st, device, card: str, reps: int = 5) -> None:
-    """Each stream kernel on the packed state (all A entries) and on its
-    first entries only: the occupied ones for the deposits and the collect,
-    which read no neighbour, and the occupied and relay ones for the halos,
-    whose routes run through relay tiles (the face tables then name the cut
-    length for "none").  The outputs equal the full launch's first rows bit
-    for bit; the time difference is what the unused, zero-count entries
-    cost."""
+def zero_tile_share(what: str, cfg, spec, dom, st, device, card: str, reps: int = 10) -> dict:
+    """Each stream kernel K1-K5 three ways on one binned state: over all A
+    with no count (a zero-count entry writes zero windows), as the frame
+    launches it (bounded by the state's ``occupied``), and alone, on the
+    inputs cut to their first entries: the occupied ones for the deposits
+    and the collect, which read no neighbour, and the occupied and relay
+    ones for the halos, whose routes run through relay tiles (the face
+    tables then name the cut length for "none"), bounded by ``occupied``.
+    The frame's launch gives rows below the count bit-equal to the other
+    two and takes at most 1.10x, or 5 us more than, the launch alone.
+    Returns each kernel's ms as the frame launches it."""
     g = stx.tile_geom(dom, spec)
-    D, A = cfg.dim, spec.A
+    A, occ = spec.A, int(st.occupied[0])
+    check(occ == int((st.count > 0).sum()) and bool((st.count[:occ] > 0).all()),
+          f"{what}: occupied {occ} counts the entries with particles, which come first")
     nt = int(np.prod([s // spec.tile for s in dom.shape]))
-    occ = int((st.count > 0).sum())
     used = int((st.tid < nt).sum())
-    check(bool((st.count[:occ] > 0).all()), "batch: occupied entries first")
     tables = st.nbr[:, :used]
-    check(bool((tables[tables != A] < used).all()), "batch: face tables name only used entries")
+    check(bool((tables[tables != A] < used).all()), f"{what}: face tables name only used entries")
     tables = torch.where(tables == A, used, tables).contiguous()
+    o = st.occupied
     params6 = deposit_params(cfg, device)
     params = stx.collect_params(cfg, *step.no_mouse(), device)
     dtg = sk.gravity_step(cfg.dt, cfg.gravity)
@@ -2613,38 +2641,67 @@ def zero_tile_share(cfg, spec, dom, st, device, card: str, reps: int = 5) -> Non
     hm = sk.halo_axes(m1, st.count, st.nbr, g)
     d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, hm, params6, d1, g)
     gb = sk.halo_gblk(d2, hm, st.count, st.nbr, dtg, g)
+    scr = st.clone()
 
-    def cases(k, nbr):
+    def kernels(k, nbr, occupied):
+        """The five launches on the first ``k`` entries of every input."""
         count, tid, stream, d1k, m1k, hmk, d2k, gbk = (
-            t[:k].contiguous() for t in (st.count, st.tid, st.stream, d1, m1, hm, d2, gb))
-        return {"deposit_p2g1": lambda: sk.deposit_p2g1(count, tid, stream, g),
-                "halo_axis": lambda: sk.halo_axes(m1k, count, nbr, g),
-                "deposit_p2g2": lambda: sk.deposit_p2g2(count, tid, stream, hmk, params6, d1k, g),
-                "halo_gblk": lambda: sk.halo_gblk(d2k, hmk, count, nbr, dtg, g),
-                "collect": lambda: sk.collect(count, tid, params, stream, gbk, g)}
+            t[:k] if k == A else t[:k].contiguous()
+            for t in (st.count, st.tid, st.stream, d1, m1, hm, d2, gb))
+        return {
+            "deposit_p2g1": lambda: sk.deposit_p2g1(count, tid, stream, g, occupied=occupied),
+            "halo_axis": lambda: sk.halo_axes(m1k, count, nbr, g, occupied=occupied),
+            "deposit_p2g2": lambda: sk.deposit_p2g2(count, tid, stream, hmk, params6, d1k, g,
+                                                    occupied=occupied),
+            "halo_gblk": lambda: sk.halo_gblk(d2k, hmk, count, nbr, dtg, g, occupied=occupied),
+            # in place into a copy's stream and flag, as the frame does
+            "collect": lambda: sk.collect(count, tid, params, stream, gbk, g,
+                                          out=(scr.stream[:k], scr.flag[:k]),
+                                          occupied=occupied)}
 
-    full = cases(A, st.nbr)
-    cut = {"occupied": (occ, cases(occ, None)), "occupied+relay": (used, cases(used, tables))}
-    which = {"deposit_p2g1": "occupied", "deposit_p2g2": "occupied", "collect": "occupied",
-             "halo_axis": "occupied+relay", "halo_gblk": "occupied+relay"}
-    t_full = t_cut = 0.0
-    for name, kern in full.items():
-        k, short = cut[which[name]][0], cut[which[name]][1][name]
-        got, want = short(), kern()
-        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        check(all(torch.equal(a, b[:k]) for a, b in zip(got, want)),
-              f"batch {name} on the first {k} entries equals the full launch's rows")
-        del got, want
-        ms_full = time_ms(kern, reps, device)
-        ms_cut = time_ms(short, reps, device)
+    old, new = kernels(A, st.nbr, None), kernels(A, st.nbr, o)
+    cut = {"deposit_p2g1": (occ, None), "deposit_p2g2": (occ, None), "collect": (occ, None),
+           "halo_axis": (used, o), "halo_gblk": (used, o)}
+    alone = {name: kernels(k, tables if k == used else None, bnd)[name]
+             for name, (k, bnd) in cut.items()}
+    out, over, t = {}, [], dict.fromkeys(("old", "frame", "alone"), 0.0)
+
+    def rows(fn):
+        scr.stream.copy_(st.stream)
+        scr.flag.copy_(st.flag)
+        got = fn()
+        return tuple(x.clone() for x in got) if isinstance(got, tuple) else (got.clone(),)
+
+    for name in old:
+        want, got, short = rows(old[name]), rows(new[name]), rows(alone[name])
+        # the windows below the count; the collect's stream and flag whole
+        check(all(torch.equal(a[:occ], b[:occ]) and torch.equal(a[:occ], c[:occ])
+                  for a, b, c in zip(got, want, short))
+              and all(torch.equal(a, b) for a, b in zip(got[:2], want[:2]) if len(got) == 3),
+              f"{what} {name}: rows below occupied={occ} bit-equal to the launch over all A and "
+              "to the launch alone")
+        del got, want, short
+        # device time of each launch, 20 to a graph (no host work between them)
+        ms = {"old": graph_ms(old[name], device, reps=reps),
+              "frame": graph_ms(new[name], device, reps=reps),
+              "alone": graph_ms(alone[name], device, reps=reps)}
         if name != "deposit_p2g1":  # once per frame; the rest once per substep
-            t_full, t_cut = t_full + ms_full, t_cut + ms_cut
-        print(f"[batch] {name}: {ms_full:.4f} ms over A={A}, {ms_cut:.4f} ms over the first {k} "
-              f"({which[name]}) entries: {1 - ms_cut / ms_full:.1%} on the rest  [{card}]")
-    print(f"[batch] per substep (halo_axis, deposit_p2g2, halo_gblk, collect): {t_full:.4f} ms "
-          f"over A={A} ({occ} occupied, {used - occ} relay, {A - used} unused entries), "
-          f"{t_cut:.4f} ms over the entries each kernel needs: {1 - t_cut / t_full:.1%} of the "
-          f"substep's kernel time on zero-count entries  [{card}]")
+            t = {k: t[k] + ms[k] for k in t}
+        limit = max(1.10 * ms["alone"], ms["alone"] + 0.005)
+        if ms["frame"] > limit:
+            over.append(f"{name} {ms['frame']:.4f} ms > {limit:.4f} ms")
+        out[name] = ms["frame"]
+        print(f"[occupied] {what} {name}: over all A={A} {ms['old']:.4f} ms; bounded by "
+              f"occupied={occ} {ms['frame']:.4f} ms; alone (the first {cut[name][0]} entries) "
+              f"{ms['alone']:.4f} ms: {ms['frame'] / ms['alone']:.3f}x alone, "
+              f"{1 - ms['frame'] / ms['old']:.1%} saved; rows below the count bit-equal  [{card}]")
+    print(f"[occupied] {what} per substep (halo_axis, deposit_p2g2, halo_gblk, collect): over "
+          f"all A {t['old']:.4f} ms, bounded by occupied {t['frame']:.4f} ms, alone "
+          f"{t['alone']:.4f} ms; {1 - t['frame'] / t['old']:.1%} of the old launches' time saved "
+          f"({A - occ} zero-count entries of A={A}, {used - occ} relays)  [{card}]")
+    check(not over, f"{what}: each kernel bounded by occupied within 1.10x, or 5 us, of its "
+          f"launch alone: {over}")
+    return out
 
 
 def packed_kernel_check(cfg, spec, dom, st, device, card: str) -> None:
@@ -2753,7 +2810,7 @@ def phase_batch(device, card: str, batch: int = 64, n: int = scene.REFERENCE_N, 
         worst.append(f"{k}: {float(d[0]):.2e}/{float(d[1:].max()):.2e}")
     print(f"[batch] one substep, packed stream vs dense per scene, max|dpos| x/(y,z) by scene: "
           f"{'; '.join(worst)}  [{card}]")
-    zero_tile_share(cfg, spec, dom, sess.stream_state(), device, card)
+    zero_tile_share("batch", cfg, spec, dom, sess.stream_state(), device, card)
     rb0 = sess.rebins()
     launches = replay_launches(sess, "batch")
     launches = {k: launches[k]["launches"] for k in sk.KERNELS}
@@ -2796,7 +2853,7 @@ def shard_kernel_check(states, sspec, cfg, card: str, reps: int = 10) -> dict:
                                                        gate=gate)),
     }
     # the bounds of K4 mass and K5 with the ghost tiles read as occupied
-    bounds = stream_bounds(dataclasses.replace(st, count=gate), g, D)
+    bounds = stream_bounds(dataclasses.replace(st, count=gate), g, D, sspec.spec.A)
     bounds = {"halo_mass_ghost": bounds["halo_mass"], "halo_gblk_ghost": bounds["halo_gblk"]}
     out = {}
     for name, (kern, plain) in cases.items():

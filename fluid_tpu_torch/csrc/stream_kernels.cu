@@ -18,10 +18,22 @@
 //   flag   [A, cap]
 //   count, tid [A] int32; nbr rows [A] int32 with A = "no neighbour"
 //
-// Every kernel launches one block per active tile (the halo packs several)
-// over all A tiles: a tile whose count is 0 writes zero windows and returns
-// (the halo reads it as zero), so no window is ever left uninitialized and
-// the host never reads a count to size a grid.  The collect writes only a
+// Every kernel works on the entries below `occupied`, a [1] int32 count
+// that the binning keeps on the device (StreamState.occupied): it orders the
+// entries occupied first, then the relays, then the unused ones, so the
+// entries with count > 0 are exactly those below it.  A tile is one block's
+// work (the halo packs several).  A deposit or collect launch takes
+// ceil(A / TILES_PER_BLOCK) blocks, and block b the tiles b, b + gridDim.x
+// that lie below the count; a halo launch takes one block per halo block of
+// entries, and a block past the count returns at once.  The host never
+// reads the count to size a grid.  The
+// windows of the entries at or past `occupied` are undefined: no stage
+// reads them (a deposit or collect reads only its own occupied tile's, a
+// halo gates each leaf of a route on count > 0, and a relay is only a row
+// of the face tables that a route walks through).  A caller that passes no
+// `occupied` (null: the sharded path, whose ghost entries hold no particle
+// but windows that the exchange fills) gets every entry of A, and there a
+// tile whose count is 0 writes zero windows.  The collect writes only a
 // tile's live slots of the stream and flag, in place: the slots past the
 // count hold zeros, as every writer that sets a count leaves them.  A
 // deposit block has one thread per slot of a chunk of min(cap, 256) slots,
@@ -74,6 +86,16 @@ __host__ __device__ constexpr int pow3(int n) { return n == 0 ? 1 : 3 * pow3(n -
 // p2g2 aside), and a collect block (see collect_kernel).
 constexpr int CHUNK_MAX = 256;
 constexpr int COLLECT_CHUNK = 128;
+// Tiles a deposit or collect block takes in turn (see deposit_kernel).
+constexpr int TILES_PER_BLOCK = 2;
+
+// The entries a launch works on: those below *occupied, or all A where the
+// caller passes no count.
+__device__ __forceinline__ int entry_bound(const int* occupied, int A) {
+  if (occupied == nullptr) return A;
+  const int n = *occupied;
+  return n < A ? n : A;
+}
 
 struct Geom {
   int A;          // active tiles (grid size)
@@ -440,13 +462,12 @@ __device__ void window_store(const Geom& g, const float* win, float* __restrict_
 //
 // Bound: by the layout, an occupied 3D tile reads its stream block
 // (F*cap*4 = 9.7 KB) and, for p2g2, the halo'd mass and p2g1 windows
-// (10 KB), and writes (1+D) or D windows of E^3 = 512 cells (8 KB / 6 KB);
-// an empty tile only writes zeros, which alone is most of the bytes.  At
-// the 1M-particle shape (32,768 tiles, 17,554 occupied) on an NVIDIA H100
-// 80GB HBM3 (700 W), chip_smoke.py measured 0.70 ms for each mode with a
-// cell-owner scan as the deposit (5.5-7x the byte bound) and 0.30 ms (p2g1)
-// and 0.32 ms (p2g2) with the tap-parallel deposit, ~3x the byte bound: the
-// limit is the serial walk over a tile's ~57 particles in each warp.
+// (10 KB), and writes (1+D) or D windows of E^3 = 512 cells (8 KB / 6 KB).
+// At the 1M-particle shape (32,768 entries, 17,554 occupied) on an NVIDIA
+// H100 80GB HBM3 (700 W), chip_smoke.py measured 0.27 ms (p2g1) and 0.30
+// ms (p2g2), ~4.3x and ~2.9x the byte bound of the occupied tiles: the
+// limit is the serial walk over a tile's ~57 particles in each warp (a
+// cell-owner scan as the deposit was over twice as slow).
 // Every intermediate (stencils, values, the window) stays in shared memory
 // and each output cell is written once, with no atomics.
 //
@@ -476,17 +497,15 @@ constexpr int P2G2_SPLIT = 2;
 // steps through ~450 particles of its tile, and three blocks fit an SM
 // (68.7 KB of shared memory for p2g1) where seven fit at T=4, cap 128.
 template <int D, bool P2G2, bool MULTI>
-__global__ void deposit_kernel(Geom g, const int* __restrict__ count,
-                               const int* __restrict__ tidv,
-                               const float* __restrict__ stream,
-                               const float* __restrict__ hs_m,
-                               const float* __restrict__ d1,
-                               const float* __restrict__ params,
-                               float* __restrict__ out) {
+__device__ __forceinline__ void deposit_tile(const Geom& g, int a, const int* __restrict__ count,
+                                             const int* __restrict__ tidv,
+                                             const float* __restrict__ stream,
+                                             const float* __restrict__ hs_m,
+                                             const float* __restrict__ d1,
+                                             const float* __restrict__ params,
+                                             float* __restrict__ out, float* smem) {
   constexpr int CH = P2G2 ? D : 1 + D;
   constexpr int SPLIT = P2G2 ? P2G2_SPLIT : 1;
-  extern __shared__ __align__(16) float smem[];
-  const int a = blockIdx.x;
   const int cap = g.cap;
   const int cnt = count[a];
   float* tile_out = out + static_cast<int64_t>(a) * CH * g.ncell;
@@ -554,6 +573,37 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
   }
 }
 
+// Block b deposits the tiles b and b + gridDim.x that lie below `occupied`
+// (entry_bound), one after the other, over a grid of ceil(A /
+// TILES_PER_BLOCK) blocks.  At the batch shape (A = 110,000, 22k occupied)
+// on an NVIDIA H100 80GB HBM3 (700 W) one block per entry spent 47 us of
+// K2's 0.31 ms on the 88k blocks past the count (chip_smoke.py); two tiles
+// a block take K2 to 0.26 ms, within 4% of the launch over the occupied
+// entries alone, and cost nothing on the 1M dam.  The two bodies are
+// inlined one after the other: as a loop K2 takes 64 registers to 56 and
+// is 4% slower at 1M.  The grid of blocks the card holds, each striding
+// over every tile below the count, was 6-13% slower at 1M: a block's
+// fixed share of tiles leaves the tail unbalanced.
+template <int D, bool P2G2, bool MULTI>
+__global__ void deposit_kernel(Geom g, const int* __restrict__ occupied,
+                               const int* __restrict__ count,
+                               const int* __restrict__ tidv,
+                               const float* __restrict__ stream,
+                               const float* __restrict__ hs_m,
+                               const float* __restrict__ d1,
+                               const float* __restrict__ params,
+                               float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const int bound = entry_bound(occupied, g.A), grid = gridDim.x;
+#pragma unroll
+  for (int i = 0; i < TILES_PER_BLOCK; ++i) {
+    const int a = blockIdx.x + i * grid;
+    if (a >= bound) break;
+    if (i > 0) __syncthreads();  // the next tile reuses the shared memory
+    deposit_tile<D, P2G2, MULTI>(g, a, count, tidv, stream, hs_m, d1, params, out, smem);
+  }
+}
+
 // collect_kernel — replaces make_collect_kernel (stream_transfer.py:1163).
 //
 // One thread per live slot of a chunk, chunk after chunk up to the tile's
@@ -570,7 +620,8 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 // place, and no other thread touches the slot.  Slots past the count are
 // not touched (they hold zeros in every stream the port keeps), so a
 // caller that wants a new buffer passes one filled with zeros.  A tile of
-// count 0 writes only its zero p2g1 windows.
+// count 0 below the bound (a launch with no `occupied`) writes only its
+// zero p2g1 windows.
 // It also deposits the next substep's p2g1 windows from the updated
 // particles (the walk of deposit_kernel<D, false>): a tile of one chunk
 // through deposit_window, a longer one chunk by chunk through window_walk,
@@ -585,35 +636,30 @@ __global__ void deposit_kernel(Geom g, const int* __restrict__ count,
 // Bound: by the layout, per occupied tile it reads the live slots' position,
 // mass and id (20 B a particle in 3D) and the gblk window (8 KB, 27 taps
 // per particle, within one 8 KB block so they hit L1/L2) and writes the
-// live rows (76 B a particle) and flags and 8 KB of windows; an
-// empty tile writes its 8 KB of zero windows: ~0.51 GB per call at the 1M
-// shape (32,768 tiles, 17,554 occupied), where writing every slot at cap
-// 256 made it ~1.2 GB.
-// Measured at that shape on an NVIDIA H100 80GB HBM3 (700 W), in a
-// graph, on the 1M dam after 40 frames (15,824 occupied tiles of up to 97
-// particles): 0.404 ms at caps 128 and 256, 2.7x the byte bound (0.149
-// ms).  Writing every slot through a chunk of min(cap, 256) took 0.470,
-// 0.649, 0.684 and 0.798 ms at caps 128, 192, 224 and 256 (seven, four,
-// four and three blocks an SM); at cap 256 a chunk of 64 took 0.441 ms
-// (ten blocks of two warps) and window_walk for every tile 0.445.  One
+// live rows (76 B a particle) and flags and 8 KB of windows: ~0.36 GB per
+// call on the 1M dam after 40 frames (15,872 occupied of 32,768 entries),
+// where writing every slot at cap 256 would make it ~1.1 GB.  Measured
+// there on an NVIDIA H100 80GB HBM3 (700 W), in a graph: 0.37 ms at cap
+// 256, ~3.5x the byte bound.  Writing every slot through a chunk of
+// min(cap, 256) was 16% slower at cap 128 and twice as slow at cap 256
+// (seven and three blocks an SM); at cap 256 a chunk of 64 (ten blocks of
+// two warps) and window_walk for every tile were ~10% slower.  One
 // instantiation serves every cap: a second one for cap <= COLLECT_CHUNK,
-// without the chunk-by-chunk branch (64 registers, not 72), took 0.420 ms
+// without the chunk-by-chunk branch (64 registers, not 72), was ~4% slower
 // at cap 128.  What is left is the walk, bound by the instructions the SM
 // issues, as in deposit_kernel.
 //
 // params: [dt, rest, k, gamma, floor, mouse_radius, damp, mouse_active,
 //          mouse_x, mouse_y, lo[D], hi[D]].
 template <int D>
-__global__ void collect_kernel(Geom g, const int* __restrict__ count,
-                               const int* __restrict__ tidv,
-                               const float* __restrict__ params,
-                               const float* stream,
-                               const float* __restrict__ gblk,
-                               float* out_stream,
-                               float* __restrict__ flag,
-                               float* __restrict__ dep) {
-  extern __shared__ __align__(16) float smem[];
-  const int a = blockIdx.x;
+__device__ __forceinline__ void collect_tile(const Geom& g, int a, const int* __restrict__ count,
+                                             const int* __restrict__ tidv,
+                                             const float* __restrict__ params,
+                                             const float* stream,
+                                             const float* __restrict__ gblk,
+                                             float* out_stream,
+                                             float* __restrict__ flag,
+                                             float* __restrict__ dep, float* smem) {
   const int cap = g.cap, F = g.F;
   const int cnt = count[a];
   float* tile_dep = dep + static_cast<int64_t>(a) * (1 + D) * g.ncell;
@@ -694,6 +740,28 @@ __global__ void collect_kernel(Geom g, const int* __restrict__ count,
   window_store<D, false>(g, win, tile_dep, nullptr);
 }
 
+// Block b takes the tiles b and b + gridDim.x below `occupied`, as
+// deposit_kernel's, in a loop: its two bodies inlined took 96 registers to
+// 64 and were 10% slower at 1M.
+template <int D>
+__global__ void collect_kernel(Geom g, const int* __restrict__ occupied,
+                               const int* __restrict__ count,
+                               const int* __restrict__ tidv,
+                               const float* __restrict__ params,
+                               const float* stream,
+                               const float* __restrict__ gblk,
+                               float* out_stream,
+                               float* __restrict__ flag,
+                               float* __restrict__ dep) {
+  extern __shared__ __align__(16) float smem[];
+  const int bound = entry_bound(occupied, g.A), grid = gridDim.x;
+#pragma unroll 1
+  for (int a = blockIdx.x; a < bound; a += grid) {
+    collect_tile<D>(g, a, count, tidv, params, stream, gblk, out_stream, flag, dep, smem);
+    __syncthreads();  // the next tile reuses the shared memory
+  }
+}
+
 // Halo windows overlap by E - T = 2h cells along each axis.  One pass along
 // axis k adds the +1 neighbour's window shifted by -T*stride_k into the
 // cells e_k >= T, and the -1 neighbour's shifted by +T*stride_k into the
@@ -725,16 +793,17 @@ struct GridUpdate {
 
 // Resolves the leaf routes of tiles [a0, a0 + tpb) through the face tables
 // nbr [2D, A] into shared memory, [tpb][3^NP]: a route through a missing
-// neighbour, or ending at a zero-count tile (the occupancy gate), is A.
-// Leaf 0 is the tile itself: A there means the tile holds no particle.
+// neighbour, or ending at a zero-count tile (the occupancy gate), is A, and
+// so is every route of a tile at or past `bound` (entry_bound).  Leaf 0 is
+// the tile itself: A there means the tile holds no particle.
 template <int NP>
 __device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ count,
-                                            const int* __restrict__ nbr, int A, int tpb,
-                                            int a0) {
+                                            const int* __restrict__ nbr, int A, int bound,
+                                            int tpb, int a0) {
   constexpr int K = pow3(NP);
   for (int i = threadIdx.x; i < tpb * K; i += blockDim.x) {
     const int j = i / K, leaf = i - j * K;
-    int t = a0 + j < A ? a0 + j : A;
+    int t = a0 + j < bound ? a0 + j : A;
     int digit_of = K;
     for (int l = NP - 1; l >= 0; --l) {  // the top level (last pass) first
       digit_of /= 3;
@@ -767,49 +836,53 @@ __device__ __forceinline__ void halo_routes(int* route, const int* __restrict__ 
 // reads of the tile's window; neighbour leaves read windows that nearby
 // blocks read too, mostly from L2.
 //
-// Bound: bytes, each occupied input window read once and every output
-// window written once: at the 1M shape (32,768 tiles, 17,554 occupied)
-// 36 + 67 MB for the mass launch.
-// Measured there on an NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py:
-// 0.12 ms (mass, 3 passes), where one separate launch per pass took
-// 0.35 ms, and a copy of the output's size 0.05 ms.  It waits on its
-// routes (three dependent table reads per tile) more than on bytes.
+// Bound: bytes, each occupied input window read once and each output
+// window below the count written once: at the 1M shape (32,768 entries,
+// 17,554 occupied) 36 + 36 MB for the mass launch.  Measured there on an
+// NVIDIA H100 80GB HBM3 (700 W) by chip_smoke.py: 0.07 ms (mass, 3
+// passes), ~3.4x that bound; one separate launch per pass was three times
+// slower.  It waits on its routes (three dependent table reads per tile)
+// more than on bytes.
 //
 // halo_axes_kernel<D, D, true> (GBLK) — replaces _make_halo_gblk
 // (stream_transfer.py:1882) with the D - 1 _make_halo_axis passes ahead of
 // it, as the port's halo_gblk: all D
 // passes of the m+f halo (NP = CH = D) and the grid update as an epilogue
 // before the one write, grid-value windows [A, 1+D, E^D] (the D v rows,
-// then the halo'd mass).  A tile with count 0 writes zeros and reads no
-// window; a block of such tiles (the tail of the occupied-first order)
-// writes its zeros and returns before resolving routes.  Bound: bytes,
-// the occupied m+f and mass windows read once and every output window
-// written once: 108 + 36 + 268 MB at the 1M shape, 0.123 ms.  The two
+// then the halo'd mass).  A tile with count 0 below the bound (a launch
+// with no `occupied`: the sharded path) writes zeros and reads no window;
+// a block of such tiles writes its zeros and returns before resolving
+// routes.  On the frame's path those tiles lie past `occupied`.  Bound:
+// bytes, the occupied m+f and mass windows read once and each output
+// window below the count written once: 108 + 36 + 144 MB at the 1M shape,
+// 0.086 ms; measured 0.19 ms (same card, chip_smoke.py), ~2.2x.  The two
 // launches it replaces (the D-1-pass m+f halo, then the last pass fused
 // with the update by one thread per output value, 64-bit index divisions
-// and every tile) wrote and read back the 201 MB of m+f windows in
-// between: 0.17 + 0.40 ms, where this launch measured 0.23 ms (same card,
-// chip_smoke.py).
+// and every tile) wrote and read back the m+f windows in between, and took
+// 2.5 times as long.
+// A block's tiles at or past the bound (entry_bound) are not written, and
+// a block with none below it returns at once.
 template <int NP, int CH, bool GBLK>
 __global__ void __launch_bounds__(128) halo_axes_kernel(
-    const float* __restrict__ x, const int* __restrict__ count, const int* __restrict__ nbr,
-    float* __restrict__ out, int A, int ncell, int E, int T, int tpb, FastDiv divN, FastDiv divE,
-    HaloLevels lv, GridUpdate up) {
+    const float* __restrict__ x, const int* __restrict__ occupied, const int* __restrict__ count,
+    const int* __restrict__ nbr, float* __restrict__ out, int A, int ncell, int E, int T, int tpb,
+    FastDiv divN, FastDiv divE, HaloLevels lv, GridUpdate up) {
   extern __shared__ int route[];  // [tpb][3^NP]
   constexpr int K = pow3(NP), B = 1 << NP, CPT = CH * B > 16 ? 2 : 4;
-  const int a0 = blockIdx.x * tpb;
+  const int a0 = blockIdx.x * tpb, bound = entry_bound(occupied, A);
+  if (a0 >= bound) return;
   const int row = CH * ncell;  // element offsets fit 32 bits (checked at launch)
   const int orow = GBLK ? row + ncell : row;
   if (GBLK) {
     bool live = false;
-    for (int j = threadIdx.x; j < tpb; j += blockDim.x) live |= a0 + j < A && count[a0 + j] > 0;
+    for (int j = threadIdx.x; j < tpb; j += blockDim.x) live |= a0 + j < bound && count[a0 + j] > 0;
     if (!__syncthreads_or(live)) {
-      const int n = (A - a0 < tpb ? A - a0 : tpb) * orow;
+      const int n = (bound - a0 < tpb ? bound - a0 : tpb) * orow;
       for (int i = threadIdx.x; i < n; i += blockDim.x) out[a0 * orow + i] = 0.0f;
       return;
     }
   }
-  halo_routes<NP>(route, count, nbr, A, tpb, a0);
+  halo_routes<NP>(route, count, nbr, A, bound, tpb, a0);
   __syncthreads();
   for (int base = 0; base < tpb * ncell; base += CPT * 128) {
     float v[CPT][CH][B];
@@ -820,7 +893,7 @@ __global__ void __launch_bounds__(128) halo_axes_kernel(
     for (int u = 0; u < CPT; ++u) {
       const int it = base + u * 128 + threadIdx.x;
       const int j = div_by(it, divN), e = it - j * ncell;
-      ok[u] = it < tpb * ncell && a0 + j < A;
+      ok[u] = it < tpb * ncell && a0 + j < bound;
       int off[B], leaf[B];
 #pragma unroll
       for (int b = 0; b < B; ++b) off[b] = leaf[b] = 0;
@@ -910,18 +983,19 @@ __device__ __forceinline__ float halo_tree(const HaloCell& c, int node, int e) {
 
 template <int NP, bool GBLK>
 __global__ void __launch_bounds__(128) halo_axes_any_kernel(
-    const float* __restrict__ x, const int* __restrict__ count, const int* __restrict__ nbr,
-    float* __restrict__ out, int A, int CH, int ncell, int E, int T, int tpb, FastDiv divN,
-    FastDiv divE, HaloLevels lv, GridUpdate up) {
+    const float* __restrict__ x, const int* __restrict__ occupied, const int* __restrict__ count,
+    const int* __restrict__ nbr, float* __restrict__ out, int A, int CH, int ncell, int E, int T,
+    int tpb, FastDiv divN, FastDiv divE, HaloLevels lv, GridUpdate up) {
   extern __shared__ int route[];  // [tpb][3^NP]
   constexpr int K = pow3(NP);
-  const int a0 = blockIdx.x * tpb;
-  halo_routes<NP>(route, count, nbr, A, tpb, a0);
+  const int a0 = blockIdx.x * tpb, bound = entry_bound(occupied, A);
+  if (a0 >= bound) return;
+  halo_routes<NP>(route, count, nbr, A, bound, tpb, a0);
   __syncthreads();
   for (int it = threadIdx.x; it < tpb * ncell; it += blockDim.x) {
     const int j = div_by(it, divN), e = it - j * ncell;
     const int a = a0 + j;
-    if (a >= A) break;
+    if (a >= bound) break;
     HaloCell c;
     c.route = route + j * K;
     c.row = static_cast<int64_t>(CH) * ncell;
@@ -994,30 +1068,40 @@ int block_threads(const Geom& g, bool p2g2) {
   return p2g2 && 32 * warps > g.chunk ? 32 * warps : g.chunk;
 }
 
-// Launches a deposit or collect kernel, one block per tile, with `smem`
-// bytes of dynamic shared memory.  Past the 48 KB a launch gets by default
-// (3D at a chunk of 256 slots, or wider windows) the kernel is first opted
-// into its size; a size the card cannot give returns that call's error, as
-// does a cap that is not a positive multiple of 32.
+// Launches `kernel` on `blocks` blocks.  Past the 48 KB of shared memory a
+// launch gets by default the kernel is first opted into `smem`; a size the
+// card cannot give returns that call's error.
 template <typename... P, typename... Args>
-int launch_tiles(void (*kernel)(Geom, P...), const Geom& g, int threads, size_t smem,
-                 cudaStream_t st, Args... args) {
-  if (g.cap <= 0 || g.cap % 32) return static_cast<int>(cudaErrorInvalidValue);
+int launch_blocks(void (*kernel)(P...), unsigned int blocks, int threads, size_t smem,
+                  cudaStream_t st, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<g.A, threads, smem, st>>>(g, args...);
+  kernel<<<blocks, threads, smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches a deposit or collect kernel, TILES_PER_BLOCK tiles a block, with
+// `smem` bytes of dynamic shared memory (3D at a chunk of 256 slots, or
+// wider windows, past 48 KB); a cap that is not a positive multiple of 32
+// returns an error.
+template <typename... P, typename... Args>
+int launch_tiles(void (*kernel)(Geom, P...), const Geom& g, int threads, size_t smem,
+                 cudaStream_t st, Args... args) {
+  if (g.cap <= 0 || g.cap % 32) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int blocks = static_cast<unsigned int>((g.A + TILES_PER_BLOCK - 1) / TILES_PER_BLOCK);
+  return launch_blocks(kernel, blocks, threads, smem, st, g, args...);
 }
 
 // The dim halo passes over windows [A, CH, E^dim] in one launch of
 // halo_axes_kernel (E = 2T, the substep's channel counts) or
 // halo_axes_any_kernel (every other call); GBLK with the grid update.
 template <bool GBLK>
-int launch_halo(const float* x, const int* count, const int* nbr, float* out, int A, int CH,
-                int dim, int E, int T, GridUpdate up, cudaStream_t st) {
+int launch_halo(const float* x, const int* occupied, const int* count, const int* nbr,
+                float* out, int A, int CH, int dim, int E, int T, GridUpdate up,
+                cudaStream_t st) {
   if (dim < 2 || dim > 3 || CH < 1) return static_cast<int>(cudaErrorInvalidValue);
   int ncell = 1;
   for (int d = 0; d < dim; ++d) ncell *= E;
@@ -1038,13 +1122,13 @@ int launch_halo(const float* x, const int* count, const int* nbr, float* out, in
 #define HALO_AXES(np, ch)                                                                   \
   if (E == 2 * T && dim == np && CH == ch) {                                                \
     halo_axes_kernel<np, ch, GBLK><<<blocks, threads, smem, st>>>(                          \
-        x, count, nbr, out, A, ncell, E, T, tpb, divN, divE, lv, up);                       \
+        x, occupied, count, nbr, out, A, ncell, E, T, tpb, divN, divE, lv, up);             \
     return static_cast<int>(cudaGetLastError());                                            \
   }
 #define HALO_ANY(np)                                                                        \
   if (dim == np)                                                                            \
     halo_axes_any_kernel<np, GBLK><<<blocks, threads, smem, st>>>(                          \
-        x, count, nbr, out, A, CH, ncell, E, T, tpb, divN, divE, lv, up);
+        x, occupied, count, nbr, out, A, CH, ncell, E, T, tpb, divN, divE, lv, up);
   if constexpr (GBLK) {
     HALO_AXES(3, 3) HALO_AXES(2, 2)  // the m+f halo (CH = D)
   } else {
@@ -1076,48 +1160,51 @@ int launch_collect(Geom g, cudaStream_t st, Args... args) {
 
 extern "C" {
 
+// Every entry point takes `occupied`: a device [1] int32, or null for
+// every entry of A (see the top of this file).
+
 // mode 1: p2g1 (hs_m, d1, params unused); mode 2: p2g2.  sx: grid cells
 // of one scene along axis 0 (one scene: tshape[0] * T).
-int fluid_deposit(int dim, int mode, const int* count, const int* tid,
+int fluid_deposit(int dim, int mode, const int* occupied, const int* count, const int* tid,
                   const float* stream, const float* hs_m, const float* d1,
                   const float* params, float* out, int A, int T, int h, int cap,
                   const int* tshape, const int* origin, int sx, void* cuda_stream) {
   if (sx < T || sx % T) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g = make_geom(dim, A, T, h, cap, tshape, origin, sx);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  if (dim == 2 && mode == 1) return launch_deposit<2, false>(g, st, count, tid, stream, hs_m, d1, params, out);
-  if (dim == 2 && mode == 2) return launch_deposit<2, true>(g, st, count, tid, stream, hs_m, d1, params, out);
-  if (dim == 3 && mode == 1) return launch_deposit<3, false>(g, st, count, tid, stream, hs_m, d1, params, out);
-  if (dim == 3 && mode == 2) return launch_deposit<3, true>(g, st, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 2 && mode == 1) return launch_deposit<2, false>(g, st, occupied, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 2 && mode == 2) return launch_deposit<2, true>(g, st, occupied, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 3 && mode == 1) return launch_deposit<3, false>(g, st, occupied, count, tid, stream, hs_m, d1, params, out);
+  if (dim == 3 && mode == 2) return launch_deposit<3, true>(g, st, occupied, count, tid, stream, hs_m, d1, params, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int fluid_collect(int dim, const int* count, const int* tid, const float* params,
-                  const float* stream, const float* gblk, float* out_stream, float* flag,
-                  float* dep, int A, int T, int h, int cap, const int* tshape,
-                  const int* origin, int sx, void* cuda_stream) {
+int fluid_collect(int dim, const int* occupied, const int* count, const int* tid,
+                  const float* params, const float* stream, const float* gblk,
+                  float* out_stream, float* flag, float* dep, int A, int T, int h, int cap,
+                  const int* tshape, const int* origin, int sx, void* cuda_stream) {
   if (sx < T || sx % T) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g = make_geom(dim, A, T, h, cap, tshape, origin, sx);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  if (dim == 2) return launch_collect<2>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
-  if (dim == 3) return launch_collect<3>(g, st, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 2) return launch_collect<2>(g, st, occupied, count, tid, params, stream, gblk, out_stream, flag, dep);
+  if (dim == 3) return launch_collect<3>(g, st, occupied, count, tid, params, stream, gblk, out_stream, flag, dep);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The dim halo passes over windows [A, CH, E^dim], in one launch.
-int fluid_halo_axes(const float* x, const int* count, const int* nbr, float* out, int A,
-                    int CH, int dim, int E, int T, void* cuda_stream) {
-  return launch_halo<false>(x, count, nbr, out, A, CH, dim, E, T,
+int fluid_halo_axes(const float* x, const int* occupied, const int* count, const int* nbr,
+                    float* out, int A, int CH, int dim, int E, int T, void* cuda_stream) {
+  return launch_halo<false>(x, occupied, count, nbr, out, A, CH, dim, E, T,
                             GridUpdate{nullptr, {0.0f, 0.0f, 0.0f}},
                             static_cast<cudaStream_t>(cuda_stream));
 }
 
 // The whole m+f halo (passes [0, dim), CH = dim) and the grid update, in
 // one launch: grid-value windows [A, 1 + dim, E^dim].
-int fluid_halo_gblk(const float* x, const float* hs_m, const int* count, const int* nbr,
-                    float* out, int A, int dim, int E, int T, float dtg0, float dtg1,
-                    float dtg2, void* cuda_stream) {
-  return launch_halo<true>(x, count, nbr, out, A, dim, dim, E, T,
+int fluid_halo_gblk(const float* x, const float* hs_m, const int* occupied, const int* count,
+                    const int* nbr, float* out, int A, int dim, int E, int T, float dtg0,
+                    float dtg1, float dtg2, void* cuda_stream) {
+  return launch_halo<true>(x, occupied, count, nbr, out, A, dim, dim, E, T,
                            GridUpdate{hs_m, {dtg0, dtg1, dtg2}},
                            static_cast<cudaStream_t>(cuda_stream));
 }

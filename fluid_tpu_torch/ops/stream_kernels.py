@@ -33,6 +33,17 @@ Layouts (see ``csrc/stream_kernels.cu``): stream ``[A, F, cap]``, windows
 ``[A, CH, E^D]`` in flat cell order ``(e_0, ..., e_{D-1})``, flag
 ``[A, cap]``, count / tid / neighbour rows ``[A]`` int32.
 
+The occupied entries: the five substep wrappers take ``occupied``, a [1]
+int32 tensor on the device, the number of entries with count > 0, which the
+binning puts first (``StreamState.occupied``).  They then work on the
+entries below it only, and the windows they return (or write into ``out``)
+are undefined at and past it: nothing reads them.  The kernels leave those
+rows as the buffer held them; the plain versions leave an ``out`` buffer's
+rows as they were and fill a new output's with NaN, so that a stage that
+read one would show it in the CPU tests.  ``occupied`` None is every entry
+of A, with zero windows at count 0 (the sharded path, whose ghost entries
+are zero-count actives that its exchange fills).
+
 Packed scenes (``TileGeom.scene_cells``): a tile of scene k holds its
 particles in that scene's coordinates, and every kernel that turns a
 position into a cell adds the integer ``k * scene_cells`` on axis 0, folded
@@ -99,6 +110,19 @@ class TileGeom:
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
+
+
+def _undefined_past(x: torch.Tensor, occupied, out=None) -> torch.Tensor:
+    """A stage output ``x`` [A, ...] as the kernels leave it given
+    ``occupied``: the rows below it, and past it ``out``'s rows as they
+    were (written into ``out``) or, for a new output, NaN.  ``occupied``
+    None: ``x`` itself (or copied into ``out``)."""
+    if occupied is None:
+        return x if out is None else out.copy_(x)
+    below = torch.arange(x.shape[0], device=x.device) < occupied
+    below = below.reshape(-1, *([1] * (x.dim() - 1)))
+    return (torch.where(below, x, float("nan")) if out is None
+            else out.copy_(torch.where(below, x, out)))
 
 
 def _valid_slots(count: torch.Tensor, cap: int):
@@ -217,17 +241,19 @@ def _particle_tail(newpos, v, params, x_shift):
         v[d] = vv
 
 
-def deposit_p2g1_plain(count, tid, stream, g: TileGeom) -> torch.Tensor:
+def deposit_p2g1_plain(count, tid, stream, g: TileGeom, occupied=None, out=None) -> torch.Tensor:
     A, D = count.shape[0], g.dim
     a_idx, s_idx = _valid_slots(count, g.cap)
     pos = stream[a_idx, 0:D, s_idx]
     vel = stream[a_idx, D:2 * D, s_idx]
     C = stream[a_idx, 2 * D:2 * D + D * D, s_idx].reshape(-1, D, D)
     mass = stream[a_idx, 2 * D + D * D, s_idx]
-    return _p2g1_windows(a_idx, pos, vel, C, mass, tid.long()[a_idx], A, g)
+    d1 = _p2g1_windows(a_idx, pos, vel, C, mass, tid.long()[a_idx], A, g)
+    return _undefined_past(d1, occupied, out)
 
 
-def deposit_p2g2_plain(count, tid, stream, hs_m, params, d1, g: TileGeom) -> torch.Tensor:
+def deposit_p2g2_plain(count, tid, stream, hs_m, params, d1, g: TileGeom,
+                       occupied=None) -> torch.Tensor:
     A, D = count.shape[0], g.dim
     a_idx, s_idx = _valid_slots(count, g.cap)
     pos = stream[a_idx, 0:D, s_idx]
@@ -251,10 +277,10 @@ def deposit_p2g2_plain(count, tid, stream, hs_m, params, d1, g: TileGeom) -> tor
             f = f + term[j][:, None] * dpos[..., j]
         cols.append(w * f)
     out = _scatter_windows(a_idx, e, torch.stack(cols, dim=-1), A, g) + d1[:, 1:]
-    return torch.where((count > 0)[:, None, None], out, 0.0)
+    return _undefined_past(torch.where((count > 0)[:, None, None], out, 0.0), occupied)
 
 
-def collect_plain(count, tid, params, stream, gblk, g: TileGeom, out=None):
+def collect_plain(count, tid, params, stream, gblk, g: TileGeom, out=None, occupied=None):
     A, D, cap = count.shape[0], g.dim, g.cap
     a_idx, s_idx = _valid_slots(count, cap)
     tid_v = tid.long()[a_idx]
@@ -298,7 +324,8 @@ def collect_plain(count, tid, params, stream, gblk, g: TileGeom, out=None):
     pos_n = torch.stack(newpos, dim=-1)
     vel_n = torch.stack(v, dim=-1)
     C_n = torch.stack(newC, dim=-1).reshape(-1, D, D)
-    return stream_out, flag, _p2g1_windows(a_idx, pos_n, vel_n, C_n, mass, tid_v, A, g)
+    dep = _p2g1_windows(a_idx, pos_n, vel_n, C_n, mass, tid_v, A, g)
+    return stream_out, flag, _undefined_past(dep, occupied)
 
 
 def halo_axis_plain(x, nbp, nbm, g: TileGeom, axis: int) -> torch.Tensor:
@@ -318,7 +345,7 @@ def halo_axis_plain(x, nbp, nbm, g: TileGeom, axis: int) -> torch.Tensor:
     return acc + torch.where(e_d < E - T, ys, 0.0)
 
 
-def halo_axes_plain(x, count, nbr, g: TileGeom, gate=None) -> torch.Tensor:
+def halo_axes_plain(x, count, nbr, g: TileGeom, gate=None, occupied=None) -> torch.Tensor:
     """The D passes of the separable halo, one after the other, on the
     occupancy-gated input ``where(gate > 0, x, 0)`` (``gate`` defaults to
     ``count``)."""
@@ -326,10 +353,11 @@ def halo_axes_plain(x, count, nbr, g: TileGeom, gate=None) -> torch.Tensor:
     x = torch.where((gate > 0)[:, None, None], x, 0.0)
     for d in range(g.dim):
         x = halo_axis_plain(x, nbr[2 * d], nbr[2 * d + 1], g, d)
-    return x
+    return _undefined_past(x, occupied)
 
 
-def halo_gblk_plain(x, hs_m, count, nbr, dtg, g: TileGeom, gate=None) -> torch.Tensor:
+def halo_gblk_plain(x, hs_m, count, nbr, dtg, g: TileGeom, gate=None,
+                    occupied=None) -> torch.Tensor:
     """All D passes of the m+f halo on the gated input, then the grid
     update: v = mf/m + dt g where m > 0 else 0, then m; zeros at tiles whose
     gate (default: count) is 0."""
@@ -339,7 +367,8 @@ def halo_gblk_plain(x, hs_m, count, nbr, dtg, g: TileGeom, gate=None) -> torch.T
     v = torch.where(
         hs_m > 0.0, mf / torch.where(hs_m > 0.0, hs_m, 1.0) + dtg[None, :, None], 0.0
     )
-    return torch.where((gate > 0)[:, None, None], torch.cat([v, hs_m], dim=1), 0.0)
+    out = torch.where((gate > 0)[:, None, None], torch.cat([v, hs_m], dim=1), 0.0)
+    return _undefined_past(out, occupied)
 
 
 def tile_keys(pos, g: TileGeom, vel=None, step: float = 0.0, xoff=None) -> torch.Tensor:
@@ -455,10 +484,12 @@ def check_cap(cap: int) -> None:
                          "warps, so cap must be a positive multiple of 32")
 
 
-def _check_tiles(count, tid, stream, g: TileGeom):
+def _check_tiles(count, tid, stream, g: TileGeom, occupied=None):
     A = count.shape[0]
     dev = stream.device
     _check("count", count, (A,), torch.int32, dev)
+    if occupied is not None:
+        _check("occupied", occupied, (1,), torch.int32, dev)
     _check("tid", tid, (A,), torch.int32, dev)
     _check("stream", stream, (A, g.F, g.cap), torch.float32, dev)
     if dev.type == "cuda":
@@ -466,43 +497,44 @@ def _check_tiles(count, tid, stream, g: TileGeom):
     return A, dev
 
 
-def deposit_p2g1(count, tid, stream, g: TileGeom, out=None) -> torch.Tensor:
+def deposit_p2g1(count, tid, stream, g: TileGeom, out=None, occupied=None) -> torch.Tensor:
     """p2g_1 windows [A, 1+D, E^D]: mass and APIC momentum of each tile,
-    written into ``out`` where given (the re-bin's in-place deposit)."""
-    A, dev = _check_tiles(count, tid, stream, g)
+    written into ``out`` where given (the re-bin's in-place deposit); with
+    ``occupied``, of the entries below it (see the module's docstring)."""
+    A, dev = _check_tiles(count, tid, stream, g, occupied)
     if out is not None:
         _check("out", out, (A, 1 + g.dim, g.ncell), torch.float32, dev)
     if _on_cpu(dev):
-        d1 = deposit_p2g1_plain(count, tid, stream, g)
-        return d1 if out is None else out.copy_(d1)
+        return deposit_p2g1_plain(count, tid, stream, g, occupied, out)
     if out is None:
         out = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("deposit_p2g1", "fluid_deposit", g.dim, 1, _ptr(count), _ptr(tid),
-                _ptr(stream), _ptr(None), _ptr(None), _ptr(None), _ptr(out), A,
+        _launch("deposit_p2g1", "fluid_deposit", g.dim, 1, _ptr(occupied), _ptr(count),
+                _ptr(tid), _ptr(stream), _ptr(None), _ptr(None), _ptr(None), _ptr(out), A,
                 g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin), g.sx)
     return out
 
 
-def deposit_p2g2(count, tid, stream, hs_m, params, d1, g: TileGeom) -> torch.Tensor:
+def deposit_p2g2(count, tid, stream, hs_m, params, d1, g: TileGeom,
+                 occupied=None) -> torch.Tensor:
     """Combined momentum + eq-16 force windows [A, D, E^D] (density from the
     halo'd mass windows ``hs_m`` [A, 1, E^D], p2g1 momentum from ``d1``).
     params: [dt, rest_density, eos_stiffness, eos_power, floor, mu]."""
-    A, dev = _check_tiles(count, tid, stream, g)
+    A, dev = _check_tiles(count, tid, stream, g, occupied)
     _check("hs_m", hs_m, (A, 1, g.ncell), torch.float32, dev)
     _check("d1", d1, (A, 1 + g.dim, g.ncell), torch.float32, dev)
     _check("params", params, (6,), torch.float32, dev)
     if _on_cpu(dev):
-        return deposit_p2g2_plain(count, tid, stream, hs_m, params, d1, g)
+        return deposit_p2g2_plain(count, tid, stream, hs_m, params, d1, g, occupied)
     out = torch.empty((A, g.dim, g.ncell), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("deposit_p2g2", "fluid_deposit", g.dim, 2, _ptr(count), _ptr(tid),
-                _ptr(stream), _ptr(hs_m), _ptr(d1), _ptr(params), _ptr(out), A,
+        _launch("deposit_p2g2", "fluid_deposit", g.dim, 2, _ptr(occupied), _ptr(count),
+                _ptr(tid), _ptr(stream), _ptr(hs_m), _ptr(d1), _ptr(params), _ptr(out), A,
                 g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin), g.sx)
     return out
 
 
-def collect(count, tid, params, stream, gblk, g: TileGeom, out=None):
+def collect(count, tid, params, stream, gblk, g: TileGeom, out=None, occupied=None):
     """g2p + particle tail -> (next stream [A, F, cap], flag [A, cap], the
     next substep's p2g1 windows [A, 1+D, E^D]).
     params: see ``stream_transfer.collect_params``.
@@ -511,28 +543,29 @@ def collect(count, tid, params, stream, gblk, g: TileGeom, out=None):
     written there and every other slot is left as it is: ``out`` may be
     ``(stream, flag)``, the state updated in place, whose slots past the
     count hold zeros.  Without it the result is new buffers, zeros past the
-    count."""
-    A, dev = _check_tiles(count, tid, stream, g)
+    count.  With ``occupied``, the p2g1 windows are those of the entries
+    below it."""
+    A, dev = _check_tiles(count, tid, stream, g, occupied)
     _check("gblk", gblk, (A, 1 + g.dim, g.ncell), torch.float32, dev)
     _check("params", params, (10 + 2 * g.dim,), torch.float32, dev)
     if out is not None:
         _check("out stream", out[0], stream.shape, torch.float32, dev)
         _check("out flag", out[1], (A, g.cap), torch.float32, dev)
     if _on_cpu(dev):
-        return collect_plain(count, tid, params, stream, gblk, g, out)
+        return collect_plain(count, tid, params, stream, gblk, g, out, occupied)
     if out is None:
         out = (torch.zeros_like(stream),
                torch.zeros((A, g.cap), dtype=torch.float32, device=dev))
     out_s, flag = out
     dep = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("collect", "fluid_collect", g.dim, _ptr(count), _ptr(tid), _ptr(params),
-                _ptr(stream), _ptr(gblk), _ptr(out_s), _ptr(flag), _ptr(dep), A, g.tile,
-                g.halo, g.cap, _ints(g.tshape), _ints(g.origin), g.sx)
+        _launch("collect", "fluid_collect", g.dim, _ptr(occupied), _ptr(count), _ptr(tid),
+                _ptr(params), _ptr(stream), _ptr(gblk), _ptr(out_s), _ptr(flag), _ptr(dep), A,
+                g.tile, g.halo, g.cap, _ints(g.tshape), _ints(g.origin), g.sx)
     return out_s, flag, dep
 
 
-def halo_axes(x, count, nbr, g: TileGeom, gate=None) -> torch.Tensor:
+def halo_axes(x, count, nbr, g: TileGeom, gate=None, occupied=None) -> torch.Tensor:
     """The D halo passes over windows [A, CH, E^D] in one launch, the
     input read as ``where(gate > 0, x, 0)``; ``nbr`` [2D, A] holds the
     active indices of each axis's +/- face neighbours (A = none).  ``gate``
@@ -545,13 +578,15 @@ def halo_axes(x, count, nbr, g: TileGeom, gate=None) -> torch.Tensor:
     _check("x", x, (A, CH, g.ncell), torch.float32, dev)
     _check("gate", gate, (A,), torch.int32, dev)
     _check("nbr", nbr, (2 * g.dim, A), torch.int32, dev)
+    if occupied is not None:
+        _check("occupied", occupied, (1,), torch.int32, dev)
     if _on_cpu(dev):
-        return halo_axes_plain(x, gate, nbr, g)
+        return halo_axes_plain(x, gate, nbr, g, occupied=occupied)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         # the kernel reads its count argument only as this gate
-        _launch("halo_axis", "fluid_halo_axes", _ptr(x), _ptr(gate), _ptr(nbr), _ptr(out),
-                A, CH, g.dim, g.E, g.tile)
+        _launch("halo_axis", "fluid_halo_axes", _ptr(x), _ptr(occupied), _ptr(gate), _ptr(nbr),
+                _ptr(out), A, CH, g.dim, g.E, g.tile)
     return out
 
 
@@ -560,7 +595,8 @@ def gravity_step(dt: float, gravity) -> np.ndarray:
     return np.float32(dt) * np.asarray(gravity, np.float32)
 
 
-def halo_gblk(x, hs_m, count, nbr, dtg: np.ndarray, g: TileGeom, gate=None) -> torch.Tensor:
+def halo_gblk(x, hs_m, count, nbr, dtg: np.ndarray, g: TileGeom, gate=None,
+              occupied=None) -> torch.Tensor:
     """The whole momentum+force halo (the D passes over the gated m+f
     windows ``x`` [A, D, E^D]) and the grid update, in one launch: grid
     values [A, 1+D, E^D] = (mf/m + dt g where m > 0 else 0, then m), with
@@ -573,13 +609,15 @@ def halo_gblk(x, hs_m, count, nbr, dtg: np.ndarray, g: TileGeom, gate=None) -> t
     _check("hs_m", hs_m, (A, 1, g.ncell), torch.float32, dev)
     _check("gate", gate, (A,), torch.int32, dev)
     _check("nbr", nbr, (2 * g.dim, A), torch.int32, dev)
+    if occupied is not None:
+        _check("occupied", occupied, (1,), torch.int32, dev)
     if _on_cpu(dev):
-        return halo_gblk_plain(x, hs_m, gate, nbr, dtg, g)
+        return halo_gblk_plain(x, hs_m, gate, nbr, dtg, g, occupied=occupied)
     out = torch.empty((A, 1 + g.dim, g.ncell), dtype=torch.float32, device=dev)
     d = [float(v) for v in dtg] + [0.0] * (3 - g.dim)
     with torch.cuda.device(dev):
-        _launch("halo_gblk", "fluid_halo_gblk", _ptr(x), _ptr(hs_m), _ptr(gate), _ptr(nbr),
-                _ptr(out), A, g.dim, g.E, g.tile, d[0], d[1], d[2])
+        _launch("halo_gblk", "fluid_halo_gblk", _ptr(x), _ptr(hs_m), _ptr(occupied), _ptr(gate),
+                _ptr(nbr), _ptr(out), A, g.dim, g.E, g.tile, d[0], d[1], d[2])
     return out
 
 

@@ -29,8 +29,10 @@ coordinates; the tile's scene adds its offset where a position becomes a
 cell, ``stream_kernels.TileGeom.scene_cells``).  The TPU's block-geometry
 knobs (``group``, ``pair``, ``wchunk``, ``mhalo``, ``interpret``,
 ``rebin_margin``, ``dyn`` and the ``ZFAC_*`` toggles) have no counterpart:
-every kernel launches over all A tiles and a tile with no particles writes
-zeros and returns.
+the binning counts its occupied entries on the device
+(``StreamState.occupied``; they come first), and every kernel of the
+substep works on the entries below that count, read from device memory at
+each launch, so no host read sizes a grid.
 """
 
 from __future__ import annotations
@@ -119,7 +121,10 @@ class StreamState:
     nbr [2D, A] int32 +/- face neighbours' active index (A = none);
     shell_drop, need_peak, fill_peak, rebins [1] int32 watermarks / counter:
     fill_peak is the most particles a binning asked one tile to hold, taken
-    before the clip to cap (above cap: particles were lost).
+    before the clip to cap (above cap: particles were lost);
+    occupied [1] int32: the entries with count > 0, which the binning puts
+    first, so the kernels work on the entries below it.  A state made
+    without it (an old one) derives it from ``count`` (``occupied_of``).
     """
 
     stream: torch.Tensor
@@ -131,6 +136,11 @@ class StreamState:
     need_peak: torch.Tensor
     fill_peak: torch.Tensor
     rebins: torch.Tensor
+    occupied: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.occupied is None:
+            self.occupied = occupied_of(self.count)
 
     def clone(self) -> "StreamState":
         return StreamState(**{f.name: getattr(self, f.name).clone()
@@ -141,11 +151,20 @@ class StreamState:
                 for f in dataclasses.fields(self)}
 
 
+def occupied_of(count: torch.Tensor) -> torch.Tensor:
+    """[1] int32: one past the last entry with count > 0, on the device (no
+    host read): in a binned state, whose occupied entries come first, their
+    number, ``(count > 0).sum()``."""
+    entry = torch.arange(1, count.shape[0] + 1, dtype=torch.int32, device=count.device)
+    return torch.where(count > 0, entry, 0).max().reshape(1)
+
+
 def stream_state_from_numpy(d: dict, spec: StreamSpec, device=None) -> StreamState:
     """A ``fluid_tpu`` StreamState as numpy (``pair=False``; layout
     ``stream [NG, F, G*cap]``, ``flag [NG, G, cap]``) -> the port's layout.
     ``nbrg`` (gated tables) has no counterpart and is ignored; without a
-    ``fill_peak`` (``fluid_tpu`` keeps none) it is the fullest tile's count."""
+    ``fill_peak`` (``fluid_tpu`` keeps none) it is the fullest tile's count,
+    without an ``occupied`` it is derived from the count (``occupied_of``)."""
     A, cap = spec.A, spec.cap
     stream = np.asarray(d["stream"], np.float32)
     NG, F, GL = stream.shape
@@ -167,6 +186,7 @@ def stream_state_from_numpy(d: dict, spec: StreamSpec, device=None) -> StreamSta
         need_peak=t(d["need_peak"], torch.int32),
         fill_peak=t(d.get("fill_peak", [np.max(d["count"], initial=0)]), torch.int32),
         rebins=t(d["rebins"], torch.int32),
+        occupied=t(d["occupied"], torch.int32) if "occupied" in d else None,
     )
 
 
@@ -307,9 +327,10 @@ def _bin_rows(rows, tid_of_particle, spec: StreamSpec, nt: int, tshape, occ_forc
     as occupied although no local particle is in them (the sharded
     backend's ghost columns, filled by the exchange); they bin as
     zero-count actives.  The slot structure (stream, count, tid, flag,
-    nbr) is written into ``out``'s tensors where given, which the result
-    shares, else into new ones (rebins 0); the result's shell_drop,
-    need_peak and fill_peak are this binning's.  The tile bookkeeping is
+    nbr, occupied) is written into ``out``'s tensors where given, which the
+    result shares, else into new ones (rebins 0); the result's shell_drop,
+    need_peak and fill_peak are this binning's.  ``occupied`` is the number
+    of entries with particles, the first ones.  The tile bookkeeping is
     PyTorch over the grid's tiles; ``stream_kernels.rebin_fill`` writes the
     slots."""
     cap, A = spec.cap, spec.A
@@ -348,10 +369,11 @@ def _bin_rows(rows, tid_of_particle, spec: StreamSpec, nt: int, tshape, occ_forc
             count=torch.empty((A,), **i32), tid=torch.empty((A,), **i32),
             flag=torch.empty((A, cap), dtype=torch.float32, device=dev),
             nbr=torch.empty((2 * len(tshape), A), **i32), shell_drop=drop, need_peak=need,
-            fill_peak=fill, rebins=torch.zeros((1,), **i32),
+            fill_peak=fill, rebins=torch.zeros((1,), **i32), occupied=torch.empty((1,), **i32),
         )
     else:
         out = dataclasses.replace(out, shell_drop=drop, need_peak=need, fill_peak=fill)
+    out.occupied.copy_(torch.clamp_max(n_occ, A).reshape(1))
     out.count.copy_(count_act)
     out.tid.copy_(tid_act)
     out.nbr.copy_(_nbr_table(tid_act, tshape, nt, A))
@@ -441,13 +463,13 @@ def collect_params(cfg: Config, mouse_pos, mouse_active, device=None) -> torch.T
 
 
 def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device):
-    """Stage closures of the stream substep, on ``device``::
+    """Stage closures of the stream substep, on ``device``, each working on
+    the entries below ``st.occupied`` (their windows past it undefined)::
 
       dep1(st[, out])            -> p2g_1 windows [A, 1+D, E^D] (into out)
       halo_m(st, dep1v)          -> halo'd mass windows [A, 1, E^D]
       dep2(st, dep1v, hs_m)      -> combined momentum+force windows [A, D, E^D]
-      halo_gblk(st, dep2v, hs_m) -> grid values [A, 1+D, E^D] (v rows, mass;
-                                    zeros at zero-count tiles)
+      halo_gblk(st, dep2v, hs_m) -> grid values [A, 1+D, E^D] (v rows, mass)
       collect(st, gblk, params[, out])
                                  -> (stream', flag, dep1_next); with
                                     out = (st.stream, st.flag), in place
@@ -458,19 +480,22 @@ def substep_stages(cfg: Config, domain: Domain, spec: StreamSpec, device):
     dtg = sk.gravity_step(cfg.dt, cfg.gravity)
 
     def dep1(st, out=None):
-        return sk.deposit_p2g1(st.count, st.tid, st.stream, g, out)
+        return sk.deposit_p2g1(st.count, st.tid, st.stream, g, out, occupied=st.occupied)
 
     def halo_m(st, dep1v):
-        return sk.halo_axes(dep1v[:, :1].contiguous(), st.count, st.nbr, g)
+        return sk.halo_axes(dep1v[:, :1].contiguous(), st.count, st.nbr, g,
+                            occupied=st.occupied)
 
     def dep2(st, dep1v, hs_m):
-        return sk.deposit_p2g2(st.count, st.tid, st.stream, hs_m, params6, dep1v, g)
+        return sk.deposit_p2g2(st.count, st.tid, st.stream, hs_m, params6, dep1v, g,
+                               occupied=st.occupied)
 
     def halo_gblk(st, dep2v, hs_m):
-        return sk.halo_gblk(dep2v, hs_m, st.count, st.nbr, dtg, g)
+        return sk.halo_gblk(dep2v, hs_m, st.count, st.nbr, dtg, g, occupied=st.occupied)
 
     def collect(st, gblk, params, out=None):
-        return sk.collect(st.count, st.tid, params, st.stream, gblk, g, out)
+        return sk.collect(st.count, st.tid, params, st.stream, gblk, g, out,
+                          occupied=st.occupied)
 
     return types.SimpleNamespace(
         dep1=dep1, halo_m=halo_m, dep2=dep2, halo_gblk=halo_gblk, collect=collect,
@@ -596,8 +621,10 @@ def substep(p: ParticleState, cfg: Config, domain: Domain, mouse_pos, mouse_acti
     d2 = stages.dep2(st, d1, hs_m)
     stream2 = stages.collect(st, stages.halo_gblk(st, d2, hs_m), params)[0]
     st2 = dataclasses.replace(st, stream=stream2)
-    m = windows_to_dense(d1[:, :1].contiguous(), st.tid, domain, spec)
-    mf = windows_to_dense(d2, st.tid, domain, spec)
+    # the windows past st.occupied are undefined: only the occupied ones sum
+    live = (st.count > 0)[:, None, None]
+    m = windows_to_dense(torch.where(live, d1[:, :1], 0.0), st.tid, domain, spec)
+    mf = windows_to_dense(torch.where(live, d2, 0.0), st.tid, domain, spec)
     g = torch.as_tensor(sk.gravity_step(cfg.dt, cfg.gravity), device=dev)
     vel = torch.where(m > 0.0, mf / torch.where(m > 0.0, m, 1.0) + g, 0.0)
     return unbin(st2, domain, spec, p.n, p.dim), GridState(mass=m[..., 0], vel=vel)

@@ -24,7 +24,8 @@ Each call records host spans in the process's recorder
 ``replay`` and ``check``), ``render`` (``histogram``, ``read``,
 ``ascii``), ``sync`` (``block_until_ready``), ``restore``, ``particles``
 and ``snapshot``; the strict check also records the stream's ``fill_peak``
-watermark beside its cap and its ``need_peak`` beside the active budget as
+watermark beside its cap, its ``need_peak`` beside the active budget and
+its ``occupied`` entries (those the kernels work on) beside the budget as
 counter samples.
 
 A batch of scenes runs on the stream backend in one ``PackedDomain``
@@ -95,8 +96,8 @@ class Session:
         ``scene_stride`` is not the domain's raises ValueError
     strict : after every frame check particle conservation and the
         active-budget watermark (stream only; one small device read, which
-        also fetches the tile-fill and budget-demand watermarks for the
-        recorder)
+        also fetches the tile-fill and budget-demand watermarks and the
+        occupied entries' count for the recorder)
     device : where the state lives (None: ``default_device()``, the card)
     """
 
@@ -173,10 +174,12 @@ class Session:
 
     def _check(self, where: str) -> None:
         st = self._st
-        live, drops, fill, need = torch.cat([st.count.sum(dtype=torch.int32).reshape(1),
-                                             st.shell_drop, st.fill_peak, st.need_peak]).tolist()
+        live, drops, fill, need, occupied = torch.cat(
+            [st.count.sum(dtype=torch.int32).reshape(1), st.shell_drop, st.fill_peak,
+             st.need_peak, st.occupied]).tolist()
         recorder().count("fill_peak", fill, self.spec.cap)
         recorder().count("need_peak", need, self.spec.A)
+        recorder().count("occupied", occupied, self.spec.A)
         if live != self.n:
             raise RuntimeError(
                 f"particle loss at {where}: sum(count)={live} != n={self.n} — "

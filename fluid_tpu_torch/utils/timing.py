@@ -125,7 +125,7 @@ DEVICE_SPANS = (("frame", FRAME_BEGIN, FRAME_END), ("rebin", REBIN_BEGIN, REBIN_
 BETWEEN = "between calls"
 SPANS = 1 << 18  # host records: ~29,000 app frames of 9 spans; older ones read as lost
 STAMPS = 1 << 17  # device stamps a device: 2 a frame and 2 a re-bin
-COUNTS = 1 << 17  # counter samples: two a strict check, ~42k in 50 s of the 2D app loop
+COUNTS = 1 << 17  # counter samples: three a strict check, ~63k in 50 s of the 2D app loop
 ANCHOR_TRIES = 8  # eager stamps an anchor takes the tightest of
 ANCHORS_KEPT = 64  # the first anchor and the latest others
 

@@ -3,6 +3,7 @@ bit-identical, the substep and a re-binning frame match the JAX dense
 backend, and the conservation / budget watermarks fire like the JAX ones.
 The kernels run as their plain versions (CPU tensors)."""
 
+import dataclasses
 import math
 
 import jax
@@ -16,10 +17,13 @@ from fluid_tpu.config import default_2d, default_3d
 from fluid_tpu.domain import make_domain
 from fluid_tpu.ops import stream_transfer as jstx
 from fluid_tpu.state import ParticleState as JParticles
+from fluid_tpu_torch import checkpoint
+from fluid_tpu_torch import scene as tscene
 from fluid_tpu_torch import state as tstate
 from fluid_tpu_torch import step as tstep
 from fluid_tpu_torch.ops import stream_kernels as sk
 from fluid_tpu_torch.ops import stream_transfer as tstx
+from fluid_tpu_torch.session import Session
 
 torch.set_num_threads(1)
 
@@ -291,13 +295,18 @@ def test_rebin_in_place_equals_rebin_before(dim, case):
     dep1 = torch.full((A, 1 + dim, spec.E**dim), 7.0)
     sk.reset_launches()
     tstx._rebin_into(got, dep1, cfg, dom, spec, tshape, nt, n_arg, stages)
-    for k in ("stream", "count", "tid", "flag", "nbr"):
+    for k in ("stream", "count", "tid", "flag", "nbr", "occupied"):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
     assert torch.equal(got.shell_drop, want.shell_drop)
     assert torch.equal(got.need_peak, want.need_peak) and int(got.need_peak[0]) > 1
     assert torch.equal(got.fill_peak, want.fill_peak) and int(got.fill_peak[0]) > 1
     assert int(got.rebins[0]) == 6
-    assert torch.equal(dep1, stages.dep1(want))
+    # the windows of the occupied entries; the buffer's rows past them are
+    # left as they were (undefined: nothing reads them)
+    occ = int(got.occupied[0])
+    assert 0 < occ == int((got.count > 0).sum())
+    assert torch.equal(dep1[:occ], stages.dep1(want)[:occ])
+    assert bool((dep1[occ:] == 7.0).all())
     assert not any(sk.LAUNCHES.values())  # the plain versions launch nothing
     assert not torch.equal(got.tid, st.tid) or not torch.equal(got.count, st.count)
     if case == "tight-budget":
@@ -306,3 +315,152 @@ def test_rebin_in_place_equals_rebin_before(dim, case):
         assert int(got.count.sum()) == n
     if case == "full-tile":
         assert int(got.count.max()) == cap
+
+
+def _packed_case(n=256, seed=11):
+    """Two 3D scenes of ``n`` particles packed side by side
+    (``scene.pack_scenes``), each in its own coordinates."""
+    cfg, _, _, _, _ = _case(3, 8, seed=0)
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(3.0, 11.0, (2, n, 3)).astype(np.float32)
+    vel = (rng.normal(size=(2, n, 3)) * 0.4).astype(np.float32)
+    stack = tstate.ParticleState.create(pos, vel=vel, device="cpu")
+    _, dom, _ = tscene.pack_scenes(stack, cfg)
+    return cfg, dom, tscene.batch_rows(stack)
+
+
+@pytest.mark.parametrize("case", ["2d", "3d", "packed", "tight-budget"])
+def test_bin_rows_counts_the_occupied_entries_first(case):
+    """``_bin_rows`` (through ``bin_particles``, and a re-bin into a
+    state's own tensors) sets ``occupied`` to the number of entries with
+    count > 0, and those are the first ones; under a budget below the
+    occupied tiles every entry is occupied and ``occupied`` is A."""
+    if case == "packed":
+        cfg, dom, p = _packed_case()
+        spec = tstx.default_spec(cfg, dom, p.n)
+    else:
+        cfg, pos, vel, C, dom = _case(2 if case == "2d" else 3, 256, seed=3, vel_scale=2.0)
+        p = tstate.from_numpy(pos, vel, C, device="cpu")
+        spec = _specs(dom, active=4 if case == "tight-budget" else None)[1]
+    st = tstx.bin_particles(p, dom, spec, dt=cfg.dt)
+    tshape, nt = tstx._tile_geometry(dom, spec)
+    moved = st.clone()
+    moved.occupied.fill_(-1)
+    moved.stream[:, :cfg.dim] += 1.5 * torch.where(moved.stream[:, :cfg.dim] != 0.0, 1.0, 0.0)
+    again = tstx._rebin_full(moved, cfg, dom, spec, tshape, nt, p.n, out=moved)
+    assert again.occupied is moved.occupied  # written in place, as the frame graph reads it
+    for s in (st, moved):
+        occ = int(s.occupied[0])
+        assert s.occupied.dtype == torch.int32 and s.occupied.shape == (1,)
+        assert occ == int((s.count > 0).sum()) > 0
+        assert bool((s.count[:occ] > 0).all()) and not bool(s.count[occ:].any())
+        assert torch.equal(s.occupied, tstx.occupied_of(s.count))
+    if case == "tight-budget":
+        assert int(st.occupied[0]) == spec.A and int(st.shell_drop[0]) > 0
+    else:
+        assert int(st.occupied[0]) < spec.A  # relays and unused entries follow
+
+
+def _bounded_stages(monkeypatch, fill):
+    """Patch the five substep wrappers: with ``fill`` a float, each output
+    window (and a written ``out`` buffer) gets ``fill`` at and past
+    ``occupied``; with ``fill`` None, ``occupied`` is dropped, so every
+    entry of A is computed and a zero-count one holds zero windows."""
+    names = ("deposit_p2g1", "deposit_p2g2", "collect", "halo_axes", "halo_gblk")
+    seen = []
+
+    def wrap(name, orig):
+        def call(*args, occupied=None, **kw):
+            if fill is None:
+                return orig(*args, **kw)
+            out = orig(*args, occupied=occupied, **kw)
+            win = out[2] if isinstance(out, tuple) else out
+            if not (name == "deposit_p2g1" and len(args) > 4 and args[4] is not None):
+                # a new output (a written buffer keeps its rows past the count)
+                seen.append(bool(torch.isnan(win[int(occupied[0]):]).all()))
+            win[int(occupied[0]):] = fill
+            return out
+        return call
+
+    for name in names:
+        monkeypatch.setattr(sk, name, wrap(name, getattr(sk, name)))
+    return seen
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_frame_ignores_the_windows_past_occupied(dim, monkeypatch):
+    """A frame of 8 substeps with re-bins (``frame_inplace``, the eager
+    branch) whose every window buffer holds NaN at and past ``occupied``
+    leaves the state bit-equal to the same frame launched over every entry
+    of A with zero windows at count 0: no stage reads a window past the
+    count."""
+    cfg, pos, vel, C, dom = _case(dim, 256, seed=1, vel_scale=4.0, world=12.0)
+    _, ts = _specs(dom)
+    st0 = tstx.bin_particles(tstate.from_numpy(pos, vel, C, device="cpu"), dom, ts, dt=cfg.dt)
+    assert int(st0.occupied[0]) < ts.A  # non-vacuous: entries past the count
+    runs = {}
+    for fill in (float("nan"), None):
+        with monkeypatch.context() as m:
+            seen = _bounded_stages(m, fill)
+            st = st0.clone()
+            tstx.frame_inplace(st, cfg, dom, ts, *tstep.no_mouse(), substeps=8, n=256)
+        runs[fill is None] = st
+        if fill is not None:
+            assert seen and all(seen)  # the plain versions leave NaN there too
+    got, want = runs[False], runs[True]
+    assert int(got.rebins[0]) > 0
+    for f in dataclasses.fields(got):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_stream_substep_grid_matches_dense_backend(dim):
+    """``substep``'s dense grid, summed from the occupied entries' windows
+    (the stream's windows past ``occupied`` are NaN on the CPU), matches
+    the port's dense backend: 1e-4 on mass and velocity, every value
+    finite."""
+    cfg, pos, vel, C, dom = _case(dim, 256, seed=0)
+    p = tstate.from_numpy(pos, vel, C, device="cpu")
+    _, gs = tstep.substep(p, cfg, dom, *tstep.no_mouse(), backend="stream")
+    _, gd = tstep.substep(p, cfg, dom, *tstep.no_mouse(), backend="dense")
+    assert bool(torch.isfinite(gs.mass).all()) and bool(torch.isfinite(gs.vel).all())
+    assert float(gs.mass.sum()) > 0.0
+    torch.testing.assert_close(gs.mass, gd.mass, atol=1e-4, rtol=0)
+    torch.testing.assert_close(gs.vel, gd.vel, atol=1e-4, rtol=0)
+
+
+def test_occupied_rides_with_the_state(tmp_path):
+    """``clone``, a Session's ``snapshot`` / ``restore``, the numpy round
+    trip (``stream_state_to_numpy`` / ``stream_state_from_numpy``) and a
+    checkpoint of the particles carry ``occupied``; a state without it (an
+    old one, or ``fluid_tpu``'s) derives it from the count."""
+    cfg, pos, vel, C, dom = _case(3, 256, seed=2, vel_scale=2.0)
+    _, ts = _specs(dom)
+    sess = Session(cfg.replace(iterations=4), dom, tstate.from_numpy(pos, vel, C, device="cpu"),
+                   backend="stream", spec=ts, device="cpu")
+    st = sess.stream_state()
+    snap = sess.snapshot()
+    occ0 = int(st.occupied[0])
+    assert occ0 == int((st.count > 0).sum())
+    st.occupied.fill_(0)
+    assert int(st.clone().occupied[0]) == 0 and st.clone().occupied is not st.occupied
+    sess.restore(snap)
+    assert int(st.occupied[0]) == occ0 and sess.stream_state() is st
+    sess.run(3)
+    assert int(st.occupied[0]) == int((st.count > 0).sum())
+
+    d = tstx.stream_state_to_numpy(st, group=2)
+    assert int(d["occupied"][0]) == int(st.occupied[0])
+    back = tstx.stream_state_from_numpy(d, ts)
+    assert all(torch.equal(getattr(back, f.name), getattr(st, f.name))
+               for f in dataclasses.fields(st))
+    del d["occupied"]
+    old = tstx.stream_state_from_numpy(d, ts)
+    assert torch.equal(old.occupied, st.occupied)
+
+    path = tmp_path / "c.npz"
+    checkpoint.save(path, sess.particles(), sess.cfg, frame=3)
+    q, cfg2, _ = checkpoint.load(path, device="cpu")
+    resumed = Session(cfg2, dom, q, backend="stream", spec=ts, device="cpu")
+    rs = resumed.stream_state()
+    assert int(rs.occupied[0]) == int((rs.count > 0).sum()) > 0

@@ -425,7 +425,8 @@ def test_collect_in_place_writes_only_live_slots(dim, cap):
     assert bool((got.stream.permute(0, 2, 1)[~live] == sentinel).all())
     assert bool((got.flag[~live] == sentinel).all())
     assert int(want[0].permute(0, 2, 1)[~live].count_nonzero()) == 0
-    assert torch.equal(outs[2], want[2])
+    occ = int(st.occupied[0])  # the p2g1 windows past it are undefined
+    assert torch.equal(outs[2][:occ], want[2][:occ])
 
 
 @pytest.mark.parametrize("bad", ["count_dtype", "count_shape", "nbr_shape", "gate_dtype",
@@ -485,6 +486,72 @@ def test_deposit_p2g1_into_out_equals_fresh(dim):
     got = sk.deposit_p2g1(st.count, st.tid, st.stream, g, out)
     assert got is out
     assert torch.equal(out, sk.deposit_p2g1(st.count, st.tid, st.stream, g))
+
+
+def _substep_outputs(st, g, cfg, occupied):
+    """The five kernels' outputs on ``st``, each stage fed the previous
+    stage's output, bounded by ``occupied`` (None: every entry)."""
+    params6 = torch.tensor([cfg.dt, cfg.rest_density, cfg.eos_stiffness, cfg.eos_power,
+                            cfg.pressure_floor, cfg.dynamic_viscosity], dtype=torch.float32)
+    params = tstx.collect_params(cfg, *tstep.mouse(MOUSE_XY))
+    dtg = sk.gravity_step(cfg.dt, cfg.gravity)
+    d1 = sk.deposit_p2g1(st.count, st.tid, st.stream, g, occupied=occupied)
+    hs_m = sk.halo_axes(d1[:, :1].contiguous(), st.count, st.nbr, g, occupied=occupied)
+    d2 = sk.deposit_p2g2(st.count, st.tid, st.stream, hs_m, params6, d1, g, occupied=occupied)
+    gblk = sk.halo_gblk(d2, hs_m, st.count, st.nbr, dtg, g, occupied=occupied)
+    stream, flag, dep = sk.collect(st.count, st.tid, params, st.stream, gblk, g,
+                                   occupied=occupied)
+    return {"dep1": d1, "halo_m": hs_m, "dep2": d2, "gblk": gblk, "stream": stream, "flag": flag,
+            "dep1_next": dep}
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_kernels_bounded_by_occupied(dim):
+    """Bounded by the state's ``occupied``, each stage's rows below it are
+    bit-equal to the launch over every entry, fed the bounded stages'
+    outputs (NaN past the count); a new window's rows past it are NaN (the
+    plain versions' mark of "undefined"); the stream and flag are whole; a
+    written ``out`` keeps its rows past the count.  Without ``occupied``
+    the windows of count-0 entries hold zeros (the m+f halo and the
+    deposits) or the relayed halo sums (the mass halo)."""
+    r = _reference(dim)
+    st, g, cfg = r["tst"], r["geom"], r["cfg"]
+    occ = int(st.occupied[0])
+    assert 0 < occ == int((st.count > 0).sum()) < st.count.shape[0]
+    full = _substep_outputs(st, g, cfg, None)
+    got = _substep_outputs(st, g, cfg, st.occupied)
+    for k in full:
+        assert torch.equal(got[k][:occ], full[k][:occ]), k
+        if k in ("stream", "flag"):
+            assert torch.equal(got[k], full[k]), k
+        else:
+            assert bool(torch.isnan(got[k][occ:]).all()), k
+            assert bool(torch.isfinite(full[k]).all()), k
+    for k in ("dep1", "dep2", "gblk", "dep1_next"):
+        assert not bool(full[k][occ:].any()), k
+    assert bool(full["halo_m"][occ:].any())  # relays carry the halo's sums
+    out = torch.full_like(full["dep1"], 7.0)
+    assert sk.deposit_p2g1(st.count, st.tid, st.stream, g, out, occupied=st.occupied) is out
+    assert torch.equal(out[:occ], full["dep1"][:occ]) and bool((out[occ:] == 7.0).all())
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_wrappers_reject_a_bad_occupied(bad):
+    """``occupied`` is a [1] int32 tensor on the state's device."""
+    r = _reference(2)
+    st, g = r["tst"], r["geom"]
+    occ = st.occupied.long() if bad == "dtype" else st.occupied.repeat(2)
+    err = TypeError if bad == "dtype" else ValueError
+    x = r["d1"][:, :1].contiguous()
+    dtg = sk.gravity_step(0.1, (0.0, 1.0))
+    params = tstx.collect_params(r["cfg"], *tstep.no_mouse())
+    for call in (lambda: sk.deposit_p2g1(st.count, st.tid, st.stream, g, occupied=occ),
+                 lambda: sk.halo_axes(x, st.count, st.nbr, g, occupied=occ),
+                 lambda: sk.halo_gblk(r["d2"], x, st.count, st.nbr, dtg, g, occupied=occ),
+                 lambda: sk.collect(st.count, st.tid, params, st.stream, r["gblk"], g,
+                                    occupied=occ)):
+        with pytest.raises(err):
+            call()
 
 
 @pytest.mark.parametrize("dim", [2, 3])

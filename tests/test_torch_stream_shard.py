@@ -147,6 +147,40 @@ def test_gated_halos_equal_jax(dim):
     assert not torch.equal(ss.gate, ss.st.count)
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_sharded_substep_launches_over_every_entry(dim, monkeypatch):
+    """The sharded path passes no ``occupied`` to the kernels: its ghost
+    entries hold no particle and lie past the binning's count, but the
+    halos read the windows the exchange fills there, so every launch covers
+    all A entries, and a count-0 entry's deposit and grid windows are zeros,
+    as before the count bounded the frame's launches."""
+    cfg, dom, js, ts, jss, tss, _ = _both_binned(dim, 2)
+    past = [bool(((ss.gate > ss.st.count) & (torch.arange(ts.spec.A) >= ss.st.occupied)).any())
+            for ss in tss]
+    assert all(past)  # the ghost entries the halos gate on lie past the count
+    calls = []
+
+    def wrap(name, orig):
+        def call(*args, **kw):
+            out = orig(*args, **kw)
+            win = out[2] if isinstance(out, tuple) else out
+            # a deposit's or collect's first argument is its shard's count
+            zero = (name in ("deposit_p2g1", "deposit_p2g2", "collect")
+                    and not bool(win[args[0] == 0].any()))
+            calls.append((name, kw.get("occupied"), bool(torch.isfinite(win).all()), zero))
+            return out
+        return call
+
+    for name in ("deposit_p2g1", "deposit_p2g2", "collect", "halo_axes", "halo_gblk"):
+        monkeypatch.setattr(sk, name, wrap(name, getattr(sk, name)))
+    tsh.sharded_frame_binned(tss, cfg, ts, *step.no_mouse(), substeps=1)
+    assert {c[0] for c in calls} == {"deposit_p2g1", "deposit_p2g2", "collect", "halo_axes",
+                                     "halo_gblk"}
+    for name, occupied, finite, zero in calls:
+        assert occupied is None and finite, name
+        assert zero or name.startswith("halo"), name
+
+
 @pytest.fixture(scope="module")
 def frame_case():
     """The 8-substep frame of tests/test_stream_shard.py (3D, world 16,

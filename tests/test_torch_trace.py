@@ -186,6 +186,9 @@ STRETCH = [("frame", 550e6, 560e6), ("rebin", 600e6, 601e6), ("rebin", 700e6, 70
 # fill_peak samples (time, value) of the strict checks, cap 128: two in the
 # traced stretch, the fuller ones outside it
 FILLS = [(400_000_000, 300), (600_000_000, 90), (800_000_000, 100), (1_100_000_000, 200)]
+# occupied samples (time, value) of the same checks, A 1,000: two in the
+# traced stretch
+OCCUPIED = [(450_000_000, 900), (700_000_000, 200), (950_000_000, 300), (1_050_000_000, 1000)]
 
 
 def _synthetic(monkeypatch, frames=2, base=1_200_000_000, period=450):
@@ -199,6 +202,8 @@ def _synthetic(monkeypatch, frames=2, base=1_200_000_000, period=450):
     rec.record("particles", base + frames * period, base + frames * period + 50)
     for at, fill in FILLS:
         rec.count("fill_peak", fill, 128, at=at)
+    for at, occupied in OCCUPIED:
+        rec.count("occupied", occupied, 1000, at=at)
     device = STRETCH + [("frame", float(base + k * period + 125), float(base + k * period + 380))
                         for k in range(frames)]
 
@@ -245,6 +250,7 @@ WANT = {
     "frame_device_ms.interactive": 255e-6,
     "rebin_device_ms.batch": (1_000_000 + 500_000) / 3 * 1e-6,
     "tile_fill_peak.interactive": 100 / 128 * 100.0,
+    "occupied_share.batch": (200 + 300) / 2 / 1000 * 100.0,
 }
 
 
